@@ -1,0 +1,218 @@
+"""PageRank driver (paper eq. 1/2) over any SpMV engine.
+
+Matches the paper's algorithms: ranks are stored SCALED (PR/|N_o|)
+during iteration (alg. 1 line 3 / alg. 2) and unscaled at the end.
+Dangling nodes (|N_o| = 0) contribute nothing downstream, matching the
+paper's implicit behaviour; their own rank is still computed.
+
+Two drivers:
+
+- ``driver="fused"`` (default): the power iteration runs on device
+  tensors; the L1 residual is computed on the device every
+  ``check_every`` iterations (and on the last) into a device buffer.
+  With ``tol == 0`` nothing is read back until the end; with
+  ``tol > 0`` one scalar is read per check to decide the early exit.
+  The iteration count and the residual slots are those of the JAX
+  package's ``lax.while_loop`` driver.
+- ``driver="python"``: the per-iteration loop that reads the residual
+  every iteration (used automatically for ``two_phase`` engines).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..graphs.formats import Graph
+from .spmv import SpMVEngine
+
+
+@dataclasses.dataclass
+class PageRankResult:
+    ranks: torch.Tensor      # unscaled PR vector
+    iterations: int
+    residuals: list
+
+
+def _inv_degree(g: Graph, device) -> torch.Tensor:
+    """1 / out-degree (0 for sinks) as float32 on ``device``, memoized
+    on the graph per device: one host pass and one upload per graph,
+    not one per solve. Callers never write into it."""
+    key = f"_inv_degree_{torch.device(device)}"
+    inv = g.__dict__.get(key)
+    if inv is None:
+        out_deg = np.asarray(g.out_degree)
+        inv = np.where(out_deg == 0, 0.0, 1.0 / np.maximum(out_deg, 1))
+        inv = torch.from_numpy(inv).to(device=device, dtype=torch.float32)
+        g.__dict__[key] = inv        # frozen-safe: dict write
+    return inv
+
+
+# ---------------------------------------------------------------------------
+# Fused driver
+# ---------------------------------------------------------------------------
+def fused_power_iteration(engine: SpMVEngine, *, damping: float = 0.85,
+                          num_iterations: int = 20, tol: float = 0.0,
+                          check_every: int = 1, multi: bool = False,
+                          dangling: str = "none"):
+    """Build (and cache on the engine's plan) the fused iteration loop.
+
+    Returns a callable ``run(pr0, inv_deg, base) -> (pr, it, residuals)``
+    where ``base`` is the already-(1-damping)-scaled teleport vector
+    (same shape as ``pr0``), and ``residuals`` is a (num_iterations,)
+    device tensor with -1.0 in slots where convergence was not checked.
+
+    With ``multi=True`` the state is (n, d) — d independent rank vectors
+    iterated in lockstep; the recorded residual is the max over columns
+    and the loop exits only once every column is below ``tol``.
+
+    ``dangling="redistribute"`` adds sink handling: the rank mass
+    parked on zero-out-degree nodes is summed each step and
+    redistributed over the teleport distribution (``base`` rescaled by
+    ``damping / (1 - damping)``), so total mass is conserved at 1. The
+    default ``"none"`` keeps the paper's implicit drop-the-mass
+    behaviour.
+    """
+    if dangling not in ("none", "redistribute"):
+        raise ValueError(f"unknown dangling policy {dangling!r}")
+    key = ("fused", str(engine.device), damping, num_iterations, tol,
+           check_every, multi, dangling)
+    cached = engine._fused_cache.get(key)
+    if cached is not None:
+        return cached
+
+    spmv = engine.spmv_fn()
+
+    def run(pr, inv_deg, base):
+        if multi:
+            inv_deg = inv_deg[:, None]
+        dang = (inv_deg == 0).to(pr.dtype)
+        redist = base * (damping / (1.0 - damping))
+        residuals = torch.full((max(num_iterations, 1),), -1.0,
+                               dtype=torch.float32, device=pr.device)
+        it = 0
+        while it < num_iterations:
+            # the SpMV returns a fresh buffer: the damping update runs in
+            # place on it and it becomes the next rank buffer (the JAX
+            # driver donates its rank buffer to the same end)
+            pr_next = spmv(pr * inv_deg)           # scaled ranks (alg.1 l.3)
+            pr_next.mul_(damping).add_(base)
+            if dangling == "redistribute":
+                pr_next.add_((pr * dang).sum(0) * redist)
+            check = ((it + 1) % check_every == 0
+                     or it + 1 >= num_iterations)
+            if check:
+                res = (pr_next - pr).abs_().sum(0)
+                if multi:
+                    res = res.max()
+                residuals[it] = res
+            pr = pr_next
+            it += 1
+            # the only host read inside the loop: one scalar per check,
+            # and only when an early exit is possible
+            if check and tol > 0 and 0.0 <= float(res) < tol:
+                break
+        return pr, it, residuals
+
+    engine._fused_cache[key] = run
+    return run
+
+
+def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
+               damping: float, tol: float, check_every: int,
+               dangling: str) -> PageRankResult:
+    n = g.num_nodes
+    run = fused_power_iteration(eng, damping=damping,
+                                num_iterations=num_iterations, tol=tol,
+                                check_every=check_every,
+                                dangling=dangling)
+    pr0 = torch.full((n,), 1.0 / n, dtype=torch.float32, device=eng.device)
+    base = torch.full((n,), (1.0 - damping) / n, dtype=torch.float32,
+                      device=eng.device)
+    pr, it, res = run(pr0, _inv_degree(g, eng.device), base)
+    res_host = res[:it].cpu().numpy()
+    return PageRankResult(pr, int(it),
+                          [float(r) for r in res_host if r >= 0.0])
+
+
+# ---------------------------------------------------------------------------
+# Python-loop driver (reads the residual on the host every iteration)
+# ---------------------------------------------------------------------------
+def _run_python(g: Graph, eng: SpMVEngine, *, num_iterations: int,
+                damping: float, tol: float,
+                dangling: str = "none") -> PageRankResult:
+    n = g.num_nodes
+    inv_deg = _inv_degree(g, eng.device)
+    dang = (inv_deg == 0).to(torch.float32)
+    pr = torch.full((n,), 1.0 / n, dtype=torch.float32, device=eng.device)
+    base = (1.0 - damping) / n
+    residuals = []
+    it = 0
+    for it in range(1, num_iterations + 1):
+        spr = pr * inv_deg
+        pr_next = base + damping * eng(spr)   # A^T @ SPR
+        if dangling == "redistribute":
+            pr_next = pr_next + (pr * dang).sum() * (damping / n)
+        res = float((pr_next - pr).abs().sum())
+        residuals.append(res)
+        pr = pr_next
+        if tol and res < tol:
+            break
+    return PageRankResult(pr, it, residuals)
+
+
+def pagerank(g: Graph, *, method: str = "pcpm", num_iterations: int = 20,
+             damping: float = 0.85, part_size: int = 65536,
+             tol: float = 0.0, engine: SpMVEngine | None = None,
+             driver: str = "fused", check_every: int = 1,
+             dangling: str = "none", device=None) -> PageRankResult:
+    """Compatibility front-end. ``method`` is resolved through the
+    backend registry and the graph plan comes from the process-level
+    plan cache, so repeated calls on one graph never re-sort edges.
+    ``device`` defaults to ``"cuda"`` (ignored when ``engine`` is
+    given: the engine's device is used). New code should prefer
+    ``repro_torch.open(g, cfg).pagerank()``."""
+    eng = engine or SpMVEngine(g, method=method, part_size=part_size,
+                               device=device)
+    if driver == "python" or eng.two_phase:
+        # the engine's __call__ already maps reordered plans back to
+        # the original labeling per pass — nothing to do here
+        return _run_python(g, eng, num_iterations=num_iterations,
+                           damping=damping, tol=tol, dangling=dangling)
+    if driver != "fused":
+        raise ValueError(f"unknown driver {driver!r}")
+    if eng.plan.reorder_perm is None:
+        return _run_fused(g, eng, num_iterations=num_iterations,
+                          damping=damping, tol=tol,
+                          check_every=check_every, dangling=dangling)
+    # reordered plan: iterate wholly in internal (relabeled) space —
+    # the uniform start/teleport vectors are permutation-invariant, so
+    # only the FINAL ranks pay one gather back to the original ids
+    from .backends import reorder_device
+    from .plan import internal_graph
+    res = _run_fused(internal_graph(g, eng.plan), eng,
+                     num_iterations=num_iterations, damping=damping,
+                     tol=tol, check_every=check_every, dangling=dangling)
+    perm, _ = reorder_device(eng.plan, eng.device)
+    res.ranks = res.ranks.index_select(0, perm)
+    return res
+
+
+def pagerank_reference(g: Graph, *, num_iterations: int = 20,
+                       damping: float = 0.85,
+                       dangling: str = "none") -> np.ndarray:
+    """Dense numpy oracle for tests (small graphs only)."""
+    n = g.num_nodes
+    A = np.zeros((n, n), dtype=np.float64)
+    np.add.at(A, (g.src, g.dst), 1.0)
+    deg = np.maximum(g.out_degree, 1).astype(np.float64)
+    inv = np.where(g.out_degree == 0, 0.0, 1.0 / deg)
+    sink = (np.asarray(g.out_degree) == 0).astype(np.float64)
+    pr = np.full(n, 1.0 / n)
+    for _ in range(num_iterations):
+        y = A.T @ (pr * inv)
+        if dangling == "redistribute":
+            y = y + (pr * sink).sum() / n
+        pr = (1 - damping) / n + damping * y
+    return pr

@@ -1,0 +1,5 @@
+from .formats import Graph, from_edge_list, validate_graph
+from . import generators, reorder
+
+__all__ = ["Graph", "from_edge_list", "validate_graph", "generators",
+           "reorder"]
