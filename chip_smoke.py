@@ -19,7 +19,27 @@ Phases, each of which exits non-zero when it fails:
    plain version at the main path's shapes (d = 1 and d = 16);
 4. times with CUDA events after warm-up: ms per iteration and GB/s per
    engine, B1's time beside its byte bound, its plain version and a
-   ``torch.sparse`` CSR matvec of A^T, which the port never calls.
+   ``torch.sparse`` CSR matvec of A^T, which the port never calls;
+5. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
+   against its plain version on the same inputs upcast to float32, on
+   the card: the shapes of the JAX package's ``TestFlashAttention``
+   (float32 within 2e-3, windows 64/128/200, unpadded S = 200), the LM
+   slice's decode shape (B 8, Hq 32, Hkv 4, Sq 1, 1024 cache slots,
+   mixed per-slot lengths) and its prefill shape (4, 2048, causal);
+   bfloat16 outputs within rtol 1.6e-2, atol 2e-3 (their rounding; inside
+   TestFlashAttention's 5e-2);
+6. the LM serving path: TinyLlama-1.1B at its configured widths
+   (``configs/tinyllama_1_1b.py``: 22 layers, d_model 2048, 32/4 heads,
+   d_ff 5632, vocab 32000), random bfloat16 weights from a seeded
+   generator; a ``ServeEngine`` with 8 slots and max_len 1024 drains 16
+   requests (prompts of 32-512 tokens, 64 new tokens each) with B3
+   launched once per layer per decode step; then ``prefill`` at
+   (4, 2048), and ``decode_step`` over 256 tokens against ``forward`` on
+   the same tokens;
+7. times with CUDA events: ms per decode step and tokens/s, prefill ms,
+   B3 beside its bound, its plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
+   port never calls); the device idle share of profiled decode steps.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -39,12 +59,33 @@ import numpy as np
 SCALE, FULL_SCALE, EDGE_FACTOR, PART_SIZE = 21, 25, 31, 65536
 ITERATIONS, DAMPING = 20, 0.85
 METHODS = ("pdpr", "bvgas", "pcpm", "pcpm_pallas")
-# H100 SXM, NVIDIA data sheet: HBM3 bandwidth, float32 (non-tensor) rate
+# H100 SXM, NVIDIA data sheet: HBM3 bandwidth, float32 (non-tensor) rate,
+# bfloat16 dense tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 B1_SHAPES = [(6, 4, 16, 1), (7, 8, 32, 8), (8, 6, 64, 16), (7, 4, 128, 32)]
 F32_TOL = dict(rtol=1e-5, atol=1e-6)   # atomics add in run-dependent order
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+# kernel B3 and the LM serving slice: configs/tinyllama_1_1b.py at its
+# widths; B3 within TestFlashAttention's float32 tolerance (sums in
+# another order)
+ARCH, LM_HEADS, LM_KV_HEADS, LM_DH = "tinyllama-1.1b", 32, 4, 64
+SLOTS, MAX_LEN, N_REQUESTS, NEW_TOKENS = 8, 1024, 16, 64
+PROMPT_LENS = (32, 512)
+PREFILL_SHAPE = (4, 2048)
+CONSISTENCY_LEN = 256
+# decode_step vs forward, bfloat16 weights, activations and cache: the
+# max logit gap measured on the H100 was 0.0898 on logits up to 5.03;
+# a greedy token can flip only where the top-2 margin is below twice it
+DECODE_TOL = 0.2
+PROFILE_STEPS = 16
+B3_F32_TOL = dict(rtol=2e-3, atol=2e-3)
+# a bfloat16 output against the plain version on the same inputs upcast to
+# float32: the kernel sums in float32, so what is left is the output's
+# rounding (half an ulp, 2**-9 relative); TestFlashAttention's 5e-2 would
+# be as large as a typical |o| at the LM's lengths (~sqrt(e / n))
+B3_BF16_TOL = dict(rtol=1.6e-2, atol=2e-3)
 
 
 def log(msg: str) -> None:
@@ -208,38 +249,15 @@ def profile_iterations(sessions, card) -> None:
                 f"x{e.count // ITERATIONS:<3d} {e.key[:90]}")
 
 
-def main() -> None:
+def pagerank_phases(dev, card) -> dict:
+    """Phases 3 and 4: the PageRank main path and its times; returns
+    B1's entry of the kernels line."""
     import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script runs on a "
-             "CUDA card")
-    root = Path(__file__).resolve().parent
-    if not (root / "src" / "repro_torch" / "__init__.py").is_file():
-        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
-             "a checkout of the repository")
-    sys.path.insert(0, str(root / "src"))
     from repro_torch import EngineConfig, open as open_session
     from repro_torch.graphs import generators
     from repro_torch.kernels.pcpm_spmv import (kernel as b1, pack_blocked,
                                                pcpm_gather_cuda,
                                                pcpm_gather_ref)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = card_line()
-    log(f"card: {card} (torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})")
-
-    # ---------------------------------------------------- 1. build
-    b1.load_library()
-    log(f"build: nvcc for sm_90a took {b1.build_seconds:.2f} s")
-    for line in b1.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # ---------------------------------------------------- 2. B1 checks
-    check_b1_test_shapes(dev)
-
     # ---------------------------------------------------- 3. main path
     t0 = time.perf_counter()
     g = generators.rmat(SCALE, EDGE_FACTOR, seed=0)
@@ -356,7 +374,7 @@ def main() -> None:
         f"{library_ms!r} ms; whole pcpm_pallas SpMV {spmv_ms!r} ms ({card})")
     torch.cuda.synchronize()
 
-    kernels = [{
+    return {
         "name": "pcpm_gather",
         "route": "cuda",
         "source": "src/repro_torch/csrc/pcpm_gather.cu",
@@ -368,7 +386,329 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
-    }]
+    }
+
+
+# --------------------------------------------------------------- phase 5
+def b3_inputs(dev, gen, b, hq, hkv, sq, skv, d, dtype):
+    """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), standard normal."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return normal(b, sq, hq, d), normal(b, skv, hkv, d), normal(b, skv, hkv, d)
+
+
+def check_b3(args, label, **kw) -> float:
+    """Launch B3 once, hold it against the plain version on the same
+    inputs upcast to float32; max abs err."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    out = flash_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = attention_ref(*(a.float() for a in args), **kw)
+    torch.cuda.synchronize()
+    tol = B3_F32_TOL if out.dtype == torch.float32 else B3_BF16_TOL
+    err = float((out.float() - ref).abs().max())
+    shapes = " ".join(str(tuple(a.shape)) for a in args)
+    log(f"B3 {label}: q k v {shapes} {str(args[0].dtype)[6:]}, "
+        f"{ {k: v for k, v in kw.items() if not torch.is_tensor(v)} }: "
+        f"max_abs_err={err!r} (rtol {tol['rtol']}, atol {tol['atol']}; "
+        f"mean |ref| {float(ref.abs().mean())!r}, max |ref| "
+        f"{float(ref.abs().max())!r})")
+    torch.testing.assert_close(out.float(), ref, **tol,
+                               msg=lambda m: f"B3 {label}: {m}")
+    return err
+
+
+def check_b3_shapes(dev) -> dict:
+    """B3 against its plain version at TestFlashAttention's shapes and at
+    the LM slice's decode and prefill shapes; returns those two cases as
+    {name: (args, kwargs, max abs err)}."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for b, hq, hkv, s, d in ((1, 4, 4, 256, 64), (2, 8, 2, 128, 64),
+                             (1, 4, 1, 384, 128)):
+        check_b3(b3_inputs(dev, gen, b, hq, hkv, s, s, d, f32),
+                 "causal", causal=True)
+    for window in (64, 128, 200):
+        check_b3(b3_inputs(dev, gen, 1, 2, 2, 384, 384, 64, f32),
+                 f"window {window}", causal=True, window=window)
+    check_b3(b3_inputs(dev, gen, 1, 2, 2, 200, 200, 64, f32), "unpadded",
+             causal=True)
+    check_b3(b3_inputs(dev, gen, 1, 2, 2, 256, 256, 64, bf16), "bf16",
+             causal=True)
+    cfg_heads = (LM_HEADS, LM_KV_HEADS)
+    lens = np.random.default_rng(1).integers(1, MAX_LEN + 1, SLOTS)
+    lens[:2] = (1, MAX_LEN)                  # the two ends of the range
+    decode = (b3_inputs(dev, gen, SLOTS, *cfg_heads, 1, MAX_LEN, LM_DH, bf16),
+              dict(causal=False, kv_len=torch.tensor(
+                  lens, dtype=torch.int32, device=dev)))
+    cases = {"decode": decode + (check_b3(decode[0], "decode shape",
+                                          **decode[1]),)}
+    b, s = PREFILL_SHAPE
+    prefill = (b3_inputs(dev, gen, b, *cfg_heads, s, s, LM_DH, bf16),
+               dict(causal=True))
+    cases["prefill"] = prefill + (check_b3(prefill[0], "prefill shape",
+                                           **prefill[1]),)
+    return cases
+
+
+# --------------------------------------------------------------- phase 6
+def sdpa_call(q, k, v, *, causal, kv_len=None):
+    """``scaled_dot_product_attention`` on the same inputs, the
+    yardstick: heads-major views of the (B, S, H, D) tensors, GQA by
+    ``enable_gqa``, per-row lengths as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if kv_len is not None:
+        mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True)
+
+
+def b3_entry(case, name, launches, card) -> dict:
+    """Time B3, its plain version and SDPA at one shape; its bound from
+    this case's inputs: the bytes of q, o and the live K/V rows, and the
+    4·D operations of every visible (query, key) pair."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    (q, k, v), kw, err = case
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), reps=5)
+    library_ms = time_ms(sdpa_call(q, k, v, **kw), reps=20)
+    if "kv_len" in kw:                       # decode: Sq = 1, no causal
+        live = int(kw["kv_len"].clamp(max=skv).sum())
+        pairs = hq * live
+    else:                                    # causal, Sq = Skv
+        live = b * skv
+        pairs = b * hq * sq * (sq + 1) // 2
+    nbytes = q.element_size() * (2 * q.numel() + 2 * live * hkv * d)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops = 4 * d * pairs
+    ops_ms = ops / PEAK_BF16_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"B3 at {name}: {ms!r} ms; bound {bound_ms!r} ms ({nbytes} B at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s, {ops} operations at "
+        f"{PEAK_BF16_PER_S / 1e12:.0f} TFLOP/s bf16); plain version "
+        f"{plain_ms!r} ms; scaled_dot_product_attention {library_ms!r} ms "
+        f"({card})")
+    return {
+        "name": f"flash_attention/{name}",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def profile_decode(eng, card) -> None:
+    """Device busy share and top kernels of PROFILE_STEPS engine steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if not busy_us:
+        log("profile decode: no device time in the trace (not measured)")
+        return
+    log(f"profile decode ({PROFILE_STEPS} steps, {eng.active} active "
+        f"slots): device busy {busy_us:.0f} us of {wall_us:.0f} us wall "
+        f"({100 * busy_us / wall_us:.1f}%), idle "
+        f"{100 * (1 - busy_us / wall_us):.1f}% ({card})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / PROFILE_STEPS:9.1f} us/step "
+            f"x{e.count / PROFILE_STEPS:<5.1f} {e.key[:90]}")
+
+
+def lm_phases(dev, card, b3_cases) -> list[dict]:
+    """Phases 6 and 7: TinyLlama-1.1B serving, prefill and the decode
+    consistency check, then their times; returns B3's entries of the
+    kernels line (decode and prefill shapes)."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get(ARCH)
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {cfg.name} at its configured widths (layers {cfg.n_layers}, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}): {n_params} bfloat16 parameters "
+        f"from torch.Generator seed 0, {time.perf_counter() - t0:.1f} s")
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def greedy(logits):                  # argmax on the card; finiteness
+        finite.logical_and_(torch.isfinite(logits).all())   # read at the end
+        return logits.argmax(-1)
+
+    def engine():
+        return ServeEngine(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN,
+                           sample=greedy)
+
+    engine().run_until_drained([Request(uid=-1, prompt=[1] * 4,
+                                        max_new_tokens=4)])   # warm-up
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        1, cfg.vocab, int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+    ).tolist(), max_new_tokens=NEW_TOKENS) for i in range(N_REQUESTS)]
+    eng = engine()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    b3.launch_count = 0                  # counts of the serving path only
+    start.record()
+    eng.run_until_drained(reqs)
+    end.record()
+    torch.cuda.synchronize()
+    decode_launches = b3.launch_count
+    drain_ms = start.elapsed_time(end)
+    generated = sum(len(r.generated) for r in reqs)
+    prompts = sum(len(r.prompt) for r in reqs)
+    log(f"main path (LM serving): {N_REQUESTS} requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, {prompts} in all) over "
+        f"{SLOTS} slots, max_len {MAX_LEN}: {eng.steps} decode steps, "
+        f"{generated} generated tokens, B3 launches {decode_launches} "
+        f"(= {cfg.n_layers} x {eng.steps}: "
+        f"{decode_launches == cfg.n_layers * eng.steps}), logits finite "
+        f"{bool(finite)}")
+    if not all(r.done and r.error is None
+               and len(r.generated) == NEW_TOKENS for r in reqs):
+        fail("a request did not finish with its 64 tokens")
+    if decode_launches != cfg.n_layers * eng.steps:
+        fail("B3 launches differ from layers x decode steps")
+    if not bool(finite):
+        fail("non-finite logits in the drain")
+
+    b, s = PREFILL_SHAPE
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    b3.launch_count = 0                  # counts of prefill only
+    logits, cache = tf.prefill(model, tokens)
+    torch.cuda.synchronize()
+    prefill_launches = b3.launch_count
+    log(f"main path (prefill {PREFILL_SHAPE}): B3 launches "
+        f"{prefill_launches}, logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}, cache "
+        f"{tuple(cache['k'].shape)}")
+    if (prefill_launches != cfg.n_layers or logits.shape != (b, 1, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())
+            or cache["k"].shape != (cfg.n_layers, b, s, cfg.n_kv_heads,
+                                    cfg.dh)):
+        fail("prefill")
+    del logits, cache
+
+    # decode_step token by token against forward on the same tokens
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, CONSISTENCY_LEN))
+                           ).to(dev)
+    b3.launch_count = 0
+    full = tf.forward(model, seq)[0][0].float()
+    cache = tf.init_cache(cfg, 1, CONSISTENCY_LEN, device=dev)
+    steps = []
+    for i in range(CONSISTENCY_LEN):
+        step_logits, cache = tf.decode_step(model, cache, seq[:, i:i + 1], i)
+        steps.append(step_logits[0, 0].float())
+    dec = torch.stack(steps)
+    torch.cuda.synchronize()
+    gap = float((dec - full).abs().max())
+    top2 = full.topk(2, -1).values
+    decided = (top2[:, 0] - top2[:, 1]) > DECODE_TOL
+    differ = int(((dec.argmax(-1) != full.argmax(-1)) & decided).sum())
+    log(f"decode vs forward over {CONSISTENCY_LEN} tokens: max abs logit gap "
+        f"{gap!r} (tol {DECODE_TOL}; logits up to "
+        f"{float(full.abs().max()):.3f}); greedy tokens differ at {differ} "
+        f"of {int(decided.sum())} positions whose top-2 margin exceeds the "
+        f"tol; B3 launches {b3.launch_count} "
+        f"(= {cfg.n_layers} x {CONSISTENCY_LEN + 1})")
+    if gap > DECODE_TOL or differ or \
+            b3.launch_count != cfg.n_layers * (CONSISTENCY_LEN + 1):
+        fail("decode_step disagrees with forward")
+    del cache, steps, dec, full
+
+    # ---------------------------------------------------- 7. times
+    log(f"time LM drain: {drain_ms / eng.steps!r} ms per decode step over "
+        f"the drain, {generated / drain_ms * 1e3!r} generated tokens/s, "
+        f"{(generated + prompts) / drain_ms * 1e3!r} tokens/s fed and "
+        f"generated ({card})")
+    steady = engine()
+    for i in range(SLOTS):
+        steady.add_request(Request(uid=i, prompt=[1 + i] * PROMPT_LENS[1],
+                                   max_new_tokens=NEW_TOKENS))
+    step_ms = time_ms(steady.step, reps=32, warmup=2)
+    log(f"time decode step, {SLOTS} active slots: {step_ms!r} ms, "
+        f"{SLOTS / step_ms * 1e3!r} tokens/s ({card})")
+    prefill_ms = time_ms(lambda: tf.prefill(model, tokens), reps=3, warmup=1)
+    log(f"time prefill {PREFILL_SHAPE}: {prefill_ms!r} ms, "
+        f"{b * s / prefill_ms * 1e3!r} tokens/s ({card})")
+    profile_decode(steady, card)
+    return [b3_entry(b3_cases["decode"], "decode", decode_launches, card),
+            b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script runs on a "
+             "CUDA card")
+    root = Path(__file__).resolve().parent
+    if not (root / "src" / "repro_torch" / "__init__.py").is_file():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import build_all
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"card: {card} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})")
+
+    # ---------------------------------------------------- 1. build
+    # one nvcc per kernel source, all started together
+    for built in build_all():
+        log(f"build: nvcc for sm_90a: {built.path.name} took "
+            f"{built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+
+    # ---------------------------------------------------- 2. B1 checks
+    check_b1_test_shapes(dev)
+    # ---------------------------------------------------- 3-4. PageRank
+    kernels = [pagerank_phases(dev, card)]
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 5. B3 checks
+    b3_cases = check_b3_shapes(dev)
+    # ---------------------------------------------------- 6-7. LM serving
+    kernels += lm_phases(dev, card, b3_cases)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

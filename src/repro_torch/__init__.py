@@ -10,6 +10,11 @@ in ``repro_torch.core.plan`` (one immutable ``GraphPlan`` per (graph,
 config), process-cached) and ``repro_torch.core.backends`` (the engine
 registry). The PCPM gather phase of the ``pcpm_pallas`` engine is a
 CUDA kernel (``repro_torch/csrc/pcpm_gather.cu``).
+
+LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
+(``transformer``: ``init_lm``, ``forward``, ``prefill``,
+``decode_step``) and ``repro_torch.serve`` (``ServeEngine``); its
+attention is the CUDA kernel ``repro_torch/csrc/flash_attention.cu``.
 """
 from .api import EngineConfig, Session, open
 from .core.backends import (Backend, available_backends, get_backend,

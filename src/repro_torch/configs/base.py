@@ -1,0 +1,84 @@
+"""LM configurations and the ``--arch`` registry.
+
+A copy of the LM part of the JAX package's ``configs/base.py``
+(``LMConfig``, ``register``, ``get``): the port imports nothing of that
+package. The GNN and recsys configurations come with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+_REGISTRY: dict[str, object] = {}
+
+
+def register(cfg) -> None:
+    assert cfg.name not in _REGISTRY, f"duplicate arch {cfg.name}"
+    _REGISTRY[cfg.name] = cfg
+
+
+def get(name: str):
+    if name not in _REGISTRY:
+        # import side-effect registration
+        from . import ALL_ARCHS  # noqa: F401
+    return _REGISTRY[name]
+
+
+def all_archs() -> list[str]:
+    from . import ALL_ARCHS  # noqa: F401
+    return sorted(_REGISTRY)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    family: str = "lm"
+    head_dim: Optional[int] = None
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # attention
+    window: Optional[int] = None       # sliding window (SWA)
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    source: str = ""
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        d, dh = self.d_model, self.dh
+        attn = d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh) \
+            + (self.n_heads * dh) * d
+        if self.moe:
+            ffn = self.n_experts * 3 * d * self.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
+        return (self.n_layers * per_layer + 2 * self.vocab * d + d)
+
+    def scaled(self, *, n_layers=2, d_model=128, n_heads=4, n_kv_heads=None,
+               d_ff=256, vocab=512, n_experts=None, window=None):
+        """Reduced config of the same family for CPU smoke tests."""
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", n_layers=n_layers,
+            d_model=d_model, n_heads=n_heads,
+            n_kv_heads=n_kv_heads or max(1, n_heads // 2), d_ff=d_ff,
+            vocab=vocab, head_dim=None,
+            n_experts=(self.n_experts and (n_experts or 4)),
+            top_k=min(self.top_k, 2) if self.moe else 0,
+            capacity_factor=8.0,   # no token drops at smoke-test scale
+            window=window if window is not None else
+            (64 if self.window else None))

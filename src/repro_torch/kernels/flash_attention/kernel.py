@@ -1,0 +1,173 @@
+"""Flash attention forward (kernel B3) as a CUDA kernel written for Hopper.
+
+Replaces the JAX package's Pallas TPU kernel
+``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
+The source is ``repro_torch/csrc/flash_attention.cu``; ``kernels/_build.py``
+compiles it with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface at first use, and it is bound with ``ctypes``.
+
+Bound: operations at prefill (4·D per visible (query, key) pair, against
+the tensor cores' bfloat16 rate), bytes at decode (the live K and V rows
+of the cache). This first version computes on the float32 cores; its
+design (the source note in the ``.cu`` file) aims at being right, at
+sharing each K/V tile among the q heads of a GQA group, at skipping the
+key tiles no row can see, and at reading q, k and v through their
+strides in the (B, S, H, D) layout of the model and the KV cache, which
+is therefore never transposed or copied.
+
+``flash_attention_cuda`` launches the kernel for CUDA tensors and raises
+on what it cannot take; for CPU tensors it computes the plain version
+(``ref.attention_ref``). There is no other fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+from .ref import attention_ref
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+HEAD_DIMS = (32, 64, 128)
+BLOCK_ROWS = 16      # (query, q head) rows per block: kRows in the source
+BLOCK_K = 32         # keys per tile: kBlockK in the source
+
+# Kernel launches made by ``flash_attention_cuda`` in this process (CPU
+# calls of the plain version do not count). Reset it by assigning 0.
+launch_count = 0
+# What the last build did: seconds spent in nvcc (0.0 when the library
+# was already built) and the compiler's report (registers, spills).
+build_seconds = 0.0
+build_log = ""
+
+_lib = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash, ``kernels/_build.py``) and load the
+    kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    lib, built = _build.load(SOURCE)
+    build_seconds, build_log = built.seconds, built.log
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_fwd.argtypes = (
+        [i32] * 3 + [ptr] * 4 + [i32] * 5 + [i64] * 12 + [i32] * 3
+        + [ptr, ctypes.c_float, ptr])
+    lib.flash_attention_fwd.restype = i32
+    _lib = lib
+    return lib
+
+
+def kv_tile_range(pos_lo: int, pos_hi: int, q_offset: int, kv_len: int, *,
+                  causal: bool, window: int | None,
+                  block_k: int = BLOCK_K) -> range:
+    """The key tiles a block whose rows hold the query positions
+    ``pos_lo..pos_hi`` walks; every other tile is wholly masked for those
+    rows (the TPU kernel's ``pl.when`` skip). The kernel computes the
+    same rule."""
+    k_end = kv_len
+    if causal:
+        k_end = min(k_end, pos_hi + q_offset + 1)
+    k_begin = 0
+    if window is not None:
+        k_begin = max(0, pos_lo + q_offset - window + 1)
+    if k_end <= k_begin:
+        return range(0)
+    return range(k_begin // block_k, -(-k_end // block_k))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("q must be (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head size")
+    if k.shape[2] < 1 or hq % k.shape[2] != 0:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[2]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be float32 or bfloat16; got "
+                            f"{t.dtype}")
+    if k.dtype != v.dtype:
+        raise TypeError(f"k and v must share a dtype; got {k.dtype} and "
+                        f"{v.dtype}")
+    if q.dtype == torch.bfloat16 and k.dtype == torch.float32:
+        raise TypeError("a bfloat16 q needs bfloat16 k and v; got float32")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None; got {window}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"q, k and v must share one device; got {q.device}, "
+                         f"{k.device}, {v.device}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         kv_len: int | torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    The counterpart of the JAX package's ``flash_attention_pallas`` in
+    the model's layout, without block padding: ``kv_len`` is None (all
+    ``Skv`` keys), an int, or a (B,) integer tensor of per-row lengths
+    (the decode path). The output is bfloat16 when q, k and v are, else
+    float32, as ``mha_ref`` promotes. CUDA tensors go to the kernel (or
+    raise); CPU tensors go to the plain version.
+    """
+    global launch_count
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.cuda.get_device_capability(q.device) != (9, 0):
+        raise RuntimeError(
+            "the flash attention kernel is built for sm_90a (Hopper); "
+            f"device {torch.cuda.get_device_name(q.device)} has compute "
+            f"capability {torch.cuda.get_device_capability(q.device)}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} is not one of {HEAD_DIMS}")
+    if max(b, hkv) > 65535 or max(sq * (hq // hkv), skv) >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: B={b}, Sq={sq}, "
+                         f"Skv={skv}, Hq={hq}, Hkv={hkv}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must have a contiguous last dimension")
+    lens, kv_scalar = None, skv
+    if isinstance(kv_len, torch.Tensor) and kv_len.dim() > 0:
+        if kv_len.shape != (b,):
+            raise ValueError(f"kv_len must be (B,) = ({b},); got "
+                             f"{tuple(kv_len.shape)}")
+        lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    elif kv_len is not None:
+        kv_scalar = int(kv_len)
+    both_bf16 = q.dtype == k.dtype == torch.bfloat16
+    out = torch.empty((b, sq, hq, d), device=q.device,
+                      dtype=torch.bfloat16 if both_bf16 else torch.float32)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, hq, hkv,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            int(causal), window or 0, kv_scalar,
+            None if lens is None else lens.data_ptr(), 1.0 / math.sqrt(d),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launch_count += 1
+    return out

@@ -2,9 +2,10 @@
 
 Replaces the JAX package's Pallas TPU kernel
 ``src/repro/kernels/pcpm_spmv/kernel.py::pcpm_gather_pallas``. The
-source is ``repro_torch/csrc/pcpm_gather.cu``; it is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-at first use, keyed on a hash of the source, and bound with ``ctypes``.
+source is ``repro_torch/csrc/pcpm_gather.cu``; ``kernels/_build.py``
+compiles it with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface at first use, keyed on a hash of the source, and it is
+bound with ``ctypes``.
 
 Bound: bytes. One call must read the two int32 index streams once (8 B
 per edge), each real update's bins row once (U·d values) and write the
@@ -25,22 +26,13 @@ what it cannot take; for CPU tensors it computes the plain version
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
+from .. import _build
 from .ref import pcpm_gather_ref
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "pcpm_gather.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "pcpm_gather.cu"
 
 # Kernel launches made by ``pcpm_gather_cuda`` in this process (CPU calls
 # of the plain version do not count). Reset it by assigning 0.
@@ -53,42 +45,14 @@ build_log = ""
 _lib = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    candidates = ([os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME
-                  else []) + [shutil.which("nvcc") or ""]
-    for path in candidates:
-        if path and os.path.isfile(path):
-            return path
-    raise RuntimeError("nvcc not found (CUDA_HOME unset and no nvcc on "
-                       "PATH): cannot build the PCPM gather kernel")
-
-
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash, ``kernels/_build.py``) and load the
+    kernel library."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"pcpm_gather-{digest[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a temporary name and rename: concurrent builders
-        # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                               str(SOURCE)], capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                               f"(exit {proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, built = _build.load(SOURCE)
+    build_seconds, build_log = built.seconds, built.log
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pcpm_gather_f32.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.pcpm_gather_f32.restype = i32

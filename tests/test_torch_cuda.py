@@ -1,22 +1,30 @@
 """The port on the card: kernel B1 against its plain version, and the
 main path ``open(g, device="cuda").pagerank()`` against the same solve
-on the CPU and the dense oracle.
+on the CPU and the dense oracle; kernel B3 against its plain version,
+and the smoke LM's ``ServeEngine`` on the card against the same run on
+the CPU.
 
 Every test is marked ``cuda`` and skips without a card. The file needs
 neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch for CUDA:  ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
+from repro_torch import configs
 from repro_torch.core import (Partitioning, block_png, build_png,
                               pagerank_reference)
 from repro_torch.graphs import generators
 from repro_torch.kernels.pcpm_spmv import (kernel, pack_blocked,
                                            pcpm_gather_cuda, pcpm_gather_ref,
                                            pcpm_spmv_pallas)
+from repro_torch.kernels import flash_attention as b3
+from repro_torch.models import transformer as tf
+from repro_torch.serve import Request, ServeEngine
 
 from test_torch_reference import cuda_device, dense_spmv  # noqa: F401
 
@@ -106,3 +114,99 @@ def test_open_pagerank_on_the_card(cuda_device, method):
     ids, _ = sess.top_ranked(10)
     np.testing.assert_array_equal(ids, np.lexsort(
         (np.arange(g.num_nodes), -oracle))[:10])
+
+
+# ------------------------------------------------------------- kernel B3
+def _attn_inputs(dev, shape, dtype, seed, kv_dtype=None):
+    b, hq, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(seed)
+
+    def mk(*dims, dt):
+        return torch.from_numpy(rng.standard_normal(dims).astype(
+            np.float32)).to(dev, dt)
+    return (mk(b, sq, hq, d, dt=dtype), mk(b, skv, hkv, d, dt=kv_dtype or dtype),
+            mk(b, skv, hkv, d, dt=kv_dtype or dtype))
+
+
+B3_CASES = [  # (b, hq, hkv, sq, skv, d), window: TestFlashAttention's
+    ((1, 4, 4, 256, 256, 64), None), ((2, 8, 2, 128, 128, 64), None),
+    ((1, 4, 1, 384, 384, 128), None), ((1, 2, 2, 384, 384, 64), 64),
+    ((1, 2, 2, 384, 384, 64), 128), ((1, 2, 2, 384, 384, 64), 200),
+    ((1, 2, 2, 200, 200, 64), None), ((2, 4, 2, 70, 130, 32), None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,window", B3_CASES)
+def test_b3_vs_plain(cuda_device, shape, window, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(cuda_device, shape, dt, seed=sum(shape))
+    before = b3.kernel.launch_count
+    out = b3.flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_count == before + 1
+    assert out.dtype == dt
+    ref = b3.attention_ref(q.float(), k.float(), v.float(), causal=True,
+                           window=window)
+    tol = 2e-3 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_b3_decode_per_slot_kv_len_on_a_cache_view(cuda_device, q_dtype):
+    """Sq = 1 against one layer of a bfloat16 (L, B, slots, Hkv, D) cache,
+    read in place through its strides, with per-slot lengths."""
+    cache = torch.randn((3, 8, 256, 4, 64), device=cuda_device).to(
+        torch.bfloat16)
+    kc, vc = cache[1], cache[2]
+    q = torch.randn((8, 1, 32, 64), device=cuda_device).to(
+        getattr(torch, q_dtype))
+    kv_len = torch.tensor([1, 5, 31, 32, 33, 200, 256, 0],
+                          dtype=torch.int32, device=cuda_device)
+    out = b3.attention(q, kc, vc, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    ref = b3.attention_ref(q.float(), kc.float(), vc.float(), causal=False,
+                           kv_len=kv_len)
+    assert out.dtype == getattr(torch, q_dtype)
+    # bfloat16 out: its rounding only (float32 sums), not TestFlashAttention's
+    # 5e-2, which is the size of |o| itself over hundreds of keys
+    tol = (dict(rtol=2e-3, atol=2e-3) if q_dtype == "float32"
+           else dict(rtol=1.6e-2, atol=2e-3))
+    torch.testing.assert_close(out.float(), ref, **tol)
+    assert not out[7].any()
+
+
+def test_b3_rejects_what_it_cannot_take(cuda_device):
+    q, k, v = _attn_inputs(cuda_device, (1, 4, 2, 8, 8, 48), torch.float32, 0)
+    with pytest.raises(ValueError, match="head size"):
+        b3.flash_attention_cuda(q, k, v)
+    q, k, v = _attn_inputs(cuda_device, (1, 4, 2, 8, 8, 64), torch.float32, 0)
+    with pytest.raises(ValueError, match="contiguous last"):
+        b3.flash_attention_cuda(q, k.transpose(2, 3).contiguous()
+                                .transpose(2, 3), v)
+
+
+def test_serve_engine_on_the_card_matches_cpu(cuda_device):
+    cfg = configs.get("tinyllama-1.1b").scaled()
+    cpu_model = tf.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+
+    def run(model):
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, int(
+            rng.integers(3, 20))).tolist(), max_new_tokens=10)
+            for i in range(10)]
+        reqs.append(Request(uid=99, prompt=[1] * 60, max_new_tokens=10))
+        eng = ServeEngine(cfg, model, batch_slots=4, max_len=64)
+        return eng, eng.run_until_drained(reqs)
+
+    before = b3.kernel.launch_count
+    gpu_eng, on_card = run(gpu_model)
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_count - before == cfg.n_layers * gpu_eng.steps
+    cpu_eng, on_cpu = run(cpu_model)
+    assert gpu_eng.steps == cpu_eng.steps
+    assert [(r.generated, r.error) for r in on_card] == [
+        (r.generated, r.error) for r in on_cpu]
+    assert on_card[-1].error is not None

@@ -1,0 +1,200 @@
+"""The dense LM: the port's ``models/transformer.py`` against the JAX
+package's, on the same parameters.
+
+The reference's ``init_lm`` draws the parameters (``jax.random`` cannot
+be reproduced in torch); ``params_from_numpy`` loads them into the port.
+Then ``forward``, ``prefill`` (logits and cache) and per-slot
+``decode_step``s are held against the reference's on the tinyllama and
+stablelm smoke configurations (stablelm's keeps one KV head per query
+head, as the full configuration does): float32 parameters within 1e-3
+(measured: ≈2.4e-6 on logits of magnitude ≈4 for forward and prefill;
+up to ≈4.5e-4 for decode, where a one-ulp float32 difference can flip a
+rounding of the bfloat16 cache), bfloat16 parameters within 5e-2 (the
+bfloat16 roundings of two frameworks; measured ≈3.9e-2, one bfloat16
+step at 4).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.models import layers
+from repro_torch.models import transformer as tf
+
+from test_torch_reference import load_reference
+
+ref_configs = load_reference("configs")
+ref_tf = load_reference("models.transformer")
+ref_layers = load_reference("models.layers")
+
+ARCHS = ["tinyllama-1.1b", "stablelm-1.6b"]
+# smoke widths; stablelm-1.6b is multi-head (Hkv = Hq) at full width too
+SMOKE = {"tinyllama-1.1b": {}, "stablelm-1.6b": {"n_kv_heads": 4}}
+TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+       "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _numpy_tree(params, dtype):
+    return jax.tree.map(lambda a: np.asarray(a.astype(dtype)), params)
+
+
+def _models(arch, dtype, seed=0):
+    """(port cfg, reference cfg, reference params in ``dtype``, port LM
+    on the CPU holding the same parameters)."""
+    cfg = configs.get(arch).scaled(**SMOKE[arch])
+    ref_cfg = ref_configs.get(arch).scaled(**SMOKE[arch])
+    params = ref_tf.init_lm(ref_cfg, jax.random.key(seed))
+    params = jax.tree.map(lambda a: a.astype(getattr(jnp, dtype)), params)
+    model = tf.params_from_numpy(cfg, _numpy_tree(params, getattr(jnp,
+                                                                  dtype)),
+                                 device="cpu")
+    return cfg, ref_cfg, params, model
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s),
+                                                dtype=np.int32)
+
+
+def _close(out, ref, dtype):
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_copied_value_for_value(arch):
+    assert (dataclasses.asdict(configs.get(arch))
+            == dataclasses.asdict(ref_configs.get(arch)))
+    assert (dataclasses.asdict(configs.get(arch).scaled(**SMOKE[arch]))
+            == dataclasses.asdict(ref_configs.get(arch).scaled(
+                **SMOKE[arch])))
+    assert configs.get(arch).param_count() == ref_configs.get(
+        arch).param_count()
+
+
+def test_params_from_numpy_keeps_bf16_bits_and_orientation():
+    cfg, _, params, model = _models("tinyllama-1.1b", "bfloat16")
+    assert model.layers[1].wq.dtype == torch.bfloat16
+    assert tuple(model.layers[1].wq.shape) == (cfg.d_model,
+                                               cfg.n_heads * cfg.dh)
+    np.testing.assert_array_equal(
+        model.layers[1].w_down.float().numpy(),
+        np.asarray(params["layers"]["w_down"][1], np.float32))
+    np.testing.assert_array_equal(model.embed.float().numpy(),
+                                  np.asarray(params["embed"], np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("attn_path", ["dense", "chunked"])
+def test_forward_matches_reference(arch, dtype, attn_path):
+    cfg, ref_cfg, params, model = _models(arch, dtype)
+    tokens = _tokens(cfg, 2, 64, seed=1)
+    ref, aux = ref_tf.forward(params, ref_cfg, jnp.asarray(tokens),
+                              attn_path=attn_path)
+    out, port_aux = tf.forward(model, torch.from_numpy(tokens),
+                               attn_path=attn_path)
+    assert out.dtype == getattr(torch, dtype)
+    _close(out, ref, dtype)
+    assert float(port_aux) == float(aux) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_reference(arch, dtype):
+    cfg, ref_cfg, params, model = _models(arch, dtype)
+    tokens = _tokens(cfg, 2, 48, seed=2)
+    ref_logits, ref_cache = ref_tf.prefill(params, ref_cfg,
+                                           jnp.asarray(tokens))
+    logits, cache = tf.prefill(model, torch.from_numpy(tokens))
+    assert logits.shape == ref_logits.shape == (2, 1, cfg.vocab)
+    _close(logits, ref_logits, dtype)
+    for name in ("k", "v"):
+        assert cache[name].shape == ref_cache[name].shape
+        _close(cache[name], ref_cache[name], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_per_slot_decode_matches_reference(arch, dtype):
+    """Six batched steps with a different position in every slot; the
+    cache is bfloat16 on both sides whatever the parameters' dtype."""
+    cfg, ref_cfg, params, model = _models(arch, dtype)
+    b, max_len = 4, 32
+    ref_cache = ref_tf.init_cache(ref_cfg, b, max_len)
+    cache = tf.init_cache(cfg, b, max_len, device="cpu")
+    t = np.array([0, 3, 9, 30], np.int32)
+    step = jax.jit(lambda p, c, tok, tt: ref_tf.decode_step(p, ref_cfg, c,
+                                                            tok, tt))
+    for i in range(6):
+        tokens = _tokens(cfg, b, 1, seed=10 + i)
+        ref_logits, ref_cache = step(params, ref_cache, jnp.asarray(tokens),
+                                     jnp.asarray(t))
+        logits, cache = tf.decode_step(model, cache,
+                                       torch.from_numpy(tokens),
+                                       torch.from_numpy(t))
+        _close(logits, ref_logits, dtype)
+        t = (t + 1) % max_len                # slot 3 wraps to position 0
+    for name in ("k", "v"):
+        assert cache[name].dtype == torch.bfloat16
+        _close(cache[name], ref_cache[name], "bfloat16")
+
+
+def test_scalar_decode_matches_reference_and_forward():
+    """Lockstep decode (scalar t) over a sequence: against the
+    reference's decode and against the port's own forward on the same
+    tokens, within the gap the bfloat16 cache leaves (≈1e-2)."""
+    cfg, ref_cfg, params, model = _models("tinyllama-1.1b", "float32")
+    tokens = _tokens(cfg, 2, 12, seed=3)
+    ref_cache = ref_tf.init_cache(ref_cfg, 2, 16)
+    cache = tf.init_cache(cfg, 2, 16, device="cpu")
+    outs = []
+    for i in range(tokens.shape[1]):
+        ref_logits, ref_cache = ref_tf.decode_step(
+            params, ref_cfg, ref_cache, jnp.asarray(tokens[:, i:i + 1]), i)
+        logits, cache = tf.decode_step(
+            model, cache, torch.from_numpy(tokens[:, i:i + 1]), i)
+        _close(logits, ref_logits, "float32")
+        outs.append(logits)
+    full, _ = tf.forward(model, torch.from_numpy(tokens))
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), full.numpy(),
+                               atol=3e-2, rtol=0)
+
+
+def test_init_lm_shapes_and_dtype():
+    cfg = configs.get("tinyllama-1.1b").scaled()
+    gen = torch.Generator().manual_seed(0)
+    model = tf.init_lm(cfg, generator=gen, device="cpu")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == cfg.param_count()
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    again = tf.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    assert torch.equal(model.layers[0].wq, again.layers[0].wq)
+
+
+def test_moe_config_raises_not_implemented():
+    cfg = dataclasses.replace(configs.get("tinyllama-1.1b").scaled(),
+                              n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        tf.init_lm(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_reference(dtype):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 3, 32)).astype(np.float32)
+    scale = rng.standard_normal(32).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _close(layers.rms_norm(torch.from_numpy(x).to(tdt),
+                           torch.from_numpy(scale).to(tdt)),
+           ref_layers.rms_norm(jnp.asarray(x, jdt), jnp.asarray(scale, jdt)),
+           dtype)
+    _close(layers.rope(torch.from_numpy(x).to(tdt), torch.from_numpy(pos),
+                       1e4),
+           ref_layers.rope(jnp.asarray(x, jdt), jnp.asarray(pos), 1e4), dtype)
