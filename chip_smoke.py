@@ -39,7 +39,27 @@ Phases, each of which exits non-zero when it fails:
 7. times with CUDA events: ms per decode step and tokens/s, prefill ms,
    B3 beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
-   port never calls); the device idle share of profiled decode steps.
+   port never calls); the device idle share of profiled decode steps;
+8. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
+   against its plain version on the card: the shapes of the JAX
+   package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
+   in float32 and with a bfloat16 table, pad ids and a negative id (row
+   0); then MIND's lookups (one-id bags) on its 10M-row table at the
+   shapes of phase 9, which must give the plain version's rows exactly;
+9. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
+   embed_dim 64, 4 interests, 3 routing iterations, hist_len 50),
+   float32 parameters from a seeded generator; ``serve_step`` at
+   serve_p99 (B 512) and serve_bulk (B 262,144), ``retrieval_step`` for
+   one user over 1,000,000 distinct candidates (top 64), on histories of
+   Zipf-distributed ids with lengths uniform in 1-50 and pads of V;
+   B2 launched once per ``serve_step`` and twice per ``retrieval_step``;
+   the capsules held against the port's CPU path, against a pad of
+   V + 7, and retrieval against a float64 rescoring. Then times with CUDA
+   events: ms per ``serve_step`` (users/s) and per ``retrieval_step``,
+   the device idle share of profiled serve_p99 steps, and B2 at both
+   serve shapes beside its bound, its plain version and
+   ``torch.nn.functional.embedding_bag`` (a yardstick the port never
+   calls).
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -86,6 +106,27 @@ B3_F32_TOL = dict(rtol=2e-3, atol=2e-3)
 # rounding (half an ulp, 2**-9 relative); TestFlashAttention's 5e-2 would
 # be as large as a typical |o| at the LM's lengths (~sqrt(e / n))
 B3_BF16_TOL = dict(rtol=1.6e-2, atol=2e-3)
+# kernel B2 and the MIND serving slice: configs/mind.py as it stands;
+# B2 at TestEmbeddingBag's shapes and tolerance (float32 sums in another
+# order); a bfloat16 output may differ from the plain version's by one
+# bfloat16 step (2**-7 relative) where the two float32 sums round apart
+MIND_ARCH = "mind"
+B2_TEST_SHAPES = [(512, 128, 8, 4), (1024, 64, 32, 16), (2048, 128, 64, 8)]
+B2_TOL = dict(rtol=1e-4, atol=1e-5)
+B2_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+# item popularity: a Zipf law over ranks, each rank folded into [0, V) by
+# Fibonacci hashing (a fixed odd 64-bit multiplier), so hot items repeat
+# and are spread over the table
+ZIPF_A = 1.2
+ID_HASH = 0x9E3779B97F4A7C15
+TOP_K = 64
+# capsules on the card against the port's CPU path on the same
+# parameters, float32 without TF32: cuBLAS and the CPU sum the (50, 64)
+# products in other orders
+MIND_TOL = dict(rtol=1e-4, atol=1e-5)
+# retrieval scores (|s| < ~1, 64-term float32 dots) against a float64
+# rescoring: ids are compared where neighbouring scores differ by more
+SCORE_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -516,8 +557,9 @@ def b3_entry(case, name, launches, card) -> dict:
     }
 
 
-def profile_decode(eng, card) -> None:
-    """Device busy share and top kernels of PROFILE_STEPS engine steps."""
+def profile_steps(step, label, card) -> None:
+    """Device busy share and top kernels of PROFILE_STEPS calls of
+    ``step()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -525,17 +567,17 @@ def profile_decode(eng, card) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     if not busy_us:
-        log("profile decode: no device time in the trace (not measured)")
+        log(f"profile {label}: no device time in the trace (not measured)")
         return
-    log(f"profile decode ({PROFILE_STEPS} steps, {eng.active} active "
-        f"slots): device busy {busy_us:.0f} us of {wall_us:.0f} us wall "
+    log(f"profile {label} ({PROFILE_STEPS} steps): device busy "
+        f"{busy_us:.0f} us of {wall_us:.0f} us wall "
         f"({100 * busy_us / wall_us:.1f}%), idle "
         f"{100 * (1 - busy_us / wall_us):.1f}% ({card})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
@@ -667,9 +709,280 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
     prefill_ms = time_ms(lambda: tf.prefill(model, tokens), reps=3, warmup=1)
     log(f"time prefill {PREFILL_SHAPE}: {prefill_ms!r} ms, "
         f"{b * s / prefill_ms * 1e3!r} tokens/s ({card})")
-    profile_decode(steady, card)
+    profile_steps(steady.step, f"decode, {steady.active} active slots",
+                  card)
     return [b3_entry(b3_cases["decode"], "decode", decode_launches, card),
             b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
+
+
+# --------------------------------------------------------------- phase 8
+def check_b2(table, idx, w, label, tol) -> float:
+    """Launch B2 once, hold it against the plain version; max abs err."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_ref)
+    out = embedding_bag_cuda(table, idx, w)
+    torch.cuda.synchronize()
+    ref = embedding_bag_ref(table, idx, w)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    log(f"B2 {label}: table {tuple(table.shape)} {str(table.dtype)[6:]}, ids "
+        f"{tuple(idx.shape)} {str(idx.dtype)[6:]}, weights "
+        f"{w is not None}: max_abs_err={err!r} (rtol {tol['rtol']}, atol "
+        f"{tol['atol']})")
+    torch.testing.assert_close(out.float(), ref.float(), **tol,
+                               msg=lambda m: f"B2 {label}: {m}")
+    return err
+
+
+def check_b2_shapes(dev) -> None:
+    """B2 against its plain version at TestEmbeddingBag's shapes (with
+    weights), on pad ids, a negative id and a bfloat16 table."""
+    import torch
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for v, d, b, l in B2_TEST_SHAPES:
+        table = torch.rand((v, d), generator=gen, device=dev)
+        idx = torch.randint(0, v, (b, l), generator=gen, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand((b, l), generator=gen, device=dev)
+        check_b2(table, idx, w, f"TestEmbeddingBag V={v} d={d} B={b} L={l}",
+                 B2_TOL)
+        check_b2(table.bfloat16(), idx.long(), w, "bfloat16 table",
+                 B2_BF16_TOL)
+    v = 512
+    table = torch.rand((v, 128), generator=gen, device=dev)
+    pads = torch.tensor([[0, 1, v, v], [2, v, v, v]], dtype=torch.int32,
+                        device=dev)
+    check_b2(table, pads, None, "pad ids", B2_TOL)
+    out = embedding_bag_cuda(table, pads)
+    if not (torch.allclose(out[0], table[0] + table[1], rtol=1e-6)
+            and torch.equal(out[1], table[2])):
+        fail("B2 pad ids: not the sums of the valid rows")
+    neg = torch.tensor([[-1, 3, v, v + 88]], device=dev)
+    check_b2(table, neg, None, "negative id", B2_TOL)
+    if not torch.allclose(embedding_bag_cuda(table, neg)[0],
+                          table[0] + table[3], rtol=1e-6):
+        fail("B2 negative id: not row 0 (the reference's clip)")
+
+
+# --------------------------------------------------------------- phase 9
+def zipf_ids(rng, shape, vocab) -> np.ndarray:
+    """int32 item ids in [0, vocab) whose popularity follows Zipf(ZIPF_A)."""
+    ranks = rng.zipf(ZIPF_A, size=shape).astype(np.uint64)
+    return ((ranks * np.uint64(ID_HASH)) % np.uint64(vocab)).astype(np.int32)
+
+
+def histories(rng, batch, cfg) -> np.ndarray:
+    """(batch, hist_len) int32 histories with lengths uniform in
+    1..hist_len, the tail padded with ``cfg.vocab``."""
+    hist = zipf_ids(rng, (batch, cfg.hist_len), cfg.vocab)
+    lens = rng.integers(1, cfg.hist_len + 1, batch)
+    hist[np.arange(cfg.hist_len)[None, :] >= lens[:, None]] = cfg.vocab
+    return hist
+
+
+def b2_entry(table, ids, name, launches, err, card) -> dict:
+    """Time B2, its plain version and ``F.embedding_bag`` on MIND's lookup
+    of ``ids`` (one-id bags); its bound from this run's ids: 4 B per id,
+    one row per distinct valid id, the output."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_ref)
+    flat = ids.reshape(-1, 1)
+    v, d = table.shape
+    n = flat.shape[0]
+    reps = 50 if n < 10 ** 6 else 5
+    ms = time_ms(lambda: embedding_bag_cuda(table, flat), reps=reps)
+    plain_ms = time_ms(lambda: embedding_bag_ref(table, flat),
+                       reps=max(reps // 5, 2))
+    # the yardstick, never called by the port: pads clamped to row 0 with
+    # weight 0
+    valid = flat < v
+    lib_ids = torch.where(valid, flat, 0)
+    lib_w = valid.to(table.dtype)
+    library_ms = time_ms(lambda: F.embedding_bag(
+        lib_ids, table, mode="sum", per_sample_weights=lib_w), reps=reps)
+    lib_gap = float((F.embedding_bag(lib_ids, table, mode="sum",
+                                     per_sample_weights=lib_w)
+                     - embedding_bag_cuda(table, flat)).abs().max())
+    n_valid = int(valid.sum())
+    distinct = int(torch.unique(flat[valid]).numel())
+    nbytes = (flat.element_size() * n + table.element_size() * d * distinct
+              + table.element_size() * d * n)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops = n_valid * d                        # one add per valid id, column
+    ops_ms = ops / PEAK_F32_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"B2 at {name}: {ms!r} ms; bound {bound_ms!r} ms ({nbytes} B for "
+        f"{n} ids, {n_valid} valid, {distinct} distinct, at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s); plain version {plain_ms!r} ms; "
+        f"F.embedding_bag {library_ms!r} ms (max gap to B2 {lib_gap!r}) "
+        f"({card})")
+    return {
+        "name": f"embedding_bag/{name}",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:49",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def mind_phases(dev, card) -> list[dict]:
+    """Phases 8 (B2 at MIND's lookup shapes) and 9: MIND serving at full
+    width, its checks and times; returns B2's entries of the kernels
+    line (serve_p99 and serve_bulk)."""
+    import torch
+    from repro_torch.configs import RECSYS_SHAPES, get
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag import kernel as b2
+    from repro_torch.models import recsys
+    cfg = get(MIND_ARCH)
+    shapes = {s.name: s for s in RECSYS_SHAPES}
+    t0 = time.perf_counter()
+    model = recsys.init_mind(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} at its configured widths (vocab {cfg.vocab}, "
+        f"embed_dim {cfg.embed_dim}, interests {cfg.n_interests}, routing "
+        f"iterations {cfg.capsule_iters}, hist_len {cfg.hist_len}): float32 "
+        f"table {tuple(model.table.shape)} "
+        f"({model.table.numel() * 4 / 1e9:.2f} GB) from torch.Generator seed "
+        f"0, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    hist = {name: torch.from_numpy(histories(
+        rng, shapes[name].global_batch, cfg)).to(dev)
+        for name in ("serve_p99", "serve_bulk")}
+    user = torch.from_numpy(histories(
+        rng, shapes["retrieval_cand"].global_batch, cfg)).to(dev)
+    cand = torch.from_numpy(rng.choice(
+        cfg.vocab, shapes["retrieval_cand"].n_candidates, replace=False
+    ).astype(np.int32)).to(dev)
+    lens = (hist["serve_bulk"] < cfg.vocab).sum(1).float()
+    log(f"traffic: Zipf({ZIPF_A}) ids folded into [0, {cfg.vocab}), "
+        f"lengths 1-{cfg.hist_len} (serve_bulk mean "
+        f"{float(lens.mean()):.2f}), pad {cfg.vocab}; "
+        f"{cand.numel()} distinct candidates; {time.perf_counter() - t0:.1f} "
+        "s on the host")
+
+    # ------------------------------ 8. B2 exact at MIND's lookup shapes
+    errs = {}
+    for name, ids in (("serve_p99", hist["serve_p99"]),
+                      ("serve_bulk", hist["serve_bulk"]),
+                      ("retrieval_cand", cand)):
+        flat = ids.reshape(-1, 1)
+        out = embedding_bag_cuda(model.table, flat)
+        ref = embedding_bag_ref(model.table, flat)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        errs[name] = float((out - ref).abs().max())
+        log(f"B2 MIND lookup at {name}: {tuple(flat.shape)} one-id bags on "
+            f"the {tuple(model.table.shape)} table: exact rows {same}, "
+            f"max_abs_err={errs[name]!r}")
+        if not same:
+            fail(f"B2 at MIND's {name} lookup: not the plain version's rows")
+        del out, ref
+
+    # ------------------------------ 9. main path: serve and retrieve
+    launches, caps = {}, {}
+    for name in ("serve_p99", "serve_bulk"):
+        b2.launch_count = 0              # counts of this call only
+        caps[name] = recsys.serve_step(model, cfg, hist[name])
+        torch.cuda.synchronize()
+        launches[name] = b2.launch_count
+    b2.launch_count = 0
+    scores, ids = recsys.retrieval_step(model, cfg, user, cand, top_k=TOP_K)
+    torch.cuda.synchronize()
+    launches["retrieval_cand"] = b2.launch_count
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (*caps.values(), scores))
+    log(f"main path (MIND serving): serve_step at serve_p99 "
+        f"{tuple(caps['serve_p99'].shape)}, at serve_bulk "
+        f"{tuple(caps['serve_bulk'].shape)}, retrieval_step over "
+        f"{cand.numel()} candidates top-{TOP_K}; B2 launches "
+        f"{launches['serve_p99']}, {launches['serve_bulk']}, "
+        f"{launches['retrieval_cand']} (expected 1, 1, 2); outputs finite "
+        f"{finite}")
+    if (launches["serve_p99"], launches["serve_bulk"],
+            launches["retrieval_cand"]) != (1, 1, 2):
+        fail("B2 launches differ from 1 per serve_step, 2 per "
+             "retrieval_step")
+    if not finite or scores.shape != (1, TOP_K):
+        fail("MIND outputs not finite or of the wrong shape")
+    del caps["serve_bulk"]
+
+    # the card against the port's CPU path on the same parameters
+    cpu_model = recsys.MIND(cfg, *(getattr(model, name).cpu()
+                                   for name in recsys.PARAM_NAMES))
+    on_cpu = recsys.serve_step(cpu_model, cfg, hist["serve_p99"].cpu())
+    gap = float((caps["serve_p99"].cpu() - on_cpu).abs().max())
+    log(f"serve_p99 capsules, card vs CPU: max abs gap {gap!r} (rtol "
+        f"{MIND_TOL['rtol']}, atol {MIND_TOL['atol']}; max |caps| "
+        f"{float(on_cpu.abs().max())!r})")
+    torch.testing.assert_close(caps["serve_p99"].cpu(), on_cpu, **MIND_TOL,
+                               msg=lambda m: f"MIND card vs CPU: {m}")
+    del cpu_model, on_cpu
+
+    # padding invariance: the sentinel V + 7 instead of V
+    h7 = torch.where(hist["serve_p99"] < cfg.vocab, hist["serve_p99"],
+                     cfg.vocab + 7)
+    caps7 = recsys.serve_step(model, cfg, h7)
+    same = torch.equal(caps7, caps["serve_p99"])
+    gap7 = float((caps7 - caps["serve_p99"]).abs().max())
+    log(f"padding invariance (pad {cfg.vocab} -> {cfg.vocab + 7}): "
+        f"bitwise equal {same}, max abs gap {gap7!r}")
+    torch.testing.assert_close(caps7, caps["serve_p99"], rtol=1e-5,
+                               atol=1e-6, msg=lambda m: f"padding: {m}")
+
+    # retrieval against a float64 rescoring of the same candidates
+    user_caps = recsys.interests(model, cfg, user).double()
+    s64 = torch.einsum("bkd,nd->bkn", user_caps,
+                       model.table[cand.long()].double()).amax(1)
+    top64 = s64.topk(TOP_K + 1, dim=-1)
+    apart = torch.ones((1, TOP_K + 1), dtype=torch.bool, device=dev)
+    gaps = top64.values.diff(dim=1).abs() > SCORE_TOL
+    apart[:, 1:] &= gaps
+    apart[:, :-1] &= gaps
+    apart = apart[:, :TOP_K]
+    same_ids = torch.equal(ids[apart], top64.indices[:, :TOP_K][apart])
+    score_gap = float((scores.double() - top64.values[:, :TOP_K]).abs().max())
+    log(f"retrieval vs float64 rescoring: top-{TOP_K} ids equal at "
+        f"{int(apart.sum())} separated positions: {same_ids}; max score gap "
+        f"{score_gap!r} (tol {SCORE_TOL}); scores "
+        f"{float(scores[0, -1])!r}..{float(scores[0, 0])!r}")
+    if not same_ids or score_gap > SCORE_TOL:
+        fail("retrieval disagrees with the float64 rescoring")
+    del user_caps, s64, top64
+
+    # ------------------------------ 9. times
+    torch.cuda.empty_cache()
+    for name, reps in (("serve_p99", 50), ("serve_bulk", 5)):
+        ms = time_ms(lambda: recsys.serve_step(model, cfg, hist[name]),
+                     reps=reps, warmup=1)
+        b = hist[name].shape[0]
+        log(f"time serve_step {name} (B {b}): {ms!r} ms, "
+            f"{b / ms * 1e3!r} users/s ({card})")
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: recsys.retrieval_step(model, cfg, user, cand,
+                                               top_k=TOP_K), reps=20)
+    log(f"time retrieval_step ({cand.numel()} candidates, top-{TOP_K}): "
+        f"{ms!r} ms ({card})")
+    profile_steps(lambda: recsys.serve_step(model, cfg, hist["serve_p99"]),
+                  "serve_step serve_p99", card)
+    entries = [b2_entry(model.table, hist[name], name, launches[name],
+                        errs[name], card)
+               for name in ("serve_p99", "serve_bulk")]
+    torch.cuda.synchronize()
+    return entries
 
 
 def main() -> None:
@@ -708,6 +1021,13 @@ def main() -> None:
     b3_cases = check_b3_shapes(dev)
     # ---------------------------------------------------- 6-7. LM serving
     kernels += lm_phases(dev, card, b3_cases)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # ---------------------------------------------------- 8. B2 checks
+    check_b2_shapes(dev)
+    # ---------------------------------------------------- 8-9. MIND serving
+    kernels += mind_phases(dev, card)
+    log(f"phases 8-9 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

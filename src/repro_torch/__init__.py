@@ -15,6 +15,10 @@ LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
 (``transformer``: ``init_lm``, ``forward``, ``prefill``,
 ``decode_step``) and ``repro_torch.serve`` (``ServeEngine``); its
 attention is the CUDA kernel ``repro_torch/csrc/flash_attention.cu``.
+
+Recsys serving (MIND) lives in ``repro_torch.models.recsys``
+(``init_mind``, ``serve_step``, ``retrieval_step``); every embedding
+lookup is the CUDA kernel ``repro_torch/csrc/embedding_bag.cu``.
 """
 from .api import EngineConfig, Session, open
 from .core.backends import (Backend, available_backends, get_backend,

@@ -1,9 +1,12 @@
 """The configurations the port runs so far: the dense LMs of the LM
-serving slice. The MoE, SWA, GNN and recsys configurations come with
-their slices (ROADMAP.md, Queue A)."""
-from .base import LMConfig, all_archs, get, register
-from . import stablelm_1_6b, tinyllama_1_1b
+serving slice and MIND of the recsys serving slice, with MIND's input
+shapes (``RECSYS_SHAPES``). The MoE, SWA and GNN configurations come
+with their slices (ROADMAP.md, Queue A)."""
+from .base import (LMConfig, RECSYS_SHAPES, RecSysConfig, ShapeSpec,
+                   all_archs, get, register)
+from . import mind, stablelm_1_6b, tinyllama_1_1b
 
-ALL_ARCHS = [stablelm_1_6b.CONFIG, tinyllama_1_1b.CONFIG]
+ALL_ARCHS = [stablelm_1_6b.CONFIG, tinyllama_1_1b.CONFIG, mind.CONFIG]
 
-__all__ = ["LMConfig", "ALL_ARCHS", "all_archs", "get", "register"]
+__all__ = ["LMConfig", "RecSysConfig", "ShapeSpec", "RECSYS_SHAPES",
+           "ALL_ARCHS", "all_archs", "get", "register"]

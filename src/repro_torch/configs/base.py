@@ -1,8 +1,9 @@
-"""LM configurations and the ``--arch`` registry.
+"""Configurations, input shapes and the ``--arch`` registry.
 
-A copy of the LM part of the JAX package's ``configs/base.py``
-(``LMConfig``, ``register``, ``get``): the port imports nothing of that
-package. The GNN and recsys configurations come with their slices.
+A copy of the LM and recsys parts of the JAX package's ``configs/base.py``
+(``ShapeSpec``, ``RECSYS_SHAPES``, ``LMConfig``, ``RecSysConfig``,
+``register``, ``get``): the port imports nothing of that package. The GNN
+configurations and the LM and GNN shape sets come with their slices.
 """
 from __future__ import annotations
 
@@ -29,6 +30,36 @@ def all_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
+# ---------------------------------------------------------------- shapes
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode | long_decode |
+                         # full_graph | minibatch | batched_graphs |
+                         # recsys_train | recsys_serve | retrieval
+    seq_len: int = 0
+    global_batch: int = 0
+    # graph shapes
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: tuple = ()
+    # recsys shapes
+    n_candidates: int = 0
+
+
+# ``train_batch`` is kept as data: the training slice will run it
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "recsys_train", global_batch=65536),
+    ShapeSpec("serve_p99", "recsys_serve", global_batch=512),
+    ShapeSpec("serve_bulk", "recsys_serve", global_batch=262144),
+    ShapeSpec("retrieval_cand", "retrieval", global_batch=1,
+              n_candidates=1_000_000),
+)
+
+
+# --------------------------------------------------------------- configs
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str
@@ -82,3 +113,24 @@ class LMConfig:
             capacity_factor=8.0,   # no token drops at smoke-test scale
             window=window if window is not None else
             (64 if self.window else None))
+
+
+@dataclasses.dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    embed_dim: int
+    n_interests: int
+    capsule_iters: int
+    family: str = "recsys"
+    vocab: int = 10_000_000        # item vocabulary (embedding rows)
+    hist_len: int = 50             # user behaviour sequence length
+    source: str = ""
+
+    @property
+    def shapes(self):
+        return RECSYS_SHAPES
+
+    def scaled(self, **kw):
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", embed_dim=32, vocab=1000,
+            hist_len=8, **kw)

@@ -1,0 +1,6 @@
+from .kernel import embedding_bag_cuda, geometry, load_library
+from .ops import embedding_bag
+from .ref import embedding_bag_ref
+
+__all__ = ["embedding_bag", "embedding_bag_cuda", "embedding_bag_ref",
+           "geometry", "load_library"]

@@ -1,5 +1,5 @@
-"""Models of the port: the dense LM so far (``transformer``, ``layers``).
-The recsys and GNN models come with their slices."""
-from . import layers, transformer
+"""Models of the port: the dense LM (``transformer``, ``layers``) and the
+MIND recsys model (``recsys``). The GNN models come with their slice."""
+from . import layers, recsys, transformer
 
-__all__ = ["layers", "transformer"]
+__all__ = ["layers", "recsys", "transformer"]

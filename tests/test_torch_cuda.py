@@ -2,7 +2,8 @@
 main path ``open(g, device="cuda").pagerank()`` against the same solve
 on the CPU and the dense oracle; kernel B3 against its plain version,
 and the smoke LM's ``ServeEngine`` on the card against the same run on
-the CPU.
+the CPU; kernel B2 against its plain version, and the smoke MIND's
+``serve_step``/``retrieval_step`` on the card against the CPU.
 
 Every test is marked ``cuda`` and skips without a card. The file needs
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -22,7 +23,9 @@ from repro_torch.graphs import generators
 from repro_torch.kernels.pcpm_spmv import (kernel, pack_blocked,
                                            pcpm_gather_cuda, pcpm_gather_ref,
                                            pcpm_spmv_pallas)
+from repro_torch.kernels import embedding_bag as b2
 from repro_torch.kernels import flash_attention as b3
+from repro_torch.models import recsys
 from repro_torch.models import transformer as tf
 from repro_torch.serve import Request, ServeEngine
 
@@ -210,3 +213,92 @@ def test_serve_engine_on_the_card_matches_cpu(cuda_device):
     assert [(r.generated, r.error) for r in on_card] == [
         (r.generated, r.error) for r in on_cpu]
     assert on_card[-1].error is not None
+
+
+# ------------------------------------------------------------ kernel B2
+B2_SHAPES = [(512, 128, 8, 4), (1024, 64, 32, 16), (2048, 128, 64, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v,d,b,l", B2_SHAPES)
+def test_b2_vs_plain(cuda_device, v, d, b, l, dtype):
+    rng = np.random.default_rng(v + d + b)
+    table = torch.from_numpy(rng.random((v, d)).astype(np.float32)).to(
+        cuda_device, getattr(torch, dtype))
+    idx = torch.from_numpy(rng.integers(0, v, (b, l))).to(cuda_device)
+    idx[0, -1] = v                                   # a pad
+    w = torch.from_numpy(rng.random((b, l)).astype(np.float32)).to(
+        cuda_device)
+    for ids in (idx, idx.to(torch.int32)):
+        before = b2.kernel.launch_count
+        out = b2.embedding_bag(table, ids, w)
+        torch.cuda.synchronize()
+        assert b2.kernel.launch_count == before + 1
+        assert out.dtype == table.dtype
+        # TestEmbeddingBag's tolerance; bfloat16: one rounding of float32
+        # sums taken in another order can differ by one bfloat16 step
+        tol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
+               else dict(rtol=2 ** -7, atol=1e-5))
+        torch.testing.assert_close(
+            out.float(), b2.embedding_bag_ref(table, ids, w).float(), **tol)
+
+
+@pytest.mark.parametrize("d", [64, 6, 13, 1030])
+def test_b2_pads_negatives_tails_and_odd_views(cuda_device, d):
+    v = 300
+    base = torch.rand((v, d + 4), device=cuda_device)
+    table = base[:, 1:1 + d]                  # every row off 16 B alignment
+    idx = torch.randint(-2, v + 3, (40, 5), device=cuda_device)
+    idx[0] = v
+    for t in (table, table.contiguous()):
+        out = b2.embedding_bag(t, idx)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, b2.embedding_bag_ref(t, idx),
+                                   rtol=1e-6, atol=1e-6)
+        assert not out[0].any()
+    one = b2.embedding_bag(table, idx.reshape(-1, 1))        # one-id bags
+    assert torch.equal(one, b2.embedding_bag_ref(table, idx.reshape(-1, 1)))
+
+
+def test_b2_rejects_what_it_cannot_take(cuda_device):
+    table = torch.rand((16, 8), device=cuda_device)
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous last"):
+        b2.embedding_bag(table.t().contiguous().t(), idx)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        b2.embedding_bag(table, idx.to(torch.int16))
+    with pytest.raises(ValueError, match="one device"):
+        b2.embedding_bag(table, idx.cpu())
+
+
+def test_mind_on_the_card_matches_cpu(cuda_device):
+    cfg = configs.get("mind").scaled()
+    cpu_model = recsys.init_mind(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    rng = np.random.default_rng(0)
+    hist = rng.integers(0, cfg.vocab, (32, cfg.hist_len)).astype(np.int32)
+    hist[:, -3:] = cfg.vocab
+    hist[5] = cfg.vocab
+    cand = torch.from_numpy(rng.permutation(cfg.vocab)[:500])
+    h = torch.from_numpy(hist)
+    before = b2.kernel.launch_count
+    caps = recsys.serve_step(gpu_model, cfg, h.to(cuda_device))
+    torch.cuda.synchronize()
+    assert b2.kernel.launch_count == before + 1
+    scores, ids = recsys.retrieval_step(gpu_model, cfg, h[:2].to(cuda_device),
+                                        cand.to(cuda_device), top_k=16)
+    torch.cuda.synchronize()
+    assert b2.kernel.launch_count == before + 3
+    torch.testing.assert_close(caps.cpu(), recsys.serve_step(cpu_model, cfg, h),
+                               rtol=1e-5, atol=1e-6)
+    assert not caps[5].any()
+    ref_scores, ref_ids = recsys.retrieval_step(cpu_model, cfg, h[:2], cand,
+                                                top_k=16)
+    torch.testing.assert_close(scores.cpu(), ref_scores, rtol=1e-5,
+                               atol=1e-6)
+    apart = torch.ones_like(ref_scores, dtype=torch.bool)
+    gaps = ref_scores.diff(dim=1).abs() > 1e-5
+    apart[:, 1:] &= gaps
+    apart[:, :-1] &= gaps
+    assert torch.equal(ids.cpu()[apart], ref_ids[apart])
