@@ -22,8 +22,10 @@ Phases, each of which exits non-zero when it fails:
    ``torch.sparse`` CSR matvec of A^T, which the port never calls;
 5. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
    against its plain version on the same inputs upcast to float32, on
-   the card: the shapes of the JAX package's ``TestFlashAttention``
-   (float32 within 2e-3, windows 64/128/200, unpadded S = 200), the LM
+   the card, each call through the path ``b3_path`` names ("tc" for
+   bfloat16 with Sq > 1, "split" for Sq = 1, "simt" for float32): the
+   shapes of the JAX package's ``TestFlashAttention`` (float32 within
+   2e-3, windows 64/128/200, unpadded S = 200; in bfloat16 too), the LM
    slice's decode shape (B 8, Hq 32, Hkv 4, Sq 1, 1024 cache slots,
    mixed per-slot lengths) and its prefill shape (4, 2048, causal);
    bfloat16 outputs within rtol 1.6e-2, atol 2e-3 (their rounding; inside
@@ -39,7 +41,8 @@ Phases, each of which exits non-zero when it fails:
 7. times with CUDA events: ms per decode step and tokens/s, prefill ms,
    B3 beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
-   port never calls); the device idle share of profiled decode steps;
+   port never calls); the device idle share and top kernels of profiled
+   decode steps and prefills, with B3's share of each;
 8. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
    against its plain version on the card: the shapes of the JAX
    package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
@@ -101,6 +104,9 @@ CONSISTENCY_LEN = 256
 DECODE_TOL = 0.2
 PROFILE_STEPS = 16
 B3_F32_TOL = dict(rtol=2e-3, atol=2e-3)
+# B3's kernels as the profiler names them (csrc/flash_attention.cu)
+B3_KERNELS = ("tc_fwd_kernel", "split_partial_kernel", "split_combine_kernel",
+              "flash_fwd_kernel")
 # a bfloat16 output against the plain version on the same inputs upcast to
 # float32: the kernel sums in float32, so what is left is the output's
 # rounding (half an ulp, 2**-9 relative); TestFlashAttention's 5e-2 would
@@ -442,18 +448,25 @@ def b3_inputs(dev, gen, b, hq, hkv, sq, skv, d, dtype):
 
 def check_b3(args, label, **kw) -> float:
     """Launch B3 once, hold it against the plain version on the same
-    inputs upcast to float32; max abs err."""
+    inputs upcast to float32, and check that it took the path
+    ``b3_path`` names; max abs err."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import kernel as b3
+    path = b3.b3_path(args[0].dtype, args[1].dtype, args[0].shape[1])
+    before = dict(b3.launch_counts)
     out = flash_attention_cuda(*args, **kw)
     torch.cuda.synchronize()
+    if b3.launch_counts != {**before, path: before[path] + 1}:
+        fail(f"B3 {label}: launched {b3.launch_counts} from {before}, "
+             f"not once through {path!r}")
     ref = attention_ref(*(a.float() for a in args), **kw)
     torch.cuda.synchronize()
     tol = B3_F32_TOL if out.dtype == torch.float32 else B3_BF16_TOL
     err = float((out.float() - ref).abs().max())
     shapes = " ".join(str(tuple(a.shape)) for a in args)
-    log(f"B3 {label}: q k v {shapes} {str(args[0].dtype)[6:]}, "
+    log(f"B3 {label} via {path!r}: q k v {shapes} {str(args[0].dtype)[6:]}, "
         f"{ {k: v for k, v in kw.items() if not torch.is_tensor(v)} }: "
         f"max_abs_err={err!r} (rtol {tol['rtol']}, atol {tol['atol']}; "
         f"mean |ref| {float(ref.abs().mean())!r}, max |ref| "
@@ -481,6 +494,14 @@ def check_b3_shapes(dev) -> dict:
              causal=True)
     check_b3(b3_inputs(dev, gen, 1, 2, 2, 256, 256, 64, bf16), "bf16",
              causal=True)
+    # the same shapes in bfloat16, through "tc" (float32 went to "simt")
+    for window in (64, 128, 200):
+        check_b3(b3_inputs(dev, gen, 1, 2, 2, 384, 384, 64, bf16),
+                 f"bf16 window {window}", causal=True, window=window)
+    check_b3(b3_inputs(dev, gen, 2, 8, 2, 128, 128, 64, bf16), "bf16 GQA",
+             causal=True)
+    check_b3(b3_inputs(dev, gen, 1, 2, 2, 200, 200, 64, bf16),
+             "bf16 unpadded", causal=True)
     cfg_heads = (LM_HEADS, LM_KV_HEADS)
     lens = np.random.default_rng(1).integers(1, MAX_LEN + 1, SLOTS)
     lens[:2] = (1, MAX_LEN)                  # the two ends of the range
@@ -520,6 +541,7 @@ def b3_entry(case, name, launches, card) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import kernel as b3
     (q, k, v), kw, err = case
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -537,13 +559,16 @@ def b3_entry(case, name, launches, card) -> dict:
     ops = 4 * d * pairs
     ops_ms = ops / PEAK_BF16_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"B3 at {name}: {ms!r} ms; bound {bound_ms!r} ms ({nbytes} B at "
+    path = b3.b3_path(q.dtype, k.dtype, sq)
+    log(f"B3 at {name} via {path!r}: {ms!r} ms; bound {bound_ms!r} ms "
+        f"({nbytes} B at "
         f"{PEAK_BYTES_PER_S / 1e12} TB/s, {ops} operations at "
         f"{PEAK_BF16_PER_S / 1e12:.0f} TFLOP/s bf16); plain version "
         f"{plain_ms!r} ms; scaled_dot_product_attention {library_ms!r} ms "
         f"({card})")
     return {
         "name": f"flash_attention/{name}",
+        "path": path,
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
@@ -557,9 +582,10 @@ def b3_entry(case, name, launches, card) -> dict:
     }
 
 
-def profile_steps(step, label, card) -> None:
+def profile_steps(step, label, card, names=()) -> None:
     """Device busy share and top kernels of PROFILE_STEPS calls of
-    ``step()``."""
+    ``step()``; with ``names``, also the device time of the kernels whose
+    name holds one of them (one kernel's, e.g. B3's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -583,6 +609,13 @@ def profile_steps(step, label, card) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / PROFILE_STEPS:9.1f} us/step "
             f"x{e.count / PROFILE_STEPS:<5.1f} {e.key[:90]}")
+    if names:
+        mine = [e for e in events if any(n in e.key for n in names)]
+        us = sum(e.self_device_time_total for e in mine) / PROFILE_STEPS
+        log(f"profile {label}: kernels {'/'.join(names)} {us:.1f} us/step "
+            f"of device time in "
+            f"{sum(e.count for e in mine) / PROFILE_STEPS:.1f} launches per "
+            f"step")
 
 
 def lm_phases(dev, card, b3_cases) -> list[dict]:
@@ -709,8 +742,10 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
     prefill_ms = time_ms(lambda: tf.prefill(model, tokens), reps=3, warmup=1)
     log(f"time prefill {PREFILL_SHAPE}: {prefill_ms!r} ms, "
         f"{b * s / prefill_ms * 1e3!r} tokens/s ({card})")
+    profile_steps(lambda: tf.prefill(model, tokens),
+                  f"prefill {PREFILL_SHAPE}", card, names=B3_KERNELS)
     profile_steps(steady.step, f"decode, {steady.active} active slots",
-                  card)
+                  card, names=B3_KERNELS)
     return [b3_entry(b3_cases["decode"], "decode", decode_launches, card),
             b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
 

@@ -1,4 +1,4 @@
-"""Flash attention forward (kernel B3) as a CUDA kernel written for Hopper.
+"""Flash attention forward (kernel B3) as CUDA kernels written for Hopper.
 
 Replaces the JAX package's Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
@@ -6,14 +6,25 @@ The source is ``repro_torch/csrc/flash_attention.cu``; ``kernels/_build.py``
 compiles it with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at first use, and it is bound with ``ctypes``.
 
-Bound: operations at prefill (4·D per visible (query, key) pair, against
-the tensor cores' bfloat16 rate), bytes at decode (the live K and V rows
-of the cache). This first version computes on the float32 cores; its
-design (the source note in the ``.cu`` file) aims at being right, at
-sharing each K/V tile among the q heads of a GQA group, at skipping the
-key tiles no row can see, and at reading q, k and v through their
-strides in the (B, S, H, D) layout of the model and the KV cache, which
-is therefore never transposed or copied.
+Three paths, chosen by ``b3_path`` from dtype and shape alone (the
+source note in the ``.cu`` file has their designs):
+
+- ``"tc"``: q, k and v bfloat16 with Sq > 1 (prefill, ``forward``).
+  Bound by operations (4·D per visible (query, key) pair) at the tensor
+  cores' bfloat16 rate: wgmma products over a cp.async ring of K/V tiles,
+  the online softmax in registers.
+- ``"split"``: Sq == 1 (decode), every dtype pair. Bound by the bytes of
+  the live K and V rows: one block per 64 keys (``split_plan``) writes
+  float32 partials to a scratch tensor, a second kernel combines them by
+  log-sum-exp. Two kernels per call.
+- ``"simt"``: float32 q with Sq > 1 (the float32-parameter runs, which
+  tensor cores would round to TF32): the first version, on the float32
+  cores.
+
+Every path shares each K/V tile among the q heads of a GQA group, skips
+the key tiles no row can see (``kv_tile_range``), and reads q, k and v
+through their strides in the (B, S, H, D) layout of the model and the KV
+cache, which is therefore never transposed or copied.
 
 ``flash_attention_cuda`` launches the kernel for CUDA tensors and raises
 on what it cannot take; for CPU tensors it computes the plain version
@@ -21,7 +32,9 @@ on what it cannot take; for CPU tensors it computes the plain version
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -31,12 +44,25 @@ from .ref import attention_ref
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
-BLOCK_ROWS = 16      # (query, q head) rows per block: kRows in the source
-BLOCK_K = 32         # keys per tile: kBlockK in the source
+PATHS = ("simt", "tc", "split")   # their codes in the C interface
+# "simt": (query, q head) rows per block and keys per tile (simt::kRows,
+# simt::kBlockK in the source)
+BLOCK_ROWS = 16
+BLOCK_K = 32
+# "tc": rows per block, per consumer warpgroup, and keys per tile
+# (tc::kRows, tc::kWGRows, tc::kKeys)
+TC_BLOCK_M = 128
+TC_WARPGROUP_ROWS = 64
+TC_BLOCK_N = 64
+# "split": keys per split (split::kChunk)
+SPLIT_CHUNK = 64
 
-# Kernel launches made by ``flash_attention_cuda`` in this process (CPU
-# calls of the plain version do not count). Reset it by assigning 0.
+# Calls of ``flash_attention_cuda`` that launched on the card in this
+# process (CPU calls of the plain version do not count), in all and per
+# path; a "split" call launches two kernels. Reset by assigning 0 and
+# ``dict.fromkeys(PATHS, 0)``.
 launch_count = 0
+launch_counts = dict.fromkeys(PATHS, 0)
 # What the last build did: seconds spent in nvcc (0.0 when the library
 # was already built) and the compiler's report (registers, spills).
 build_seconds = 0.0
@@ -55,8 +81,8 @@ def load_library() -> ctypes.CDLL:
     build_seconds, build_log = built.seconds, built.log
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [i32] * 3 + [ptr] * 4 + [i32] * 5 + [i64] * 12 + [i32] * 3
-        + [ptr, ctypes.c_float, ptr])
+        [i32] * 4 + [ptr] * 4 + [i32] * 5 + [i64] * 12 + [i32] * 3
+        + [ptr, ctypes.c_float, ptr, i32, ptr])
     lib.flash_attention_fwd.restype = i32
     _lib = lib
     return lib
@@ -78,6 +104,47 @@ def kv_tile_range(pos_lo: int, pos_hi: int, q_offset: int, kv_len: int, *,
     if k_end <= k_begin:
         return range(0)
     return range(k_begin // block_k, -(-k_end // block_k))
+
+
+def b3_path(q_dtype: torch.dtype, kv_dtype: torch.dtype, sq: int) -> str:
+    """The kernel path for these inputs: "split" for one query row per
+    batch row (decode), "tc" for bfloat16 q, k and v, else "simt". A pure
+    function of dtype and shape; not a fallback."""
+    if sq == 1:
+        return "split"
+    if q_dtype == kv_dtype == torch.bfloat16:
+        return "tc"
+    return "simt"
+
+
+def split_plan(skv: int, chunk: int = SPLIT_CHUNK) -> range:
+    """The first key of each split of the "split" path; a split holds
+    keys ``start .. min(start + chunk, skv) - 1``. Its length is the
+    grid's first dimension."""
+    return range(0, skv, chunk)
+
+
+def tile_needs_mask(k0: int, pos_lo: int, pos_hi: int, q_offset: int,
+                    kv_len: int, *, causal: bool, window: int | None,
+                    block_n: int = TC_BLOCK_N) -> bool:
+    """Whether some query position in ``pos_lo..pos_hi`` cannot see every
+    key of the tile starting at ``k0``: the "tc" path masks only such
+    boundary tiles (``tc::needs_mask`` in the source is the same rule)."""
+    full = k0 + block_n <= kv_len
+    if causal:
+        full = full and k0 + block_n - 1 <= pos_lo + q_offset
+    if window is not None:
+        full = full and k0 > pos_hi + q_offset - window
+    return not full
+
+
+@functools.cache
+def _check_hopper(device: torch.device) -> None:
+    if torch.cuda.get_device_capability(device) != (9, 0):
+        raise RuntimeError(
+            "the flash attention kernel is built for sm_90a (Hopper); "
+            f"device {torch.cuda.get_device_name(device)} has compute "
+            f"capability {torch.cuda.get_device_capability(device)}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,11 +195,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if torch.cuda.get_device_capability(q.device) != (9, 0):
-        raise RuntimeError(
-            "the flash attention kernel is built for sm_90a (Hopper); "
-            f"device {torch.cuda.get_device_name(q.device)} has compute "
-            f"capability {torch.cuda.get_device_capability(q.device)}")
+    _check_hopper(q.device)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -154,20 +217,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     both_bf16 = q.dtype == k.dtype == torch.bfloat16
     out = torch.empty((b, sq, hq, d), device=q.device,
                       dtype=torch.bfloat16 if both_bf16 else torch.float32)
+    path = b3_path(q.dtype, k.dtype, sq)
+    scratch, n_splits = None, 0
+    if path == "split":
+        # float32 partials of every split: acc (group, D), m and l (group)
+        n_splits = len(split_plan(skv))
+        scratch = torch.empty(b * hkv * n_splits * (hq // hkv) * (d + 2),
+                              device=q.device, dtype=torch.float32)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    # the launch goes to the calling thread's current device
+    guard = (contextlib.nullcontext()
+             if q.device.index == torch.cuda.current_device()
+             else torch.cuda.device(q.device))
+    with guard:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), d,
+            PATHS.index(path), int(q.dtype == torch.bfloat16),
+            int(k.dtype == torch.bfloat16), d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, skv, hq, hkv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             int(causal), window or 0, kv_scalar,
             None if lens is None else lens.data_ptr(), 1.0 / math.sqrt(d),
+            None if scratch is None else scratch.data_ptr(), n_splits,
             stream)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash attention kernel launch failed (path "
+                           f"{path!r}): CUDA error {err}")
     launch_count += 1
+    launch_counts[path] += 1
     return out

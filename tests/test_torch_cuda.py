@@ -1,8 +1,9 @@
 """The port on the card: kernel B1 against its plain version, and the
 main path ``open(g, device="cuda").pagerank()`` against the same solve
-on the CPU and the dense oracle; kernel B3 against its plain version,
-and the smoke LM's ``ServeEngine`` on the card against the same run on
-the CPU; kernel B2 against its plain version, and the smoke MIND's
+on the CPU and the dense oracle; kernel B3 against its plain version
+through each of its paths ("tc", "simt", "split"), and the smoke LM's
+``ServeEngine`` on the card against the same run on the CPU; kernel B2
+against its plain version, and the smoke MIND's
 ``serve_step``/``retrieval_step`` on the card against the CPU.
 
 Every test is marked ``cuda`` and skips without a card. The file needs
@@ -145,14 +146,39 @@ def test_b3_vs_plain(cuda_device, shape, window, dtype):
     dt = getattr(torch, dtype)
     q, k, v = _attn_inputs(cuda_device, shape, dt, seed=sum(shape))
     before = b3.kernel.launch_count
+    path = "tc" if dtype == "bfloat16" else "simt"
+    before_path = b3.kernel.launch_counts[path]
     out = b3.flash_attention_cuda(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert b3.kernel.launch_count == before + 1
+    assert b3.kernel.launch_counts[path] == before_path + 1
     assert out.dtype == dt
     ref = b3.attention_ref(q.float(), k.float(), v.float(), causal=True,
                            window=window)
     tol = 2e-3 if dtype == "float32" else 5e-2
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b3_prefill_per_row_kv_len(cuda_device, d, dtype):
+    """Sq > 1 with per-row lengths, one of them 0 (a block that walks no
+    tile must still write zeros), through "tc" (bfloat16) or "simt"."""
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(cuda_device, (3, 8, 2, 96, 160, d), dt, seed=d)
+    kv_len = torch.tensor([0, 37, 150], dtype=torch.int32,
+                          device=cuda_device)
+    path = "tc" if dtype == "bfloat16" else "simt"
+    before = b3.kernel.launch_counts[path]
+    out = b3.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_counts[path] == before + 1
+    ref = b3.attention_ref(q.float(), k.float(), v.float(), causal=True,
+                           kv_len=kv_len)
+    tol = (dict(rtol=1.6e-2, atol=2e-3) if dtype == "bfloat16"
+           else dict(rtol=2e-3, atol=2e-3))
+    torch.testing.assert_close(out.float(), ref, **tol)
+    assert not out[0].any()
 
 
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
@@ -166,8 +192,10 @@ def test_b3_decode_per_slot_kv_len_on_a_cache_view(cuda_device, q_dtype):
         getattr(torch, q_dtype))
     kv_len = torch.tensor([1, 5, 31, 32, 33, 200, 256, 0],
                           dtype=torch.int32, device=cuda_device)
+    before = b3.kernel.launch_counts["split"]
     out = b3.attention(q, kc, vc, causal=False, kv_len=kv_len)
     torch.cuda.synchronize()
+    assert b3.kernel.launch_counts["split"] == before + 1
     ref = b3.attention_ref(q.float(), kc.float(), vc.float(), causal=False,
                            kv_len=kv_len)
     assert out.dtype == getattr(torch, q_dtype)
@@ -177,6 +205,42 @@ def test_b3_decode_per_slot_kv_len_on_a_cache_view(cuda_device, q_dtype):
            else dict(rtol=1.6e-2, atol=2e-3))
     torch.testing.assert_close(out.float(), ref, **tol)
     assert not out[7].any()
+
+
+@pytest.mark.parametrize("view", ["cache", "unaligned"])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b3_split_decode_across_chunk_edges(cuda_device, d, q_dtype,
+                                            kv_dtype, view):
+    """Sq = 1 through the "split" path, lengths on both sides of the
+    64-key chunk edges, k and v read in place from one layer of an
+    (L, B, slots, Hkv, D) cache or from views off 16-byte alignment."""
+    lens = [0, 1, 63, 64, 65, 1024]
+    kdt = getattr(torch, kv_dtype)
+    if view == "cache":
+        cache = torch.randn((3, len(lens), 1024, 4, d),
+                            device=cuda_device).to(kdt)
+        k, v = cache[1], cache[2]
+    else:
+        base = torch.randn((len(lens), 1024, 4, d + 1),
+                           device=cuda_device).to(kdt)
+        k, v = base[..., 1:], base[..., :d]
+    q = torch.randn((len(lens), 1, 32, d), device=cuda_device).to(
+        getattr(torch, q_dtype))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dict(b3.kernel.launch_counts)
+    out = b3.flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_counts == {**before,
+                                       "split": before["split"] + 1}
+    ref = b3.attention_ref(q.float(), k.float(), v.float(), causal=False,
+                           kv_len=kv_len)
+    # float32 out: sums in another order; bfloat16 out: its rounding
+    tol = (dict(rtol=1.6e-2, atol=2e-3) if out.dtype == torch.bfloat16
+           else dict(rtol=2e-3, atol=2e-3))
+    torch.testing.assert_close(out.float(), ref, **tol)
+    assert not out[0].any()
 
 
 def test_b3_rejects_what_it_cannot_take(cuda_device):
