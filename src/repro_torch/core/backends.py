@@ -281,10 +281,14 @@ def _build_pcpm_pallas(g: Graph, cfg: PlanConfig) -> GraphPlan:
 
 
 def _spmv_pcpm_pallas(plan: GraphPlan, device: torch.device):
-    from ..kernels.pcpm_spmv import pack_blocked, pcpm_spmv_pallas
+    from ..kernels.pcpm_spmv import (pack_blocked, pcpm_spmv_pallas,
+                                     tile_schedule)
     packed = _cached(plan, "packed", device, lambda: pack_blocked(
         plan.blocked, plan.num_nodes, device=device))
-    return lambda x: pcpm_spmv_pallas(packed, x)
+    # the d = 1 gather order of kernel B1's "tile" path
+    schedule = _cached(plan, "tile_schedule", device, lambda: tile_schedule(
+        plan.blocked, device=device))
+    return lambda x: pcpm_spmv_pallas(packed, x, schedule=schedule)
 
 
 # ---------------------------------------------------------------------------

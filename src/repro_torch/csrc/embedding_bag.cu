@@ -146,20 +146,42 @@ embedding_bag_kernel(const T* __restrict__ table, long long V, long long ld,
   }
 }
 
+// The launch's arguments, packed as int64 by kernel.py::launch_args in
+// this order (tests/test_torch_embedding_bag.py reads this list).
+enum Arg {
+  kTableBf16,   // 0 float32, 1 bfloat16
+  kIdx64,       // 0 int32, 1 int64
+  kTable,       // (V, d), rows ld elements apart
+  kV,
+  kLd,
+  kIdx,         // (B, L), strides idx_sb, idx_sl (elements)
+  kIdxSb,
+  kIdxSl,
+  kW,           // (B, L) float32, strides w_sb, w_sl, or 0 for ones
+  kWSb,
+  kWSl,
+  kOut,         // (B, d) contiguous, the table's dtype
+  kB,
+  kL,
+  kD,
+  kGroup,       // threads per bag (kernel.py::geometry)
+  kBlocks,      // blocks of kThreads
+  kNumArgs
+};
+
 template <typename T, typename I>
-cudaError_t launch(const void* table, long long V, long long ld,
-                   const void* idx, long long idx_sb, long long idx_sl,
-                   const void* w, long long w_sb, long long w_sl, void* out,
-                   long long B, int L, int d, int group, long long blocks,
-                   cudaStream_t stream) {
+cudaError_t launch(const long long* a, cudaStream_t stream) {
+  const long long B = a[kB], blocks = a[kBlocks];
+  const int d = (int)a[kD], group = (int)a[kGroup];
   if (B <= 0 || d <= 0) return cudaSuccess;
   if (group < 1 || group > kThreads || blocks < 1 || blocks > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
   embedding_bag_kernel<T, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(table), V, ld, static_cast<const I*>(idx), idx_sb,
-      idx_sl, static_cast<const float*>(w), w_sb, w_sl, static_cast<T*>(out),
-      B, L, d, group);
+      reinterpret_cast<const T*>(a[kTable]), a[kV], a[kLd],
+      reinterpret_cast<const I*>(a[kIdx]), a[kIdxSb], a[kIdxSl],
+      reinterpret_cast<const float*>(a[kW]), a[kWSb], a[kWSl],
+      reinterpret_cast<T*>(a[kOut]), B, (int)a[kL], d, group);
   return cudaGetLastError();
 }
 
@@ -167,32 +189,17 @@ cudaError_t launch(const void* table, long long V, long long ld,
 
 extern "C" {
 
-// table_bf16: 0 float32, 1 bfloat16; idx_64: 0 int32, 1 int64. w may be
-// null (weights of one). Strides are in elements. `group` threads per bag
-// and `blocks` blocks of 256 threads, from kernel.py::geometry. Returns
-// the cudaError_t of the launch.
-int embedding_bag_fwd(int table_bf16, int idx_64, const void* table,
-                      long long V, long long ld, const void* idx,
-                      long long idx_sb, long long idx_sl, const void* w,
-                      long long w_sb, long long w_sl, void* out, long long B,
-                      int L, int d, int group, long long blocks,
-                      void* stream) {
+// a: kNumArgs int64 values in the order of enum Arg (w may be 0: weights
+// of one). Returns the cudaError_t of the launch.
+int embedding_bag_fwd(const long long* a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  if (table_bf16) {
-    err = idx_64 ? launch<__nv_bfloat16, long long>(
-                       table, V, ld, idx, idx_sb, idx_sl, w, w_sb, w_sl, out,
-                       B, L, d, group, blocks, s)
-                 : launch<__nv_bfloat16, int>(
-                       table, V, ld, idx, idx_sb, idx_sl, w, w_sb, w_sl, out,
-                       B, L, d, group, blocks, s);
+  if (a[kTableBf16]) {
+    err = a[kIdx64] ? launch<__nv_bfloat16, long long>(a, s)
+                    : launch<__nv_bfloat16, int>(a, s);
   } else {
-    err = idx_64 ? launch<float, long long>(table, V, ld, idx, idx_sb, idx_sl,
-                                            w, w_sb, w_sl, out, B, L, d, group,
-                                            blocks, s)
-                 : launch<float, int>(table, V, ld, idx, idx_sb, idx_sl, w,
-                                      w_sb, w_sl, out, B, L, d, group, blocks,
-                                      s);
+    err = a[kIdx64] ? launch<float, long long>(a, s)
+                    : launch<float, int>(a, s);
   }
   return (int)err;
 }

@@ -4,7 +4,10 @@ Replaces the JAX package's Pallas TPU kernel
 ``src/repro/kernels/embedding_bag/kernel.py::embedding_bag_pallas``. The
 source is ``repro_torch/csrc/embedding_bag.cu``; ``kernels/_build.py``
 compiles it with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use, and it is bound with ``ctypes``.
+plain C interface at first use, and it is bound with ``ctypes``;
+``kernels/_launch.py`` keeps the launch's host side short (at MIND's
+serve_p99 the kernel takes a few microseconds on the card, so the
+wrapper's Python sets the time of a call).
 
 Bound: bytes. A call must read each id once, each distinct valid row once
 and write the (B, d) output once. The design reads rows by index (no
@@ -25,13 +28,17 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, _launch
 from .ref import embedding_bag_ref
 
 SOURCE = _build.CSRC / "embedding_bag.cu"
 THREADS = 256             # threads per block: kThreads in the source
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
 ID_DTYPES = (torch.int32, torch.int64)
+# the C interface's arguments, in the order of ``enum Arg`` in the source
+ARGS = _launch.Args("table_bf16", "idx_64", "table", "V", "ld", "idx",
+                    "idx_sb", "idx_sl", "w", "w_sb", "w_sl", "out", "B", "L",
+                    "d", "group", "blocks")
 
 # Kernel launches made by ``embedding_bag_cuda`` in this process (CPU
 # calls of the plain version do not count). Reset it by assigning 0.
@@ -52,11 +59,8 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib, built = _build.load(SOURCE)
     build_seconds, build_log = built.seconds, built.log
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.embedding_bag_fwd.argtypes = (
-        [i32, i32, ptr, i64, i64, ptr, i64, i64, ptr, i64, i64, ptr, i64]
-        + [i32] * 3 + [i64, ptr])
-    lib.embedding_bag_fwd.restype = i32
+    lib.embedding_bag_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.embedding_bag_fwd.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -72,31 +76,89 @@ def geometry(num_bags: int, d: int, element_size: int
     return vec, group, -(-num_bags // (THREADS // group))
 
 
-def _check(table: torch.Tensor, idx: torch.Tensor,
-           weights: torch.Tensor | None) -> None:
+def _check_table(table: torch.Tensor) -> None:
     if table.dim() != 2 or table.shape[0] < 1:
         raise ValueError(f"table must be (V, d) with V >= 1; got "
                          f"{tuple(table.shape)}")
     if table.dtype not in TABLE_DTYPES:
         raise TypeError(f"table must be float32 or bfloat16; got "
                         f"{table.dtype}")
-    if idx.dim() != 2:
-        raise ValueError(f"idx must be (B, L); got {tuple(idx.shape)}")
+
+
+def _check(table: torch.Tensor, idx: torch.Tensor,
+           weights: torch.Tensor | None) -> None:
+    _check_table(table)
+    i_shape = idx.shape
+    if len(i_shape) != 2:
+        raise ValueError(f"idx must be (B, L); got {tuple(i_shape)}")
     if idx.dtype not in ID_DTYPES:
         raise TypeError(f"idx must be int32 or int64; got {idx.dtype}")
-    if weights is not None:
-        if weights.shape != idx.shape:
-            raise ValueError(f"weights {tuple(weights.shape)} must have the "
-                             f"shape of idx {tuple(idx.shape)}")
-        if not weights.is_floating_point():
-            raise TypeError(f"weights must be floating point; got "
-                            f"{weights.dtype}")
-    devices = {table.device, idx.device}
-    if weights is not None:
-        devices.add(weights.device)
-    if len(devices) != 1:
+    dev = table.device
+    if weights is None:
+        if idx.device != dev:
+            raise ValueError(f"table, idx and weights must share one "
+                             f"device; got {dev}, {idx.device}")
+        return
+    if weights.shape != i_shape:
+        raise ValueError(f"weights {tuple(weights.shape)} must have the "
+                         f"shape of idx {tuple(i_shape)}")
+    if not weights.is_floating_point():
+        raise TypeError(f"weights must be floating point; got "
+                        f"{weights.dtype}")
+    if idx.device != dev or weights.device != dev:
         raise ValueError(f"table, idx and weights must share one device; "
-                         f"got {sorted(map(str, devices))}")
+                         f"got {dev}, {idx.device}, {weights.device}")
+
+
+def launch_args(table: torch.Tensor, idx: torch.Tensor,
+                bags: tuple[int, int], idx_strides: tuple[int, int],
+                w: torch.Tensor | None, out: torch.Tensor, group: int,
+                blocks: int) -> bytes:
+    """The packed C arguments of one launch (``ARGS`` order): ``bags``
+    (B, L) ids read from ``idx`` through ``idx_strides``."""
+    v, d = table.shape
+    w_ptr, w_sb, w_sl = (0, 0, 0) if w is None else (w.data_ptr(),
+                                                     *w.stride())
+    return ARGS.pack(int(table.dtype == torch.bfloat16),
+                     int(idx.dtype == torch.int64), table.data_ptr(), v,
+                     table.stride(0), idx.data_ptr(), *idx_strides, w_ptr,
+                     w_sb, w_sl, out.data_ptr(), *bags, d, group, blocks)
+
+
+def _launch_bags(table: torch.Tensor, idx: torch.Tensor,
+                 bags: tuple[int, int], idx_strides: tuple[int, int],
+                 weights: torch.Tensor | None,
+                 out: torch.Tensor) -> torch.Tensor:
+    """Launch B2 on the card for ``bags`` (B, L) read from ``idx``
+    through ``idx_strides`` into ``out`` (B * d contiguous values), or
+    raise on what the kernel cannot take."""
+    global launch_count
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _launch.check_hopper(dev, "embedding bag")
+    d = table.shape[1]
+    b, l = bags
+    if table.stride(1) != 1:
+        raise ValueError("table must have a contiguous last dimension")
+    if l >= 2 ** 31 or d >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: L={l}, d={d}")
+    if b == 0 or d == 0:
+        return out
+    _, group, blocks = geometry(b, d, table.element_size())
+    if blocks >= 2 ** 31:
+        raise ValueError(f"{b} bags need {blocks} blocks, above the grid's "
+                         "2**31 - 1")
+    w = None if weights is None else weights.to(torch.float32)
+    lib = load_library()
+    args = launch_args(table, idx, bags, idx_strides, w, out, group, blocks)
+    with _launch.device_guard(dev):
+        err = lib.embedding_bag_fwd(args, _launch.raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"embedding bag kernel launch failed: CUDA error "
+                           f"{err}")
+    launch_count += 1
+    return out
 
 
 def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
@@ -108,42 +170,30 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
     its padding. CUDA tensors go to the kernel (or raise); CPU tensors go
     to the plain version.
     """
-    global launch_count
     _check(table, idx, weights)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, idx, weights)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
-    if torch.cuda.get_device_capability(table.device) != (9, 0):
-        raise RuntimeError(
-            "the embedding bag kernel is built for sm_90a (Hopper); device "
-            f"{torch.cuda.get_device_name(table.device)} has compute "
-            f"capability {torch.cuda.get_device_capability(table.device)}")
-    v, d = table.shape
-    b, l = idx.shape
-    if table.stride(1) != 1:
-        raise ValueError("table must have a contiguous last dimension")
-    if l >= 2 ** 31 or d >= 2 ** 31:
-        raise ValueError(f"shape out of the kernel's range: L={l}, d={d}")
-    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
-    if b == 0 or d == 0:
-        return out
-    _, group, blocks = geometry(b, d, table.element_size())
-    if blocks >= 2 ** 31:
-        raise ValueError(f"{b} bags need {blocks} blocks, above the grid's "
-                         "2**31 - 1")
-    w = None if weights is None else weights.to(torch.float32)
-    lib = load_library()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.embedding_bag_fwd(
-            int(table.dtype == torch.bfloat16), int(idx.dtype == torch.int64),
-            table.data_ptr(), v, table.stride(0), idx.data_ptr(),
-            *idx.stride(), None if w is None else w.data_ptr(),
-            *((0, 0) if w is None else w.stride()), out.data_ptr(), b, l, d,
-            group, blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"embedding bag kernel launch failed: CUDA error "
-                           f"{err}")
-    launch_count += 1
-    return out
+    out = table.new_empty((idx.shape[0], table.shape[1]))
+    return _launch_bags(table, idx, idx.shape, idx.stride(), weights, out)
+
+
+def embedding_lookup_cuda(table: torch.Tensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """table (V, d); ids (...) int32 or int64 -> rows (..., d): each id a
+    one-id bag (zeros for an id >= V, row 0 for an id < 0). On the card
+    one B2 launch writes an output of the final shape, so neither the ids
+    nor the rows are reshaped; CPU tensors go to the plain version."""
+    _check_table(table)
+    if ids.dtype not in ID_DTYPES:
+        raise TypeError(f"ids must be int32 or int64; got {ids.dtype}")
+    if ids.device != table.device:
+        raise ValueError(f"table and ids must share one device; got "
+                         f"{table.device}, {ids.device}")
+    d = table.shape[1]
+    if table.device.type == "cpu":
+        return embedding_bag_ref(table, ids.reshape(-1, 1)).reshape(
+            *ids.shape, d)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    out = table.new_empty((*ids.shape, d))
+    return _launch_bags(table, ids, (ids.numel(), 1), (1, 0), None, out)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import embedding_bag_cuda
+from .kernel import embedding_bag_cuda, embedding_lookup_cuda
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
@@ -23,3 +23,12 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     the plain version. An id < 0 reads row 0, as the reference clips.
     """
     return embedding_bag_cuda(table, idx, weights)
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table (V, d); ids (...) -> rows (..., d): MIND's lookup, each id a
+    one-id bag (zeros for an id >= V, row 0 for an id < 0).
+
+    On CUDA tensors this launches B2 once, writing the final shape; on
+    CPU tensors it runs the plain version."""
+    return embedding_lookup_cuda(table, ids)

@@ -1,6 +1,8 @@
-from .kernel import load_library, pcpm_gather_cuda
-from .ops import PackedPNG, pack_blocked, pcpm_spmv_pallas
-from .ref import pcpm_gather_ref
+from .kernel import b1_path, load_library, pcpm_gather_cuda
+from .ops import (PackedPNG, TileSchedule, pack_blocked, pcpm_spmv_pallas,
+                  tile_schedule)
+from .ref import pcpm_gather_ref, tile_gather_ref
 
-__all__ = ["load_library", "pcpm_gather_cuda", "PackedPNG", "pack_blocked",
-           "pcpm_spmv_pallas", "pcpm_gather_ref"]
+__all__ = ["b1_path", "load_library", "pcpm_gather_cuda", "PackedPNG",
+           "TileSchedule", "pack_blocked", "pcpm_spmv_pallas",
+           "tile_schedule", "pcpm_gather_ref", "tile_gather_ref"]

@@ -1,6 +1,12 @@
 """BlockedPNG + feature matrix -> full PCPM SpMV through the gather kernel
 (the scatter phase is a torch gather producing the bins, as it was an
 XLA gather in the JAX package).
+
+Two device layouts of one plan's gather streams: ``PackedPNG``, the
+reference's blocked (k, n_eb, Eb) streams in destination order (kernel
+B1's "warp" path, any d), and ``TileSchedule``, the port's own gather
+order for d = 1 (B1's "tile" path): each partition's real edges ordered
+by (destination tile, update, destination), cut into a chunk table.
 """
 from __future__ import annotations
 
@@ -12,6 +18,14 @@ import torch
 from ...core.png import BlockedPNG
 from ...device import resolve_device
 from .kernel import pcpm_gather_cuda
+
+# shared memory of one "tile" block, which sets the tile size: two such
+# blocks fit an SM (228 KB, 1 KB of it reserved per block)
+TILE_BYTES = 96 * 1024
+SM_SHARED_BYTES = 228 * 1024
+H100_SMS = 132
+# destinations of each tile summed in registers (tile::kHubs in the source)
+HUBS = 8
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -67,13 +81,186 @@ def pack_blocked(blocked: BlockedPNG, num_nodes: int, *,
         torch.from_numpy(ed.reshape(k, n_eb, edge_block)).to(dev))
 
 
-def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class TileSchedule:
+    """The gather order of kernel B1's "tile" path (d = 1).
+
+    ``edge_upd``/``edge_dst`` hold every real edge of every partition,
+    partition after partition, each partition's ordered by (destination
+    tile, update, destination): the paper's (partition, src, dst) order
+    cut into tiles of ``tile`` destinations. No pad slot is stored.
+    ``chunks`` rows are (partition, tile index, first edge, end edge),
+    each inside one tile; block b of the launch walks chunks
+    ``block_chunks[b] .. block_chunks[b + 1] - 1``. ``hubs`` row
+    ``p * n_tiles + t`` names tile t's heaviest destinations (tile-local,
+    distinct, -1 for none), which the kernel sums in registers. The tables
+    are checked here, once: the kernel trusts them (each edge's values it
+    checks itself).
+    """
+    part_size: int
+    num_partitions: int
+    tile: int                   # destinations per tile, a multiple of 4
+    edge_upd: torch.Tensor      # (M,) int32, partition-local update
+    edge_dst: torch.Tensor      # (M,) int32, partition-local destination
+    chunks: torch.Tensor        # (N, 4) int32
+    block_chunks: torch.Tensor  # (blocks + 1,) int32
+    hubs: torch.Tensor          # (k * n_tiles, HUBS) int32
+
+    def __post_init__(self):
+        m = self.edge_upd.shape[0]
+        for name, t in (("edge_upd", self.edge_upd),
+                        ("edge_dst", self.edge_dst),
+                        ("chunks", self.chunks),
+                        ("block_chunks", self.block_chunks),
+                        ("hubs", self.hubs)):
+            if t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"TileSchedule.{name} must be contiguous "
+                                 f"int32; got {t.dtype}")
+            if t.device != self.edge_upd.device:
+                raise ValueError("TileSchedule tensors must share a device")
+            if t.device.type == "cuda" and t.data_ptr() % 16:
+                raise ValueError(f"TileSchedule.{name} must be 16-byte "
+                                 "aligned on the card")
+        if self.edge_dst.shape != (m,) or self.edge_upd.dim() != 1:
+            raise ValueError("TileSchedule streams must be (M,) alike")
+        if m >= 2 ** 31 or self.tile < 4 or self.tile % 4:
+            raise ValueError(f"TileSchedule: M={m} (max 2**31 - 1), tile "
+                             f"{self.tile} (a multiple of 4)")
+        chunks = self.chunks.cpu().long()
+        starts = self.block_chunks.cpu().long()
+        if chunks.dim() != 2 or chunks.shape[1] != 4 or starts.dim() != 1:
+            raise ValueError("TileSchedule.chunks must be (N, 4) and "
+                             "block_chunks (blocks + 1,)")
+        p, t, first, end = chunks.unbind(1)
+        if not (bool(((p >= 0) & (p < self.num_partitions) & (t >= 0)
+                      & (t * self.tile < self.part_size) & (first >= 0)
+                      & (first <= end) & (end <= m)).all())
+                and len(starts) >= 1 and int(starts[0]) == 0
+                and int(starts[-1]) == len(chunks)
+                and bool((starts[1:] >= starts[:-1]).all())):
+            raise ValueError("TileSchedule: chunk table out of range")
+        hubs = self.hubs.cpu().long()
+        n_seg = self.num_partitions * -(-self.part_size // self.tile)
+        if hubs.shape != (n_seg, HUBS):
+            raise ValueError(f"TileSchedule.hubs must be ({n_seg}, {HUBS}); "
+                             f"got {tuple(hubs.shape)}")
+        ordered = hubs.sort(1).values
+        if not (bool(((hubs >= -1) & (hubs < self.tile)).all())
+                and bool(((ordered[:, 1:] != ordered[:, :-1])
+                          | (ordered[:, 1:] < 0)).all())):
+            raise ValueError("TileSchedule: hub table out of range or "
+                             "repeating a destination")
+
+    @property
+    def blocks(self) -> int:
+        return self.block_chunks.shape[0] - 1
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of its tensors."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.edge_upd, self.edge_dst, self.chunks,
+                             self.block_chunks, self.hubs))
+
+
+def tile_size(part_size: int, tile_bytes: int = TILE_BYTES) -> int:
+    """Destinations per tile at d = 1: the partition cut into the fewest
+    tiles of at most ``tile_bytes`` of float32, made equal and rounded up
+    to a multiple of 4 (the kernel zeroes and flushes 16 bytes at a
+    time)."""
+    n_tiles = -(-part_size * 4 // tile_bytes)
+    return min(_round_up(-(-part_size // n_tiles), 4), tile_bytes // 4)
+
+
+def tile_blocks(device: torch.device, tile_bytes: int = TILE_BYTES) -> int:
+    """Blocks of one "tile" launch: as many as the card holds at once (its
+    SMs times the blocks whose shared memory fits one SM), so that the
+    equal shares of edges run in one wave. An H100's count for a CPU
+    device, whose schedule only the plain version reads."""
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    per_sm = max(1, SM_SHARED_BYTES // (tile_bytes + 1024))
+    return sms * per_sm
+
+
+def tile_hubs(seg: np.ndarray, jt: np.ndarray, n_seg: int,
+              tile: int) -> np.ndarray:
+    """(n_seg, HUBS) int32: the heaviest destinations of each tile, by
+    falling edge count (ties: the lower id), given each edge's segment
+    (partition * n_tiles + tile) and tile-local destination; -1 where a
+    tile has fewer destinations of two or more edges."""
+    counts = np.bincount(seg.astype(np.int64) * tile + jt,
+                         minlength=n_seg * tile).reshape(n_seg, tile)
+    h = min(HUBS, tile)
+    top = np.argsort(-counts, axis=1, kind="stable")[:, :h]
+    hubs = np.full((n_seg, HUBS), -1, dtype=np.int32)
+    hubs[:, :h] = np.where(np.take_along_axis(counts, top, 1) >= 2, top, -1)
+    return hubs
+
+
+def tile_schedule(blocked: BlockedPNG, *, tile_bytes: int = TILE_BYTES,
+                  blocks: int | None = None, device=None) -> TileSchedule:
+    """The "tile" path's gather order of a blocked PNG, on ``device``.
+
+    Host numpy, once per plan: one sort of a 64-bit key (partition,
+    tile, update, destination) over the real edges (``pack_blocked``'s
+    pads, update >= U or destination >= P, are left out). The ordered
+    stream is cut into ``blocks`` (default ``tile_blocks``) equal ranges
+    and at every tile's bounds; each piece is a chunk. Each tile's
+    ``HUBS`` heaviest destinations are its hubs (``tile_hubs``).
+    """
+    dev = resolve_device(device)
+    if blocks is None:
+        blocks = tile_blocks(dev, tile_bytes)
+    psz = blocked.part_size
+    k, num_updates = blocked.update_src.shape
+    tile = tile_size(psz, tile_bytes)
+    n_tiles = -(-psz // tile)
+    if k * n_tiles * num_updates * psz >= 2 ** 63:
+        raise ValueError("tile_schedule: sort key out of 64 bits")
+    eu = blocked.edge_update_local
+    ed = blocked.edge_dst_local
+    part, pos = np.nonzero((eu < num_updates) & (ed < psz))
+    u = eu[part, pos].astype(np.int64)
+    j = ed[part, pos].astype(np.int64)
+    key = ((part * n_tiles + j // tile) * num_updates + u) * psz + j
+    key.sort()
+    edge_dst = (key % psz).astype(np.int32)
+    key //= psz
+    edge_upd = (key % num_updates).astype(np.int32)
+    seg = key // num_updates                     # partition * n_tiles + tile
+    m = len(seg)
+    seg_bounds = np.searchsorted(seg, np.arange(k * n_tiles + 1))
+    block_bounds = np.arange(blocks + 1, dtype=np.int64) * m // blocks
+    bounds = np.union1d(seg_bounds, block_bounds)
+    first, end = bounds[:-1], bounds[1:]
+    first, end = first[end > first], end[end > first]
+    seg_of = np.searchsorted(seg_bounds, first, side="right") - 1
+    block_of = np.searchsorted(block_bounds, first, side="right") - 1
+    chunks = np.stack([seg_of // n_tiles, seg_of % n_tiles, first, end],
+                      axis=1).astype(np.int32)
+    block_chunks = np.searchsorted(block_of, np.arange(blocks + 1))
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    hubs = tile_hubs(seg, edge_dst - (seg % n_tiles) * tile, k * n_tiles,
+                     tile)
+    return TileSchedule(psz, k, tile, up(edge_upd), up(edge_dst),
+                        up(chunks.reshape(-1, 4)), up(block_chunks),
+                        up(hubs))
+
+
+def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor, *,
+                     schedule: TileSchedule | None = None) -> torch.Tensor:
     """y = A^T x. x: (n,) or (n, d) with any d >= 1, on the device the
     packed layout lives on.
 
     The name is the JAX package's (``ops.pcpm_spmv_pallas``), kept so
     the counterpart is easy to find; on the card the gather runs the
     CUDA kernel (``kernel.pcpm_gather_cuda``), and d is not padded.
+    With ``schedule`` (built from the same blocked PNG) a d = 1 gather
+    takes B1's "tile" path (``kernel.b1_path``).
 
     The JAX version zeroes the pad update slots (``* update_valid``);
     here that pass is left out because no edge reads those slots: real
@@ -91,6 +278,6 @@ def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor) -> torch.Tensor:
     bins = x.index_select(0, packed.update_src.view(-1)).view(
         k, num_updates, d)
     out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
-                           part_size=packed.part_size)
+                           part_size=packed.part_size, schedule=schedule)
     y = out.view(-1, d)[:n]
     return y[:, 0] if squeeze else y

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the PCPM gather kernel."""
+"""Plain PyTorch versions of the PCPM gather kernel's two paths."""
 from __future__ import annotations
 
 import torch
@@ -28,3 +28,30 @@ def pcpm_gather_ref(bins: torch.Tensor, edge_upd: torch.Tensor,
     out.index_add_(0, rows_d, vals)
     out = out.view(k, part_size + 1, d)[:, :part_size, :]
     return out.to(bins.dtype).contiguous()
+
+
+def tile_gather_ref(bins: torch.Tensor, schedule) -> torch.Tensor:
+    """The "tile" path's function on its own streams: bins (k, U, 1) and
+    a ``ops.TileSchedule`` -> (k, P, 1). Every edge of every chunk adds
+    ``bins[p, upd]`` into ``out[p, dst]`` (p the chunk's partition),
+    inside the chunk's tile or not; an edge with upd outside [0, U) or
+    dst outside [0, P) is a pad. Sums in float32, returns ``bins``'
+    dtype."""
+    k, num_updates, _ = bins.shape
+    p_size = schedule.part_size
+    chunks = schedule.chunks.long()
+    lengths = chunks[:, 3] - chunks[:, 2]
+    # every edge of every chunk, with its chunk's partition
+    part = torch.repeat_interleave(chunks[:, 0], lengths)
+    edge = (torch.arange(int(lengths.sum()), device=bins.device)
+            - torch.repeat_interleave(torch.cumsum(lengths, 0) - lengths,
+                                      lengths)
+            + torch.repeat_interleave(chunks[:, 2], lengths))
+    u = schedule.edge_upd.long()[edge]
+    j = schedule.edge_dst.long()[edge]
+    ok = (u >= 0) & (u < num_updates) & (j >= 0) & (j < p_size)
+    vals = bins.float().reshape(-1).index_select(
+        0, (part * num_updates + u)[ok])
+    out = torch.zeros(k * p_size, dtype=torch.float32, device=bins.device)
+    out.index_add_(0, (part * p_size + j)[ok], vals)
+    return out.view(k, p_size, 1).to(bins.dtype)

@@ -7,10 +7,9 @@ The counterpart of the JAX package's ``models/recsys.py`` for inference:
 ``nn.Module`` (``MIND``), float32 as the reference draws them.
 
 The embedding lookup is the hot path, and every ``lookup`` is kernel B2
-on one-id bags: ``ids.reshape(-1, 1)`` through
-``kernels/embedding_bag/ops.py::embedding_bag``, one launch per call
-(the row, or zeros for an id >= V; an id < 0 reads row 0, as the
-reference's clip does). So ``serve_step`` launches B2 once and
+on one-id bags: ``kernels/embedding_bag/ops.py::embedding_lookup``, one
+launch per call into an output of shape (..., d) (the row, or zeros for
+an id >= V; an id < 0 reads row 0, as the reference's clip does). So ``serve_step`` launches B2 once and
 ``retrieval_step`` twice (the history, then the candidates).
 
 The reference's ``shard(...)`` annotations place activations on a
@@ -26,7 +25,7 @@ from torch import nn
 
 from ..configs.base import RecSysConfig
 from ..device import resolve_device
-from ..kernels.embedding_bag.ops import embedding_bag
+from ..kernels.embedding_bag.ops import embedding_lookup
 
 PARAM_NAMES = ("table", "bilinear", "route_init", "out_proj")
 
@@ -81,9 +80,9 @@ def _squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """ids (...) -> rows (..., d); an id >= V gives a zero row. One B2
-    launch on one-id bags (the plain version on the CPU)."""
-    rows = embedding_bag(table, ids.reshape(-1, 1))
-    return rows.reshape(*ids.shape, table.shape[1])
+    launch on one-id bags, written in the final shape (the plain version
+    on the CPU)."""
+    return embedding_lookup(table, ids)
 
 
 def interests(params: MIND, cfg: RecSysConfig,

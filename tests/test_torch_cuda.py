@@ -1,4 +1,5 @@
-"""The port on the card: kernel B1 against its plain version, and the
+"""The port on the card: kernel B1 against its plain version through
+both of its paths ("warp", "tile"), and the
 main path ``open(g, device="cuda").pagerank()`` against the same solve
 on the CPU and the dense oracle; kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), and the smoke LM's
@@ -21,16 +22,18 @@ from repro_torch import configs
 from repro_torch.core import (Partitioning, block_png, build_png,
                               pagerank_reference)
 from repro_torch.graphs import generators
-from repro_torch.kernels.pcpm_spmv import (kernel, pack_blocked,
+from repro_torch.core.png import BlockedPNG
+from repro_torch.kernels.pcpm_spmv import (kernel, ops, pack_blocked,
                                            pcpm_gather_cuda, pcpm_gather_ref,
-                                           pcpm_spmv_pallas)
+                                           pcpm_spmv_pallas, tile_schedule)
 from repro_torch.kernels import embedding_bag as b2
 from repro_torch.kernels import flash_attention as b3
 from repro_torch.models import recsys
 from repro_torch.models import transformer as tf
 from repro_torch.serve import Request, ServeEngine
 
-from test_torch_reference import cuda_device, dense_spmv  # noqa: F401
+from test_torch_reference import (cuda_device, dense_spmv,  # noqa: F401
+                                  hand_schedule)
 
 pytestmark = pytest.mark.cuda
 
@@ -118,6 +121,101 @@ def test_open_pagerank_on_the_card(cuda_device, method):
     ids, _ = sess.top_ranked(10)
     np.testing.assert_array_equal(ids, np.lexsort(
         (np.arange(g.num_nodes), -oracle))[:10])
+
+
+# ----------------------------------------------- kernel B1, path "tile"
+def _tile_inputs(dev, scale, deg, part_size, seed):
+    """A rmat layout packed on the card and bins that are multiples of
+    1/16, whose sums are exact in any order."""
+    g = generators.rmat(scale, deg, seed=scale)
+    blk = block_png(build_png(g, Partitioning(g.num_nodes, part_size)))
+    packed = pack_blocked(blk, g.num_nodes, edge_block=128, device=dev)
+    x = np.random.default_rng(seed).integers(0, 16, g.num_nodes) / 16
+    k, u = packed.update_src.shape
+    bins = torch.from_numpy(x.astype(np.float32)).to(dev)[
+        packed.update_src.view(-1)].view(k, u, 1)
+    return g, blk, packed, bins
+
+
+def _tile_call(bins, packed, schedule):
+    before = dict(kernel.launch_counts)
+    out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
+                           part_size=packed.part_size, schedule=schedule)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["tile"] == before["tile"] + 1
+    assert kernel.launch_counts["warp"] == before["warp"]
+    return out
+
+
+@pytest.mark.parametrize("tile_bytes", [64, ops.TILE_BYTES])
+@pytest.mark.parametrize("scale,deg,part_size", [s[:3] for s in SHAPES])
+def test_b1_tile_vs_plain(cuda_device, scale, deg, part_size, tile_bytes):
+    _, blk, packed, bins = _tile_inputs(cuda_device, scale, deg, part_size,
+                                        seed=scale)
+    schedule = tile_schedule(blk, tile_bytes=tile_bytes, device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        b = bins.to(dtype)
+        out = _tile_call(b, packed, schedule)
+        ref = pcpm_gather_ref(b, packed.edge_upd, packed.edge_dst,
+                              part_size=part_size)
+        assert out.dtype == dtype and torch.equal(out, ref)
+
+
+def test_b1_tile_all_pad_partition(cuda_device):
+    # partition 0 has no edge at all: no chunk, zeros
+    k, u_slots, part_size = 2, 4, 8
+    eu = np.full((k, 6), u_slots, dtype=np.int32)
+    ed = np.full((k, 6), part_size, dtype=np.int32)
+    eu[1, :3], ed[1, :3] = [0, 1, 1], [7, 2, 5]
+    blk = BlockedPNG(part_size, np.arange(k * u_slots, dtype=np.int32)
+                     .reshape(k, u_slots), eu, ed, 0.0, 0.0)
+    packed = pack_blocked(blk, k * part_size, edge_block=128,
+                          device=cuda_device)
+    schedule = tile_schedule(blk, tile_bytes=16, device=cuda_device)
+    bins = torch.rand((k, u_slots, 1), device=cuda_device)
+    out = _tile_call(bins, packed, schedule)
+    assert torch.count_nonzero(out[0]) == 0
+    torch.testing.assert_close(out, pcpm_gather_ref(
+        bins, packed.edge_upd, packed.edge_dst, part_size=part_size),
+        rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("order", ["dst-sorted", "random"])
+def test_b1_tile_edges_outside_their_chunks_tile(cuda_device, order):
+    _, blk, packed, bins = _tile_inputs(cuda_device, 8, 6, 64, seed=1)
+    k, u = packed.update_src.shape
+    eu = packed.edge_upd.reshape(k, -1).cpu().numpy()
+    ed = packed.edge_dst.reshape(k, -1).cpu().numpy()
+    rng = np.random.default_rng(0)
+    parts, ups, dsts = [], [], []
+    for p in range(k):
+        real = np.flatnonzero((eu[p] < u) & (ed[p] < packed.part_size))
+        if order == "random":
+            real = rng.permutation(real)
+        parts.append(np.full(len(real), p))
+        ups.append(eu[p][real])
+        dsts.append(ed[p][real])
+    schedule = hand_schedule(np.concatenate(parts), np.concatenate(ups),
+                             np.concatenate(dsts),
+                             part_size=packed.part_size, num_partitions=k,
+                             tile=16, chunk_edges=37, blocks=5,
+                             device=cuda_device)
+    out = _tile_call(bins, packed, schedule)
+    assert torch.equal(out, pcpm_gather_ref(
+        bins, packed.edge_upd, packed.edge_dst, part_size=packed.part_size))
+
+
+def test_pcpm_pallas_solves_through_the_tile_path(cuda_device):
+    g = generators.rmat(10, 8, seed=0)
+    cfg = repro_torch.EngineConfig(method="pcpm_pallas", part_size=256,
+                                   num_iterations=12)
+    before = dict(kernel.launch_counts)
+    res = repro_torch.open(g, cfg).pagerank()
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["tile"] - before["tile"] == res.iterations
+    assert kernel.launch_counts["warp"] == before["warp"]
+    oracle = pagerank_reference(g, num_iterations=res.iterations)
+    assert np.abs(res.ranks.cpu().numpy() - oracle).max() <= 1e-6
 
 
 # ------------------------------------------------------------- kernel B3
@@ -333,6 +431,19 @@ def test_b2_rejects_what_it_cannot_take(cuda_device):
         b2.embedding_bag(table, idx.to(torch.int16))
     with pytest.raises(ValueError, match="one device"):
         b2.embedding_bag(table, idx.cpu())
+
+
+def test_b2_lookup_writes_the_ids_shape(cuda_device):
+    table = torch.rand((300, 64), device=cuda_device)
+    ids = torch.randint(-2, 310, (7, 50), device=cuda_device)
+    for view in (ids, ids.t(), ids[:, ::3]):
+        before = b2.kernel.launch_count
+        rows = b2.embedding_lookup(table, view)
+        torch.cuda.synchronize()
+        assert b2.kernel.launch_count == before + 1
+        assert rows.shape == (*view.shape, 64)
+        assert torch.equal(rows, b2.embedding_bag_ref(
+            table, view.reshape(-1, 1)).reshape(rows.shape))
 
 
 def test_mind_on_the_card_matches_cpu(cuda_device):

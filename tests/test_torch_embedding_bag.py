@@ -9,6 +9,8 @@ a negative id. The CUDA kernel cannot run here, so a torch emulation of
 its thread mapping (``kernel.geometry``, 16-byte chunks, a scalar tail,
 pad skip, negative clip) is held against the plain version.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -243,3 +245,48 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
     with pytest.raises(ValueError, match="unsupported device"):
         embedding_bag(table.to("meta"), idx.to("meta"))
     assert b2.kernel.launch_count == before
+
+
+def test_packed_arguments_are_the_c_sides_in_its_order():
+    source = b2.kernel.SOURCE.read_text()
+    body = re.search(r"enum Arg \{(.*?)\};", source, re.S).group(1)
+    names = [n.lower() for n in re.findall(r"^\s*k(\w+),", body, re.M)
+             if n != "NumArgs"]
+    assert names == [n.replace("_", "").lower()
+                     for n in b2.kernel.ARGS.names]
+    table = torch.rand(16, 8)
+    idx = torch.zeros((6, 3), dtype=torch.int64)[::2]       # strided bags
+    w = torch.rand((3, 5))[:, 1:4]
+    out = torch.empty((3, 8))
+    got = b2.kernel.ARGS.unpack(b2.kernel.launch_args(
+        table, idx, idx.shape, idx.stride(), w, out, group=2, blocks=1))
+    assert got == dict(table_bf16=0, idx_64=1, table=table.data_ptr(), V=16,
+                       ld=8, idx=idx.data_ptr(), idx_sb=6, idx_sl=1,
+                       w=w.data_ptr(), w_sb=5, w_sl=1, out=out.data_ptr(),
+                       B=3, L=3, d=8, group=2, blocks=1)
+    # MIND's lookup: ids of any shape as (N, 1) bags, strides (1, 0)
+    ids = torch.zeros((4, 5), dtype=torch.int32)
+    got = b2.kernel.ARGS.unpack(b2.kernel.launch_args(
+        table.bfloat16(), ids, (20, 1), (1, 0), None, out, group=1,
+        blocks=3))
+    assert (got["table_bf16"], got["idx_64"], got["idx"], got["idx_sb"],
+            got["idx_sl"], got["B"], got["L"], got["w"], got["w_sb"],
+            got["w_sl"], got["group"], got["blocks"]) == (
+        1, 0, ids.data_ptr(), 1, 0, 20, 1, 0, 0, 0, 1, 3)
+
+
+def test_lookup_is_one_id_bags_in_the_ids_shape():
+    table = torch.rand(16, 8)
+    ids = torch.tensor([[3, 16, -1], [0, 20, 15]], dtype=torch.int64)
+    before = b2.kernel.launch_count
+    rows = b2.embedding_lookup(table, ids.t())          # a strided view
+    assert rows.shape == (3, 2, 8)
+    torch.testing.assert_close(rows, embedding_bag_ref(
+        table, ids.t().reshape(-1, 1)).reshape(3, 2, 8), rtol=0, atol=0)
+    assert b2.kernel.launch_count == before
+    with pytest.raises(TypeError, match="int32 or int64"):
+        b2.embedding_lookup(table, ids.short())
+    with pytest.raises(ValueError, match="one device"):
+        b2.embedding_lookup(table, ids.to("meta"))
+    with pytest.raises(ValueError, match=r"\(V, d\)"):
+        b2.embedding_lookup(table[0], ids)

@@ -52,6 +52,40 @@ def dense_spmv(num_nodes: int, src: np.ndarray, dst: np.ndarray,
     return a.T @ x
 
 
+def hand_schedule(part: np.ndarray, upd: np.ndarray, dst: np.ndarray, *,
+                  part_size: int, num_partitions: int, tile: int,
+                  chunk_edges: int, blocks: int, device="cpu"):
+    """A ``TileSchedule`` of kernel B1 over given flat streams (``part``,
+    the partition of each edge, non-decreasing), not in the port's
+    order: each partition's edges cut into chunks of ``chunk_edges``,
+    each chunk given the tile of its first edge's destination (so its
+    other edges may lie outside it), the chunks dealt to ``blocks``
+    blocks in contiguous runs."""
+    import torch
+    from repro_torch.kernels.pcpm_spmv import TileSchedule, ops
+    bounds = np.searchsorted(part, np.arange(num_partitions + 1))
+    rows = [(p, min(int(dst[a]), part_size - 1) // tile, a,
+             min(a + chunk_edges, bounds[p + 1]))
+            for p in range(num_partitions)
+            for a in range(bounds[p], bounds[p + 1], chunk_edges)]
+    chunks = np.array(rows, dtype=np.int32).reshape(-1, 4)
+    block_chunks = np.arange(blocks + 1) * len(chunks) // blocks
+    # hubs from the edges that lie in their chunk's tile
+    n_tiles = -(-part_size // tile)
+    seg = np.concatenate([np.full(b - a, p * n_tiles + t)
+                          for p, t, a, b in rows] or [np.zeros(0, int)])
+    jt = dst - seg % n_tiles * tile
+    inside = (jt >= 0) & (jt < tile)
+    hubs = ops.tile_hubs(seg[inside], jt[inside], num_partitions * n_tiles,
+                         tile)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return TileSchedule(part_size, num_partitions, tile, up(upd), up(dst),
+                        up(chunks), up(block_chunks), up(hubs))
+
+
 def test_alias_leaves_repro_unimported():
     # in a fresh interpreter: other test files in this worker may have
     # imported ``repro`` themselves
