@@ -21,13 +21,28 @@ Phases, each of which exits non-zero when it fails:
    21, each result held against a float64 scipy power iteration; B1 must
    have launched once per pcpm_pallas iteration, through "tile". Then the
    host time and device bytes of the gather order, and B1 against its
-   plain version at the main path's shapes (d = 1 through "tile", exact;
-   d = 16 through "warp", off the main path);
+   plain version at the main path's shape (d = 1 through "tile", exact)
+   and at the serving stepper's (d = 16 through "warp", exact);
 4. times with CUDA events after warm-up: ms per iteration and GB/s per
-   engine, B1's time beside its byte bound, its plain version and a
-   ``torch.sparse`` CSR product with A^T, which the port never calls, at
-   d = 1 ("tile") and at d = 16 ("warp", off the main path);
-5. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
+   engine (bytes of the paper's models, ``core/comm_model.py``), B1's
+   time beside its byte bound, its plain version and a ``torch.sparse``
+   CSR product with A^T, which the port never calls, at d = 1 ("tile")
+   and at d = 16 ("warp");
+5. the PageRank serving path on the same graph and pcpm_pallas plan:
+   ``Session.serve(slots=16, chunk=8)`` drains 64 queries in the mix of
+   the JAX package's scheduler test (uniform at 20 iterations; one seed,
+   top 10, tol 1e-3, routed to the forward push, on the card; four
+   seeds, tol 1e-6; uniform top 10), every query ending exactly once;
+   B1 "warp" launched once per chunk iteration and "tile" once per push
+   sweep and seeding; uniform results against phase 3's oracle, seeded
+   ones against a float64 personalized power iteration on the card (a
+   ``torch.sparse`` product over the edge list) at their own iteration
+   counts, push results within tol·d/(1−d) of the fixed point. Then
+   ``Session.server`` at batch 16 ("warp") and batch 1 ("tile"), and
+   times: queries/s over the drain, ms per chunk with 16 active slots,
+   ms per ``PageRankServer.query``, and a profile of chunks with B1's
+   device time;
+6. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
    against its plain version on the same inputs upcast to float32, on
    the card, each call through the path ``b3_path`` names ("tc" for
    bfloat16 with Sq > 1, "split" for Sq = 1, "simt" for float32): the
@@ -37,7 +52,7 @@ Phases, each of which exits non-zero when it fails:
    mixed per-slot lengths) and its prefill shape (4, 2048, causal);
    bfloat16 outputs within rtol 1.6e-2, atol 2e-3 (their rounding; inside
    TestFlashAttention's 5e-2);
-6. the LM serving path: TinyLlama-1.1B at its configured widths
+7. the LM serving path: TinyLlama-1.1B at its configured widths
    (``configs/tinyllama_1_1b.py``: 22 layers, d_model 2048, 32/4 heads,
    d_ff 5632, vocab 32000), random bfloat16 weights from a seeded
    generator; a ``ServeEngine`` with 8 slots and max_len 1024 drains 16
@@ -45,18 +60,18 @@ Phases, each of which exits non-zero when it fails:
    launched once per layer per decode step; then ``prefill`` at
    (4, 2048), and ``decode_step`` over 256 tokens against ``forward`` on
    the same tokens;
-7. times with CUDA events: ms per decode step and tokens/s, prefill ms,
+8. times with CUDA events: ms per decode step and tokens/s, prefill ms,
    B3 beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
    port never calls); the device idle share and top kernels of profiled
    decode steps and prefills, with B3's share of each;
-8. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
+9. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
    against its plain version on the card: the shapes of the JAX
    package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
    in float32 and with a bfloat16 table, pad ids and a negative id (row
    0); then MIND's lookups (one-id bags) on its 10M-row table at the
-   shapes of phase 9, which must give the plain version's rows exactly;
-9. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
+   shapes of phase 10, which must give the plain version's rows exactly;
+10. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
    embed_dim 64, 4 interests, 3 routing iterations, hist_len 50),
    float32 parameters from a seeded generator; ``serve_step`` at
    serve_p99 (B 512) and serve_bulk (B 262,144), ``retrieval_step`` for
@@ -86,16 +101,18 @@ from pathlib import Path
 
 import numpy as np
 
-# configs/pagerank_kron.py: scale 25, edge factor 31, part_size 65536;
-# only the scale is cut (host preprocessing is numpy)
-SCALE, FULL_SCALE, EDGE_FACTOR, PART_SIZE = 21, 25, 31, 65536
-ITERATIONS, DAMPING = 20, 0.85
+# the kron cell: the port's configs/pagerank_kron.py (``kron()``) with
+# its scale cut from 25 to SCALE, because host preprocessing is numpy
+SCALE = 21
 METHODS = ("pdpr", "bvgas", "pcpm", "pcpm_pallas")
 # H100 SXM, NVIDIA data sheet: HBM3 bandwidth, float32 (non-tensor) rate,
 # bfloat16 dense tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
+B1_ENTRY = {"name": "pcpm_gather", "route": "cuda",
+            "source": "src/repro_torch/csrc/pcpm_gather.cu",
+            "replaces": "src/repro/kernels/pcpm_spmv/kernel.py:96"}
 B1_SHAPES = [(6, 4, 16, 1), (7, 8, 32, 8), (8, 6, 64, 16), (7, 4, 128, 32)]
 F32_TOL = dict(rtol=1e-5, atol=1e-6)   # atomics add in run-dependent order
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
@@ -144,6 +161,14 @@ MIND_TOL = dict(rtol=1e-4, atol=1e-5)
 # retrieval scores (|s| < ~1, 64-term float32 dots) against a float64
 # rescoring: ids are compared where neighbouring scores differ by more
 SCORE_TOL = 1e-5
+
+
+def kron():
+    """The paper's workload as the port configures it (scale 25, edge
+    factor 31, partitions of 65536 nodes, 20 iterations, damping 0.85),
+    read once ``src`` is on the path."""
+    from repro_torch.configs.pagerank_kron import CONFIG
+    return CONFIG
 
 
 def log(msg: str) -> None:
@@ -273,11 +298,11 @@ def transpose_adjacency(g):
 def oracle_pagerank(at, out_degree: np.ndarray) -> np.ndarray:
     """float64 power iteration with scipy.sparse (dangling mass dropped,
     as the port's default policy does)."""
-    n = at.shape[0]
+    n, cfg = at.shape[0], kron()
     inv = np.where(out_degree == 0, 0.0, 1.0 / np.maximum(out_degree, 1))
     pr = np.full(n, 1.0 / n)
-    for _ in range(ITERATIONS):
-        pr = (1.0 - DAMPING) / n + DAMPING * (at @ (pr * inv))
+    for _ in range(cfg.num_iterations):
+        pr = (1.0 - cfg.damping) / n + cfg.damping * (at @ (pr * inv))
     return pr
 
 
@@ -295,15 +320,20 @@ def check_against_oracle(method, ranks, ids10, oracle) -> None:
 
 
 def model_bytes(method: str, sess) -> int:
-    """Per-iteration bytes of the paper's models (§V eqs. 3-5) with this
-    graph's n, m, k and r; d_i = d_v = 4 B; pdpr at its best case
-    c_mr = d_v / l (each source value fetched once)."""
-    n, m = sess.plan.num_nodes, sess.plan.num_edges
-    if method == "pdpr":
-        return 8 * m + 8 * n
-    if method == "bvgas":
-        return 16 * m + 12 * n
-    return sess.plan.png.model_bytes()["total"]
+    """Per-iteration bytes of the paper's models (§V eqs. 3-5, the port's
+    ``core/comm_model.py``) with this graph's n, m, k and r; d_i = d_v =
+    4 B; pdpr at its best case c_mr = d_v / l (each source value fetched
+    once)."""
+    from repro_torch.core import comm_model
+    plan = sess.plan
+    r = plan.png.compression_ratio if plan.png is not None else 1.0
+    params = comm_model.ModelParams(plan.num_nodes, plan.num_edges,
+                                    plan.partitioning.num_partitions, r,
+                                    c_mr=4 / 64)
+    model = {"pdpr": comm_model.pdpr_bytes,
+             "bvgas": comm_model.bvgas_bytes}.get(method,
+                                                  comm_model.pcpm_bytes)
+    return round(model(params))
 
 
 def profile_iterations(sessions, card) -> None:
@@ -311,6 +341,7 @@ def profile_iterations(sessions, card) -> None:
     per engine, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    iterations = kron().num_iterations
     for method, sess in sessions.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -330,13 +361,16 @@ def profile_iterations(sessions, card) -> None:
             f"{wall_us:.0f} us wall ({100 * busy_us / wall_us:.1f}%), "
             f"idle {100 * (1 - busy_us / wall_us):.1f}% ({card})")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"  {e.self_device_time_total / ITERATIONS:9.1f} us/iter "
-                f"x{e.count // ITERATIONS:<3d} {e.key[:90]}")
+            log(f"  {e.self_device_time_total / iterations:9.1f} us/iter "
+                f"x{e.count // iterations:<3d} {e.key[:90]}")
 
 
-def pagerank_phases(dev, card) -> dict:
-    """Phases 3 and 4: the PageRank main path and its times; returns
-    B1's entry of the kernels line."""
+def pagerank_phases(dev, card):
+    """Phases 3 and 4: the PageRank main path and its times. Returns B1's
+    entry of the kernels line at the main path's shape ("tile", d = 1),
+    B1's check and times at the serving stepper's shape ("warp",
+    d = 16), and what phase 5 reuses: the graph, the pcpm_pallas
+    session, the float64 oracle and A^T on the card."""
     import torch
     from repro_torch import EngineConfig, open as open_session
     from repro_torch.graphs import generators
@@ -345,12 +379,15 @@ def pagerank_phases(dev, card) -> dict:
                                                pcpm_gather_ref,
                                                tile_schedule)
     # ---------------------------------------------------- 3. main path
+    cfg = kron()
+    edge_factor, part_size = cfg.edge_factor, cfg.part_size
+    iterations = cfg.num_iterations
     t0 = time.perf_counter()
-    g = generators.rmat(SCALE, EDGE_FACTOR, seed=0)
+    g = generators.rmat(SCALE, edge_factor, seed=0)
     t_gen = time.perf_counter() - t0
-    log(f"graph: rmat(scale={SCALE}, edge_factor={EDGE_FACTOR}, seed=0): "
+    log(f"graph: rmat(scale={SCALE}, edge_factor={edge_factor}, seed=0): "
         f"n={g.num_nodes} m={g.num_edges}, {t_gen:.1f} s; cut from the "
-        f"configured scale {FULL_SCALE} to {SCALE} (part_size {PART_SIZE} "
+        f"configured scale {cfg.scale} to {SCALE} (part_size {part_size} "
         "and edge factor kept)")
     sessions, results, prep = {}, {}, {}
     b1.launch_count = 0                    # counts of the main path only
@@ -358,8 +395,8 @@ def pagerank_phases(dev, card) -> dict:
     for method in METHODS:
         t0 = time.perf_counter()
         sess = open_session(g, EngineConfig(method=method,
-                                            part_size=PART_SIZE,
-                                            num_iterations=ITERATIONS),
+                                            part_size=part_size,
+                                            num_iterations=iterations),
                             device="cuda")
         prep[method] = time.perf_counter() - t0
         res = sess.pagerank()
@@ -388,7 +425,7 @@ def pagerank_phases(dev, card) -> dict:
     for method in METHODS:
         res = results[method]
         ranks = res.ranks.cpu().numpy()
-        if res.iterations != ITERATIONS or not np.isfinite(ranks).all():
+        if res.iterations != iterations or not np.isfinite(ranks).all():
             fail(f"{method}: {res.iterations} iterations, finite "
                  f"{np.isfinite(ranks).all()}")
         ids10, _ = sessions[method].top_ranked(10)
@@ -420,7 +457,8 @@ def pagerank_phases(dev, card) -> dict:
         f"gather order {schedule.nbytes} = "
         f"{packed_bytes + schedule.nbytes}")
 
-    # B1 against its plain version at the main path's shapes
+    # B1 against its plain version at the main path's shape (d = 1) and
+    # at the serving stepper's (d = 16: phase 5's 16 slots)
     k, u = packed.update_src.shape
     gen = torch.Generator(device=dev).manual_seed(0)
     main_bins = {}
@@ -435,13 +473,15 @@ def pagerank_phases(dev, card) -> dict:
                           device=dev).float() / 16
         bins = x[packed.update_src.view(-1)].view(k, u, d)
         main_bins[d] = bins
-        errs[d] = check_b1(bins, packed.edge_upd, packed.edge_dst, PART_SIZE,
-                           f"main path d={d}", schedule=schedule, exact=True)
+        errs[d] = check_b1(bins, packed.edge_upd, packed.edge_dst, part_size,
+                           "main path d=1" if d == 1 else
+                           "serving path d=16", schedule=schedule,
+                           exact=True)
 
     # ---------------------------------------------------- 4. times
     for method in METHODS:
         sess = sessions[method]
-        ms = time_ms(sess.pagerank, reps=3, warmup=1) / ITERATIONS
+        ms = time_ms(sess.pagerank, reps=3, warmup=1) / iterations
         nbytes = model_bytes(method, sess)
         log(f"time {method}: {ms!r} ms/iteration, model {nbytes} B/iter -> "
             f"{nbytes / ms / 1e6:.1f} GB/s ({card})")
@@ -458,18 +498,18 @@ def pagerank_phases(dev, card) -> dict:
     # layout: 8 B per real edge (both index streams), d float32 bins
     # values per real update, the (k, P, d) float32 output; d adds per
     # edge
-    edges = int(((packed.edge_upd < u) & (packed.edge_dst < PART_SIZE)).sum())
+    edges = int(((packed.edge_upd < u) & (packed.edge_dst < part_size)).sum())
     timed = {}
     for d, path_schedule in ((1, schedule), (16, None)):
         args = (main_bins[d], packed.edge_upd, packed.edge_dst)
         ms = time_ms(lambda: pcpm_gather_cuda(
-            *args, part_size=PART_SIZE, schedule=path_schedule),
+            *args, part_size=part_size, schedule=path_schedule),
             reps=50 if d == 1 else 10, warmup=5)
         plain_ms = time_ms(lambda: pcpm_gather_ref(*args,
-                                                   part_size=PART_SIZE),
+                                                   part_size=part_size),
                            reps=10 if d == 1 else 3)
         bytes_moved = (8 * edges + 4 * d * plan.png.num_updates
-                       + 4 * d * k * PART_SIZE)
+                       + 4 * d * k * part_size)
         bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
         ops_ms = d * edges / PEAK_F32_PER_S * 1e3
         xv = torch.rand((g.num_nodes, d), generator=gen, device=dev)
@@ -480,8 +520,8 @@ def pagerank_phases(dev, card) -> dict:
                     "bound_by": "bytes" if bytes_ms >= ops_ms
                     else "operations", "library_ms": library_ms,
                     "max_abs_err": errs[d]}
-        log(f"B1 {'on' if d == 1 else 'off'} the main path "
-            f"(d={d}, path {path!r}): {ms!r} ms; bound "
+        log(f"B1 {'on the main path' if d == 1 else 'at the serving path'}"
+            f" (d={d}, path {path!r}): {ms!r} ms; bound "
             f"{timed[d]['bound_ms']!r} ms ({bytes_moved} B for {edges} edges "
             f"and {plan.png.num_updates} updates at "
             f"{PEAK_BYTES_PER_S / 1e12} TB/s); plain version {plain_ms!r} "
@@ -492,19 +532,274 @@ def pagerank_phases(dev, card) -> dict:
     log(f"whole pcpm_pallas SpMV (d=1): {spmv_ms!r} ms ({card})")
     torch.cuda.synchronize()
 
-    return {
-        "name": "pcpm_gather",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/pcpm_gather.cu",
-        "replaces": "src/repro/kernels/pcpm_spmv/kernel.py:96",
-        "launches": main_launches,
-        "launches_by_path": main_by_path,
-        **timed[1],
-        "d16_off_main_path": timed[16],
-    }
+    entry = {**B1_ENTRY, "launches": main_launches,
+             "launches_by_path": main_by_path, **timed[1]}
+    reuse = {"g": g, "sess": sessions["pcpm_pallas"], "oracle": oracle,
+             "at_dev": at_dev}
+    return entry, timed[16], reuse
 
 
 # --------------------------------------------------------------- phase 5
+SERVE_SLOTS, SERVE_CHUNK, SERVE_QUERIES = 16, 8, 64
+PUSH_TOL = 1e-3
+FIXED_POINT_ITERATIONS = 150          # 0.85**150 * 2 < 1e-10
+
+
+def personalized_oracle(at64, inv64, cols, counts, damping):
+    """float64 personalized power iteration on the card: ``at64`` is A^T
+    as a torch.sparse CSR built from the graph's edge list (independent
+    of the port's plans), ``cols`` the seed sets; column j is taken after
+    ``counts[j]`` iterations. A yardstick: nothing on the served path
+    calls it."""
+    import torch
+    n = at64.shape[0]
+    v = torch.zeros((n, len(cols)), dtype=torch.float64, device=at64.device)
+    for j, ids in enumerate(cols):
+        v[torch.as_tensor(ids, device=at64.device).long(), j] = 1.0
+    v /= v.sum(0, keepdim=True)
+    x, out = v.clone(), torch.empty_like(v)
+    counts = np.asarray(counts)
+    for it in range(int(counts.max()) + 1):
+        if it:
+            x = (1.0 - damping) * v + damping * (at64 @ (x * inv64[:, None]))
+        for j in np.nonzero(counts == it)[0]:
+            out[:, j] = x[:, j]
+    return out
+
+
+def serving_phase(dev, card, reuse, warp_timed) -> dict:
+    """Phase 5: PageRank query serving on phase 3's kron graph and
+    pcpm_pallas plan. A ``SlotScheduler`` (16 slots, chunks of 8) drains
+    64 queries in the reference test's mix; ``PageRankServer`` answers 16
+    seeds at batch 16 and one at batch 1; then times and a profile of
+    chunks. Returns B1's entry of the kernels line at the serving
+    stepper's shape ("warp", d = 16)."""
+    import torch
+    from repro_torch.kernels.pcpm_spmv import kernel as b1
+    from repro_torch.serve import PushQueryEngine
+    from repro_torch.serve import scheduler as sched_mod
+    from repro_torch.serve.topk import host_topk
+    g, sess, oracle, at_dev = (reuse[k] for k in ("g", "sess", "oracle",
+                                                  "at_dev"))
+    n, damping = g.num_nodes, kron().damping
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        b1.launch_count = 0
+        b1.launch_counts = dict.fromkeys(b1.PATHS, 0)
+
+    def seed_vector(ids):
+        s = np.zeros(n, np.float32)
+        s[ids] = 1.0
+        return s
+
+    # ------------------------------------------- the scheduler's drain
+    # the entry point as a user calls it: its push (``push_mode="auto"``)
+    # runs on the card, B1 "tile" once per sweep
+    sch = sess.serve(slots=SERVE_SLOTS, chunk=SERVE_CHUNK)
+    rng = np.random.default_rng(3)
+    work = []                                  # (kind, seed ids, kwargs)
+    for i in range(SERVE_QUERIES):
+        kind = i % 4
+        if kind == 0:                          # uniform, fixed iterations
+            work.append((kind, None, dict(tol=0.0, max_iters=20)))
+        elif kind == 1:                        # one seed, top-k: push
+            work.append((kind, [int(rng.integers(0, n))],
+                         dict(top_k=10, tol=PUSH_TOL)))
+        elif kind == 2:                        # four seeds, tight tol
+            work.append((kind, rng.integers(0, n, size=4).tolist(),
+                         dict(tol=1e-6, max_iters=200)))
+        else:                                  # uniform top-k
+            work.append((kind, None, dict(top_k=10, tol=0.0,
+                                          max_iters=20)))
+    chunk_iters = []
+    read_chunk = sched_mod._read_chunk
+
+    def counted_read(*args):
+        out = read_chunk(*args)
+        chunk_iters.append(int(out[1].max()))
+        return out
+
+    sched_mod._read_chunk = counted_read
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        uids = [sch.submit(None if ids is None else seed_vector(ids), **kw)
+                for _, ids, kw in work]
+        submit_s = time.perf_counter() - t0    # the pushes run inline
+        sch.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        sched_mod._read_chunk = read_chunk
+    drain_s = time.perf_counter() - t0
+    drain_counts = dict(b1.launch_counts)
+    done = {r.uid: r for r in sch.completed}
+    summary = sch.metrics.summary()
+    log(f"serving drain: {SERVE_QUERIES} queries, {len(chunk_iters)} "
+        f"chunks ({sum(chunk_iters)} iterations), {drain_s:.3f} s "
+        f"({submit_s:.3f} s of submits with the 16 pushes inline, "
+        f"{drain_s - submit_s:.3f} s of stepper chunks), "
+        f"{SERVE_QUERIES / drain_s!r} queries/s; p50 "
+        f"{summary['p50_ms']!r} ms, p99 {summary['p99_ms']!r} ms; "
+        f"counters {dict(sch.metrics.counters)}; B1 launches by path "
+        f"{drain_counts} ({card})")
+    if (sorted(done) != sorted(uids) or len(sch.completed) != len(uids)
+            or any(r.error for r in sch.completed)):
+        fail("serving drain: not every query ended exactly once, error-free")
+    sch.metrics.reconcile()
+    routes = [sch.metrics.traces[u].route for u in uids]
+    fallbacks = sch.metrics.counters["push_fallbacks"]
+    push_sweeps = sum(done[u].iterations + 1 for (kind, _, _), u, route
+                      in zip(work, uids, routes) if route == "push")
+    want_tile = push_sweeps + fallbacks * (sch.push_max_sweeps + 1)
+    log(f"serving drain: routes {sum(r == 'push' for r in routes)} push, "
+        f"{sum(r is None for r in routes)} stepper; B1 'warp' "
+        f"{drain_counts['warp']} (= the chunks' iterations "
+        f"{sum(chunk_iters)}: {drain_counts['warp'] == sum(chunk_iters)}), "
+        f"'tile' {drain_counts['tile']} (= push sweeps + seedings "
+        f"{want_tile}: {drain_counts['tile'] == want_tile})")
+    if drain_counts["warp"] != sum(chunk_iters) or not chunk_iters:
+        fail("serving drain: B1 'warp' launches differ from the chunks' "
+             "iterations")
+    if drain_counts["tile"] != want_tile:
+        fail("serving drain: B1 'tile' launches differ from the push sweeps")
+    if [r == "push" for r in routes] != [k == 1 for k, _, _ in work]:
+        fail("serving drain: the single-seed top-k queries were not all "
+             "routed to push, or others were")
+
+    # the yardsticks: A^T in float64 on the card, from the edge list
+    at64 = torch.sparse_csr_tensor(at_dev.crow_indices(),
+                                   at_dev.col_indices(),
+                                   at_dev.values().double(),
+                                   size=at_dev.shape)
+    deg = np.asarray(g.out_degree)
+    inv64 = torch.from_numpy(np.where(deg == 0, 0.0, 1.0 / np.maximum(
+        deg, 1))).to(dev)
+    top10 = np.lexsort((np.arange(n), -oracle))[:10]
+    worst = {0: 0.0, 2: 0.0, 3: 0.0, 1: 0.0}
+    for (kind, _, _), u in zip(work, uids):
+        r = done[u]
+        if kind == 0:
+            l1 = float(np.abs(r.ranks.astype(np.float64) - oracle).sum())
+            ids, _ = host_topk(r.ranks, 10)
+            if r.iterations != 20 or not np.array_equal(ids, top10):
+                fail(f"serving drain uid {u}: {r.iterations} iterations, "
+                     "top-10 ids differ from the float64 oracle's")
+        elif kind == 3:
+            l1 = float(np.abs(r.top_scores - oracle[r.top_ids]).sum())
+            if r.iterations != 20 or not np.array_equal(r.top_ids, top10):
+                fail(f"serving drain uid {u}: top-10 ids differ from the "
+                     "float64 oracle's")
+        else:
+            continue
+        worst[kind] = max(worst[kind], l1)
+    stepped = [(u, ids) for (kind, ids, _), u in zip(work, uids)
+               if kind == 2]
+    want = personalized_oracle(at64, inv64, [ids for _, ids in stepped],
+                               [done[u].iterations for u, _ in stepped],
+                               damping).cpu().numpy()
+    for j, (u, _) in enumerate(stepped):
+        if not done[u].converged:
+            fail(f"serving drain uid {u}: not converged")
+        worst[2] = max(worst[2], float(np.abs(
+            done[u].ranks.astype(np.float64) - want[:, j]).sum()))
+    pushed = [(u, ids) for (kind, ids, _), u in zip(work, uids)
+              if kind == 1]
+    fixed = personalized_oracle(at64, inv64, [ids for _, ids in pushed],
+                                [FIXED_POINT_ITERATIONS] * len(pushed),
+                                damping).cpu().numpy()
+    bound = PUSH_TOL * damping / (1.0 - damping)
+    push_l1 = 0.0
+    engine = PushQueryEngine(g, sess.engine)
+    if engine.mode != "device":
+        fail("push on a plan on the card did not pick the device loop")
+    for j, (u, ids) in enumerate(pushed):
+        r = done[u]
+        worst[1] = max(worst[1], float(np.abs(
+            r.top_scores - fixed[r.top_ids, j]).sum()))
+        est = engine.query(seed_vector(ids), tol=PUSH_TOL).estimate
+        push_l1 = max(push_l1, float(np.abs(est - fixed[:, j]).sum()))
+    log(f"serving drain vs float64: uniform L1 {worst[0]!r}, uniform top-10 "
+        f"scores L1 {worst[3]!r} (<= 1e-5, top-10 ids equal); stepper "
+        f"seeded L1 at each query's iterations {worst[2]!r} (<= 1e-5); push "
+        f"top-10 scores L1 {worst[1]!r}, whole push estimates L1 "
+        f"{push_l1!r} vs the fixed point (<= tol*d/(1-d) = {bound!r})")
+    if max(worst[0], worst[2], worst[3]) > 1e-5 or max(
+            worst[1], push_l1) > bound:
+        fail("serving drain disagrees with the float64 oracle")
+    del fixed, want
+
+    # ------------------------------------------------- the server
+    server_ids = rng.integers(0, n, size=SERVE_SLOTS).tolist()
+    seeds16 = np.zeros((n, SERVE_SLOTS), np.float32)
+    seeds16[server_ids, np.arange(SERVE_SLOTS)] = 1.0
+    srv16 = sess.server(batch=SERVE_SLOTS)
+    srv1 = sess.server(batch=1)
+    server_counts = {}
+    for name, srv, arg in (("batch 16", srv16, seeds16),
+                           ("batch 1", srv1, seeds16[:, 0].copy())):
+        torch.cuda.synchronize()
+        reset_counts()
+        pr, it, _ = srv.query(arg)
+        torch.cuda.synchronize()
+        server_counts[name] = dict(b1.launch_counts)
+        got = pr.cpu().numpy().reshape(n, -1)
+        want = personalized_oracle(at64, inv64,
+                                   [[i] for i in server_ids[:got.shape[1]]],
+                                   [it] * got.shape[1], damping).cpu().numpy()
+        l1 = float(np.abs(got.astype(np.float64) - want).sum(0).max())
+        path = "warp" if srv is srv16 else "tile"
+        log(f"PageRankServer {name}: {it} iterations, B1 launches by path "
+            f"{server_counts[name]}, max column L1 vs float64 {l1!r} "
+            f"(<= 1e-5)")
+        if server_counts[name][path] != it or sum(
+                server_counts[name].values()) != it:
+            fail(f"PageRankServer {name}: B1 {path!r} not launched once per "
+                 "iteration")
+        if l1 > 1e-5:
+            fail(f"PageRankServer {name} disagrees with the float64 oracle")
+    del at64, want
+
+    # ------------------------------------------------- times
+    # uniform queries reuse the server's device start vector: their time
+    # is the device loop's; seeded ones add the host's normalization and
+    # the upload of the (n, batch) seeds
+    srv_ms = {name: time_ms(lambda: srv.query(arg), reps=reps, warmup=1)
+              for name, srv, arg, reps in (
+                  ("batch 16", srv16, seeds16, 3),
+                  ("batch 16 uniform", srv16, None, 3),
+                  ("batch 1", srv1, seeds16[:, 0].copy(), 5),
+                  ("batch 1 uniform", srv1, None, 5))}
+    for name, ms in srv_ms.items():
+        log(f"time PageRankServer.query {name} (20 iterations): {ms!r} ms "
+            f"({card})")
+    pool = sess.serve(slots=SERVE_SLOTS, chunk=SERVE_CHUNK, route="stepper")
+    for _ in range(SERVE_SLOTS):
+        pool.submit(tol=0.0, max_iters=10 ** 6)
+    pool.step()                                # admit all 16
+    chunk_ms = time_ms(pool.step, reps=5, warmup=1)
+    log(f"time serving chunk ({SERVE_SLOTS} active slots, {SERVE_CHUNK} "
+        f"iterations): {chunk_ms!r} ms, {chunk_ms / SERVE_CHUNK!r} "
+        f"ms/iteration ({card})")
+    profile_steps(pool.step, f"serving chunk ({SERVE_SLOTS} slots)", card,
+                  names=("warp::gather_kernel",))
+    del pool, srv16, srv1
+    torch.cuda.synchronize()
+    log(f"phase 5 (PageRank serving): {time.perf_counter() - t_phase:.1f} s")
+    return {**B1_ENTRY, "path": "warp",
+            "shape": f"kron-{SCALE}, d={SERVE_SLOTS} (the serving "
+                     "stepper's slots)",
+            "launches": drain_counts["warp"],
+            "launches_by_path": {"drain": drain_counts, **server_counts},
+            **warp_timed,
+            "serving": {"queries_per_s": SERVE_QUERIES / drain_s,
+                        "submit_s": submit_s, "drain_s": drain_s,
+                        "chunk_ms": chunk_ms,
+                        "query_ms": srv_ms}}
+
+
+# --------------------------------------------------------------- phase 6
 def b3_inputs(dev, gen, b, hq, hkv, sq, skv, d, dtype):
     """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), standard normal."""
     import torch
@@ -586,7 +881,7 @@ def check_b3_shapes(dev) -> dict:
     return cases
 
 
-# --------------------------------------------------------------- phase 6
+# --------------------------------------------------------------- phase 7
 def sdpa_call(q, k, v, *, causal, kv_len=None):
     """``scaled_dot_product_attention`` on the same inputs, the
     yardstick: heads-major views of the (B, S, H, D) tensors, GQA by
@@ -681,13 +976,14 @@ def profile_steps(step, label, card, names=()) -> None:
         mine = [e for e in events if any(n in e.key for n in names)]
         us = sum(e.self_device_time_total for e in mine) / PROFILE_STEPS
         log(f"profile {label}: kernels {'/'.join(names)} {us:.1f} us/step "
-            f"of device time in "
+            f"of device time ({100 * us * PROFILE_STEPS / busy_us:.1f}% of "
+            f"the busy time) in "
             f"{sum(e.count for e in mine) / PROFILE_STEPS:.1f} launches per "
             f"step")
 
 
 def lm_phases(dev, card, b3_cases) -> list[dict]:
-    """Phases 6 and 7: TinyLlama-1.1B serving, prefill and the decode
+    """Phases 7 and 8: TinyLlama-1.1B serving, prefill and the decode
     consistency check, then their times; returns B3's entries of the
     kernels line (decode and prefill shapes)."""
     import torch
@@ -795,7 +1091,7 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
         fail("decode_step disagrees with forward")
     del cache, steps, dec, full
 
-    # ---------------------------------------------------- 7. times
+    # ---------------------------------------------------- 8. times
     log(f"time LM drain: {drain_ms / eng.steps!r} ms per decode step over "
         f"the drain, {generated / drain_ms * 1e3!r} generated tokens/s, "
         f"{(generated + prompts) / drain_ms * 1e3!r} tokens/s fed and "
@@ -818,7 +1114,7 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
             b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
 
 
-# --------------------------------------------------------------- phase 8
+# --------------------------------------------------------------- phase 9
 def check_b2(table, idx, w, label, tol) -> float:
     """Launch B2 once, hold it against the plain version; max abs err."""
     import torch
@@ -869,7 +1165,7 @@ def check_b2_shapes(dev) -> None:
         fail("B2 negative id: not row 0 (the reference's clip)")
 
 
-# --------------------------------------------------------------- phase 9
+# --------------------------------------------------------------- phase 10
 def zipf_ids(rng, shape, vocab) -> np.ndarray:
     """int32 item ids in [0, vocab) whose popularity follows Zipf(ZIPF_A)."""
     ranks = rng.zipf(ZIPF_A, size=shape).astype(np.uint64)
@@ -957,7 +1253,7 @@ def b2_entry(table, ids, name, launches, err, card) -> dict:
 
 
 def mind_phases(dev, card) -> list[dict]:
-    """Phases 8 (B2 at MIND's lookup shapes) and 9: MIND serving at full
+    """Phases 9 (B2 at MIND's lookup shapes) and 10: MIND serving at full
     width, its checks and times; returns B2's entries of the kernels
     line (serve_p99 and serve_bulk)."""
     import torch
@@ -995,7 +1291,7 @@ def mind_phases(dev, card) -> list[dict]:
         f"{cand.numel()} distinct candidates; {time.perf_counter() - t0:.1f} "
         "s on the host")
 
-    # ------------------------------ 8. B2 exact at MIND's lookup shapes
+    # ------------------------------ 9. B2 exact at MIND's lookup shapes
     errs = {}
     for name, ids in (("serve_p99", hist["serve_p99"]),
                       ("serve_bulk", hist["serve_bulk"]),
@@ -1013,7 +1309,7 @@ def mind_phases(dev, card) -> list[dict]:
             fail(f"B2 at MIND's {name} lookup: not the plain version's rows")
         del out, ref
 
-    # ------------------------------ 9. main path: serve and retrieve
+    # ------------------------------ 10. main path: serve and retrieve
     launches, caps = {}, {}
     for name in ("serve_p99", "serve_bulk"):
         b2.launch_count = 0              # counts of this call only
@@ -1084,7 +1380,7 @@ def mind_phases(dev, card) -> list[dict]:
         fail("retrieval disagrees with the float64 rescoring")
     del user_caps, s64, top64
 
-    # ------------------------------ 9. times
+    # ------------------------------ 10. times
     torch.cuda.empty_cache()
     for name, reps in (("serve_p99", 50), ("serve_bulk", 5)):
         ms = time_ms(lambda: recsys.serve_step(model, cfg, hist[name]),
@@ -1136,19 +1432,23 @@ def main() -> None:
     # ---------------------------------------------------- 2. B1 checks
     check_b1_test_shapes(dev)
     # ---------------------------------------------------- 3-4. PageRank
-    kernels = [pagerank_phases(dev, card)]
+    tile_entry, warp_timed, reuse = pagerank_phases(dev, card)
     torch.cuda.empty_cache()
-    # ---------------------------------------------------- 5. B3 checks
+    # ---------------------------------------------------- 5. PageRank serving
+    kernels = [tile_entry, serving_phase(dev, card, reuse, warp_timed)]
+    del reuse
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 6. B3 checks
     b3_cases = check_b3_shapes(dev)
-    # ---------------------------------------------------- 6-7. LM serving
+    # ---------------------------------------------------- 7-8. LM serving
     kernels += lm_phases(dev, card, b3_cases)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # ---------------------------------------------------- 8. B2 checks
+    # ---------------------------------------------------- 9. B2 checks
     check_b2_shapes(dev)
-    # ---------------------------------------------------- 8-9. MIND serving
+    # ---------------------------------------------------- 9-10. MIND serving
     kernels += mind_phases(dev, card)
-    log(f"phases 8-9 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
+    log(f"phases 9-10 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

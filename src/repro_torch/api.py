@@ -9,17 +9,21 @@ workload from it, on one device:
     res  = sess.pagerank()                  # fused power iteration
     y    = sess.spmv(x)                     # one A^T x pass
     ids, scores = sess.top_ranked(10)
+    sch  = sess.serve()                     # continuous-batching pool
+    srv  = sess.server(batch=8)             # lockstep batch server
+    sess.plan.save("web.plan.npz")          # persist the preprocessing
 
 ``device`` defaults to ``"cuda"`` and raises on a machine without CUDA;
 ``device="cpu"`` runs on the CPU when asked for.
 
-Deltas, warm starts, checkpoints, serving, the gateway and observability
-are later slices of the port: those methods raise
+Deltas, warm starts, checkpoints, the gateway, observability and the
+sharded path are later slices of the port: those methods and knobs raise
 ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,12 +52,20 @@ class EngineConfig:
     # relabeled graph; every Session result is mapped back to the
     # original ids
     reorder: str = "none"
+    # sharding backends (the sharded-path slice): None or 1 here
+    num_shards: Optional[int] = None
+    two_phase: bool = False               # rejected by Session (fused)
     # run layer: iteration
     damping: float = 0.85
     num_iterations: int = 20
     tol: float = 0.0
     check_every: int = 1
     dangling: str = "none"
+    # run layer: serving
+    slots: int = 4
+    chunk: int = 8
+    # observability (the observability slice): False here
+    observe: bool = False
 
     def plan_config(self) -> PlanConfig:
         return PlanConfig(method=self.method, part_size=self.part_size,
@@ -70,6 +82,29 @@ def _later(what: str, slice_name: str):
         f"{slice_name} slice of the port (ROADMAP.md, Queue A)")
 
 
+# the knobs of later slices that the serving front-ends and EngineConfig
+# accept: each raises naming its slice unless it is at its default
+_LATER_KNOBS = {"fault_injector": "reliability (A6)",
+                "idmap": "ingest (A7)", "obs": "observability (A9)",
+                "observe": "observability (A9)",
+                "sharded": "sharded-path (A10)",
+                "num_shards": "sharded-path (A10)"}
+
+
+def reject_later_knobs(owner: str, **knobs) -> None:
+    """Raise ``NotImplementedError`` naming the slice for any later-slice
+    knob set away from its default (None, False, or one shard), and
+    ``TypeError`` for a name that is no such knob."""
+    for name, value in knobs.items():
+        if name not in _LATER_KNOBS:
+            raise TypeError(f"{owner}() got an unexpected keyword "
+                            f"argument {name!r}")
+        if value is None or value is False or (
+                name == "num_shards" and value == 1):
+            continue
+        _later(f"{owner}({name}={value!r})", _LATER_KNOBS[name])
+
+
 class Session:
     """One graph, one plan, one device, every workload.
 
@@ -84,6 +119,14 @@ class Session:
         cfg = config or EngineConfig()
         if overrides:
             cfg = cfg.replace(**overrides)
+        if cfg.two_phase:
+            raise ValueError(
+                "two_phase=True cannot be combined with the Session's "
+                "fused consumers (pagerank/serve run one device loop, "
+                "where the host-side phase barrier does not exist); "
+                "build a two-phase SpMVEngine directly for phase timing.")
+        reject_later_knobs("EngineConfig", num_shards=cfg.num_shards,
+                           observe=cfg.observe)
         self.device = resolve_device(device)
         self.graph = g
         self.config = cfg
@@ -103,7 +146,7 @@ class Session:
     # ------------------------------------------------------------- run
     def spmv(self, x) -> torch.Tensor:
         """One y = A^T x pass ((n,) or (n, d)) on the plan's backend."""
-        return self.engine(torch.as_tensor(x, device=self.device))
+        return self.engine(x)
 
     def pagerank(self, *, warm: bool = False,
                  **overrides) -> PageRankResult:
@@ -142,11 +185,30 @@ class Session:
     def load_checkpoint(self, path, **kw):
         _later("Session.load_checkpoint", "reliability")
 
-    def serve(self, **kw):
-        _later("Session.serve", "serving")
+    def serve(self, *, route: str = "auto", **overrides):
+        """A continuous-batching ``SlotScheduler`` sharing this
+        session's plan, device and device streams. ``route`` picks the
+        personalized-query path: ``"auto"`` sends loose-tolerance top-k
+        queries through the forward-push backend and the rest to the
+        masked chunk stepper, ``"push"``/``"stepper"`` force one side."""
+        from .serve.scheduler import SlotScheduler
+        cfg = self.config
+        kw = dict(slots=cfg.slots, damping=cfg.damping, chunk=cfg.chunk,
+                  dangling=cfg.dangling, route=route)
+        kw.update(overrides)
+        return SlotScheduler(self.graph, engine=self.engine, **kw)
 
-    def server(self, **kw):
-        _later("Session.server", "serving")
+    def server(self, *, batch: int = 1, **overrides):
+        """A lockstep ``PageRankServer`` sharing this session's plan
+        (batched personalized queries, built once)."""
+        from .serve.engine import PageRankServer
+        cfg = self.config
+        kw = dict(damping=cfg.damping, num_iterations=cfg.num_iterations,
+                  tol=cfg.tol, check_every=cfg.check_every,
+                  dangling=cfg.dangling)
+        kw.update(overrides)
+        return PageRankServer(self.graph, engine=self.engine,
+                              batch=batch, **kw)
 
     def gateway(self, **kw):
         _later("Session.gateway", "gateway")

@@ -8,11 +8,14 @@ Every SpMV engine registers ONE ``Backend`` entry:
   streams uploaded to ``device`` — what the fused driver and the engine
   call;
 - optional ``phase_fns`` (two-phase scatter/gather) and capability
-  flags that consumers branch on instead of comparing method strings.
+  flags (``multi_vector``, ``supports_push_query``,
+  ``supports_sharding``) that consumers branch on instead of comparing
+  method strings.
 
-``SpMVEngine``, ``pagerank()`` and ``Session`` resolve backends through
-this table. Device uploads are cached on ``plan._device`` per device —
-shared by every consumer of the same plan on that device.
+``SpMVEngine``, ``pagerank()``, ``Session`` and the serving front-ends
+(``resolve_engine``) resolve backends through this table. Device
+uploads are cached on ``plan._device`` per device — shared by every
+consumer of the same plan on that device.
 """
 from __future__ import annotations
 
@@ -44,7 +47,14 @@ class Backend:
     name: str
     build_plan: Callable[[Graph, PlanConfig], GraphPlan]
     spmv_fn: Callable[[GraphPlan, torch.device], Callable]
+    # runs vertex-sharded over several cards: the sharded-path slice;
+    # False for every backend until then
+    supports_sharding: bool = False
+    multi_vector: bool = True          # accepts (n, d) as well as (n,)
     uses_gather_block: bool = False    # plan depends on cfg.gather_block
+    # the forward-push query backend (serve/push.py) can answer
+    # single-seed personalized queries against this backend's plans
+    supports_push_query: bool = False
     phase_fns: Optional[Callable[[GraphPlan, torch.device],
                                  tuple[Callable, Callable]]] = None
     # incremental plan patching; filled in by the streaming slice —
@@ -77,6 +87,18 @@ def get_backend(name: str) -> Backend:
 
 def available_backends() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def resolve_engine(g: Graph, *, method: str, part_size: int,
+                   engine=None, device=None):
+    """Engine resolution of the serving front-ends (``PageRankServer``,
+    ``SlotScheduler``): construct through the registry when no engine is
+    given, otherwise use the caller's engine."""
+    from .spmv import SpMVEngine
+    if engine is None:
+        return SpMVEngine(g, method=method, part_size=part_size,
+                          device=device)
+    return engine
 
 
 def normalize_config(cfg: PlanConfig) -> PlanConfig:
@@ -293,11 +315,13 @@ def _spmv_pcpm_pallas(plan: GraphPlan, device: torch.device):
 
 # ---------------------------------------------------------------------------
 for _backend in (
-    Backend("pdpr", _build_pdpr, _blocked_gather, uses_gather_block=True),
+    Backend("pdpr", _build_pdpr, _blocked_gather, uses_gather_block=True,
+            supports_push_query=True),
     Backend("bvgas", _build_bvgas, _spmv_bvgas, uses_gather_block=True,
-            phase_fns=_phases_bvgas),
+            phase_fns=_phases_bvgas, supports_push_query=True),
     Backend("pcpm", _build_pcpm, _spmv_pcpm, uses_gather_block=True,
-            phase_fns=_phases_pcpm),
-    Backend("pcpm_pallas", _build_pcpm_pallas, _spmv_pcpm_pallas),
+            phase_fns=_phases_pcpm, supports_push_query=True),
+    Backend("pcpm_pallas", _build_pcpm_pallas, _spmv_pcpm_pallas,
+            supports_push_query=True),
 ):
     register_backend(_backend)

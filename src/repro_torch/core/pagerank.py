@@ -119,6 +119,104 @@ def fused_power_iteration(engine: SpMVEngine, *, damping: float = 0.85,
     return run
 
 
+class StepperFailure(RuntimeError):
+    """A chunk-stepper call that raised. ``pool_written`` tells whether
+    it had already updated its ``pr`` in place (the scheduler may retry
+    a call only when it had not)."""
+
+    def __init__(self, exc: BaseException, pool_written: bool):
+        super().__init__(f"{type(exc).__name__}: {exc}")
+        self.pool_written = pool_written
+
+
+def _host_any(t: torch.Tensor) -> bool:
+    """``bool(t.any())``: the chunk stepper's one host read per
+    iteration (a module function, so tests can count the reads)."""
+    return bool(t.any())
+
+
+def masked_chunk_stepper(engine: SpMVEngine, *, damping: float = 0.85,
+                         chunk: int = 8, dangling: str = "none"):
+    """Chunked variant of the fused loop for continuous-batching query
+    serving: the state is an (n, B) slot pool of independent rank
+    vectors, each column carrying its own convergence state, and one
+    call advances every still-active column by up to ``chunk``
+    iterations.
+
+    Returns ``step(pr, base, active, tol_col, budget, inv_deg) ->
+    (pr, active, took, res)``:
+
+    - ``pr``/``base`` (n, B) float32: rank state and per-column
+      (1-damping)-scaled teleport vectors. ``pr`` is updated in place
+      and returned (the JAX package donates it).
+    - ``active`` (B,) bool: columns still iterating. Converged (or
+      empty) columns are frozen: masked out of the damping update, so
+      their ranks stay bit-identical while neighbours keep iterating.
+    - ``tol_col`` (B,) float32 / ``budget`` (B,) int32: per-column
+      tolerance and remaining-iteration allowance, as data.
+    - outputs: ``pr``; ``active`` with newly converged, budget-exhausted
+      or non-finite columns cleared; ``took`` (B,) int32 iterations run
+      per column in this call; ``res`` (B,) float32 last L1 residual per
+      column (-1 for columns that never ran).
+
+    The loop exits as soon as every column froze. Torch has no traced
+    ``while_loop``, so that test is a host read of ``active.any()``
+    (``_host_any``), made at the end of each iteration but the last: at
+    most one read per iteration. The caller steps a pool with at least
+    one active column, as ``SlotScheduler`` does (an all-frozen pool
+    runs one SpMV that changes nothing). The SpMV always runs on the
+    full (n, B) state; frozen columns have their update discarded.
+    Cached on the plan's fused-loop cache under the reference's key
+    (plus the device).
+    """
+    if dangling not in ("none", "redistribute"):
+        raise ValueError(f"unknown dangling policy {dangling!r}")
+    key = ("chunk", str(engine.device), damping, chunk, dangling)
+    cached = engine._fused_cache.get(key)
+    if cached is not None:
+        return cached
+
+    spmv = engine.spmv_fn()
+
+    def step(pr, base, active, tol_col, budget, inv_deg):
+        inv_col = inv_deg[:, None]
+        if dangling == "redistribute":
+            dang_col = (inv_col == 0).to(pr.dtype)
+            redist = base * (damping / (1.0 - damping))
+        took = torch.zeros(pr.shape[1], dtype=torch.int32, device=pr.device)
+        res = torch.full((pr.shape[1],), -1.0, dtype=torch.float32,
+                         device=pr.device)
+        act = active.clone()
+        # the SpMV's input, a contiguous (n, B) float32 buffer reused
+        # for the residual's difference once the SpMV has read it
+        work = torch.empty_like(pr)
+        written = False
+        try:
+            for i in range(chunk):
+                torch.mul(pr, inv_col, out=work)        # scaled ranks
+                pr_next = spmv(work)                    # a fresh buffer
+                pr_next.mul_(damping).add_(base)
+                if dangling == "redistribute":
+                    pr_next.add_((pr * dang_col).sum(0)[None, :] * redist)
+                r = torch.sub(pr_next, pr, out=work).abs_().sum(0)  # (B,)
+                torch.where(act[None, :], pr_next, pr, out=pr)  # freeze
+                written = True
+                res = torch.where(act, r, res)
+                took += act.to(torch.int32)
+                # quarantine: a non-finite residual freezes its column
+                # at once (NaN fails the tolerance test anyway; +Inf
+                # would keep burning budget), so the host sees it
+                act &= torch.isfinite(r) & (r >= tol_col) & (took < budget)
+                if i + 1 < chunk and not _host_any(act):
+                    break
+        except Exception as exc:
+            raise StepperFailure(exc, pool_written=written) from exc
+        return pr, act, took, res
+
+    engine._fused_cache[key] = step
+    return step
+
+
 def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
                damping: float, tol: float, check_every: int,
                dangling: str) -> PageRankResult:

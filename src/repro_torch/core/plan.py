@@ -14,19 +14,22 @@ subsequent SpMV. This module makes that artifact a first-class value:
   uploaded streams, packed kernel layouts and closures, keyed per
   device.
 - a process-level plan cache keyed on ``(graph fingerprint, config)``
-  — every consumer (``SpMVEngine``, ``pagerank()``, ``Session``)
-  resolves plans through it, so one graph served four ways still sorts
-  its edges exactly once.
-- ``plan_from_arrays``: a plan from numpy arrays and scalar fields laid
-  out as the JAX package's plan files store them, the seam through
-  which a plan built elsewhere is carried over.
+  — every consumer (``SpMVEngine``, ``pagerank()``, ``Session``,
+  ``PageRankServer``, ``SlotScheduler``) resolves plans through it, so
+  one graph served four ways still sorts its edges exactly once;
+  ``evict_plans`` retires one graph's entries and ``plan_nbytes`` sizes
+  a plan for ``GraphRegistry``'s memory budget.
+- ``GraphPlan.save``/``load`` and ``plan_from_arrays``: the JAX
+  package's ``.npz`` plan format (version 3), so a plan saved by either
+  package loads in the other with equal arrays.
 
 The per-backend *build* functions live in ``core/backends.py``; this
-module only owns the artifact and the cache.
+module only owns the artifact, the cache and the serialization.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Optional
 
 import numpy as np
@@ -90,6 +93,10 @@ class GraphPlan:
     # install_plan refuse a plan/graph mismatch instead of silently
     # serving wrong preprocessing
     graph_fp: Optional[str] = None
+    # fingerprint of the graph this plan was patched from (the streaming
+    # slice): patched plans form a parent chain g0 -> g1 -> ... that
+    # ``evict_plans`` releases as one unit
+    parent_fp: Optional[str] = None
     # locality relabeling (config.reorder != "none"): the layouts above
     # were built on ``g.relabel(reorder_perm)``; every consumer maps
     # inputs in via the inverse and results back via the permutation
@@ -112,6 +119,76 @@ class GraphPlan:
         if self.png is not None:
             return self.png.compression_ratio
         return 1.0
+
+    # ----------------------------------------------------- serialization
+    def save(self, path: str) -> None:
+        """Persist the host-side artifact as one compressed ``.npz`` in
+        the JAX package's plan format (version 3), so either package
+        loads it. Device-side state (``_device``) is rebuilt on first
+        use after ``load``."""
+        arrays: dict[str, np.ndarray] = {}
+        if self.reorder_perm is not None:
+            arrays["reorder_perm"] = self.reorder_perm
+        c = self.config
+        meta: dict[str, Any] = {
+            "version": 3,
+            # the JAX package's PlanConfig fields, sharding ones unset
+            "config": {"method": c.method, "part_size": c.part_size,
+                       "num_shards": None, "shard_axis": "shards",
+                       "gather_block": c.gather_block,
+                       "reorder": c.reorder},
+            "num_nodes": self.num_nodes,
+            "num_edges": self.num_edges,
+            "graph_fp": self.graph_fp,
+            "parent_fp": self.parent_fp,
+        }
+        for key in ("csc_src", "csc_dst", "bv_src", "bv_dst"):
+            arr = getattr(self, key)
+            if arr is not None:
+                arrays[key] = arr
+        if self.png is not None:
+            p = self.png
+            arrays.update({"png/update_src": p.update_src,
+                           "png/update_offsets": p.update_offsets,
+                           "png/edge_update_idx": p.edge_update_idx,
+                           "png/edge_dst": p.edge_dst,
+                           "png/edge_offsets": p.edge_offsets})
+        if self.schedule is not None:
+            s = self.schedule
+            meta["schedule"] = {"block": s.block, "num_edges": s.num_edges}
+            arrays.update({"sched/eui": s.edge_update_idx_padded,
+                           "sched/piece_start": s.piece_start,
+                           "sched/piece_end": s.piece_end,
+                           "sched/piece_dst": s.piece_dst})
+        if self.blocked is not None:
+            b = self.blocked
+            meta["blocked"] = {"part_size": b.part_size,
+                               "update_pad_frac": b.update_pad_frac,
+                               "edge_pad_frac": b.edge_pad_frac}
+            arrays.update({"blk/update_src": b.update_src,
+                           "blk/edge_update_local": b.edge_update_local,
+                           "blk/edge_dst_local": b.edge_dst_local})
+        np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+
+    @staticmethod
+    def load(path: str) -> "GraphPlan":
+        """A plan saved by ``save`` here or by the JAX package's
+        ``GraphPlan.save`` (format version 3, or 2, which lacks only the
+        ``reorder`` field). Sharded plans raise ``NotImplementedError``
+        (``plan_from_arrays``)."""
+        with np.load(path, allow_pickle=False) as z:
+            if "__meta__" not in z:
+                raise ValueError(
+                    f"{path!r} is not a GraphPlan file (no __meta__ entry "
+                    "— a raw graph npz goes through graphs.io.load)")
+            meta = json.loads(str(z["__meta__"]))
+            arrays = {name: z[name] for name in z.files
+                      if name != "__meta__"}
+        if meta.get("version") not in (2, 3):
+            raise ValueError(
+                f"unsupported plan format version {meta.get('version')!r}"
+                f" in {path!r} (this build reads versions 2 and 3)")
+        return plan_from_arrays(meta, arrays)
 
 
 def plan_from_arrays(fields: dict, arrays) -> GraphPlan:
@@ -175,7 +252,7 @@ def plan_from_arrays(fields: dict, arrays) -> GraphPlan:
             "permutation — refusing to serve internal-space layouts "
             "without the mapping back")
     return GraphPlan(cfg, n, m, part, graph_fp=fields.get("graph_fp"),
-                     **kw)
+                     parent_fp=fields.get("parent_fp"), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +303,32 @@ def clear_plan_cache() -> None:
     _PNG_CACHE.clear()
     _STATS.plan_builds = _STATS.plan_hits = 0
     _STATS.png_builds = _STATS.png_hits = 0
+
+
+def add_plan_observer(obs) -> None:
+    """Plan build/hit/patch notifications come with the observability
+    slice of the port."""
+    from ..api import _later
+    _later("add_plan_observer", "observability (A9)")
+
+
+def peek_plan(fp: str, config: PlanConfig) -> Optional[GraphPlan]:
+    """Plan-cache lookup by fingerprint without building on a miss (a
+    hit refreshes LRU recency and counts as a cache hit)."""
+    plan = _PLAN_CACHE.get((fp, config))
+    if plan is not None:
+        _STATS.plan_hits += 1
+        _touch(_PLAN_CACHE, (fp, config))
+    return plan
+
+
+def peek_shared_png(fp: str, part_size: int) -> Optional[PNGLayout]:
+    """PNG-cache lookup by fingerprint without building on a miss."""
+    png = _PNG_CACHE.get((fp, part_size))
+    if png is not None:
+        _STATS.png_hits += 1
+        _touch(_PNG_CACHE, (fp, part_size))
+    return png
 
 
 def _edge_hash64(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -379,3 +482,64 @@ def reorder_inverse(plan: GraphPlan) -> np.ndarray:
         inv = inverse_permutation(plan.reorder_perm)
         plan._device["reorder_inv"] = inv
     return inv
+
+
+def plan_nbytes(plan: GraphPlan) -> int:
+    """Host-side footprint of a plan in bytes: the sum of every array
+    ``save`` persists. What ``GraphRegistry``'s memory budget accounts
+    against (the plan streams dominate a resident graph's cost, and
+    unlike device buffers they are exactly enumerable)."""
+    arrays: list[np.ndarray] = []
+    if plan.reorder_perm is not None:
+        arrays.append(plan.reorder_perm)
+    for key in ("csc_src", "csc_dst", "bv_src", "bv_dst"):
+        arr = getattr(plan, key)
+        if arr is not None:
+            arrays.append(arr)
+    if plan.png is not None:
+        p = plan.png
+        arrays += [p.update_src, p.update_offsets, p.edge_update_idx,
+                   p.edge_dst, p.edge_offsets]
+    if plan.schedule is not None:
+        s = plan.schedule
+        arrays += [s.edge_update_idx_padded, s.piece_start,
+                   s.piece_end, s.piece_dst]
+    if plan.blocked is not None:
+        b = plan.blocked
+        arrays += [b.update_src, b.edge_update_local, b.edge_dst_local]
+    return sum(int(np.asarray(a).nbytes) for a in arrays)
+
+
+def _chain_fingerprints(fp: str) -> set[str]:
+    """Every fingerprint connected to ``fp`` through cached plans'
+    ``parent_fp`` links (both directions, transitively): retiring any
+    link of a patch chain retires the whole chain."""
+    fps = {fp}
+    changed = True
+    while changed:
+        changed = False
+        for plan in _PLAN_CACHE.values():
+            links = {f for f in (plan.graph_fp, plan.parent_fp)
+                     if f is not None}
+            if links & fps and not links <= fps:
+                fps |= links
+                changed = True
+    return fps
+
+
+def evict_plans(g: Graph, *, chain: bool = True) -> int:
+    """Drop every cached plan and PNG layout of ``g`` (live Sessions
+    and engines keep their own plan references; only the cache entries,
+    and with them the pinned host and device memory once those
+    references drop, are released). ``chain=True`` also releases every
+    plan linked to ``g`` through ``parent_fp`` patch chains. Returns the
+    number of entries evicted."""
+    fps = ({graph_fingerprint(g)} if not chain
+           else _chain_fingerprints(graph_fingerprint(g)))
+    plan_keys = [k for k in _PLAN_CACHE if k[0] in fps]
+    png_keys = [k for k in _PNG_CACHE if k[0] in fps]
+    for k in plan_keys:
+        del _PLAN_CACHE[k]
+    for k in png_keys:
+        del _PNG_CACHE[k]
+    return len(plan_keys) + len(png_keys)

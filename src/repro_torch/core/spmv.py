@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import as_device_tensor
 from ..graphs.formats import Graph
 
 
@@ -186,7 +187,7 @@ class SpMVEngine:
         fn = (backends.two_phase_spmv_fn(self.plan, self.device)
               if self.two_phase
               else backends.spmv_fn(self.plan, self.device))
-        x = torch.as_tensor(x, device=self.device)
+        x = as_device_tensor(x, self.device)
         if self.plan.reorder_perm is None:
             return fn(x)
         # reordered plan: the layouts index the relabeled graph, so map

@@ -1,5 +1,5 @@
 from .formats import Graph, from_edge_list, validate_graph
-from . import generators, reorder
+from . import generators, io, reorder
 
 __all__ = ["Graph", "from_edge_list", "validate_graph", "generators",
-           "reorder"]
+           "io", "reorder"]

@@ -1,6 +1,16 @@
-"""LM serving with continuous batching: ``ServeEngine``.
+"""Serving engines: PageRank's lockstep ``PageRankServer`` and the LM's
+continuous-batching ``ServeEngine``.
 
-The counterpart of the JAX package's ``serve/engine.py::ServeEngine``: a
+``PageRankServer`` (the counterpart of the JAX package's
+``serve/engine.py::PageRankServer``) answers batched personalized
+PageRank queries over a fixed graph. Construction does the expensive
+work once (plan, device streams, inverse degrees, the fused loop), so a
+query pays no rebuild: with ``batch > 1`` it iterates the (n, batch)
+state in lockstep, one multi-vector SpMV per iteration (on a
+pcpm_pallas plan, kernel B1's "warp" path at d = batch); with
+``batch == 1`` the (n,) state, through B1's "tile" path.
+
+``ServeEngine``, the counterpart of the JAX package's ``serve/engine.py::ServeEngine``: a
 fixed pool of B slots shares one KV cache of static shape. Requests are
 admitted into free slots; their prompts are fed token by token into the
 slot's cache region (per-slot positions through the batched
@@ -11,7 +21,6 @@ can be refilled without disturbing its neighbours.
 Each step runs one ``decode_step`` on the model's device (kernel B3 for
 every layer's attention on the card), samples there (greedy ``argmax``
 by default) and reads the (B,) next tokens back to the host once.
-``PageRankServer`` comes with the PageRank serving slice.
 """
 from __future__ import annotations
 
@@ -21,8 +30,129 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..api import reject_later_knobs
 from ..configs.base import LMConfig
+from ..core.backends import reorder_device, resolve_engine
+from ..core.pagerank import _inv_degree, fused_power_iteration
+from ..core.plan import internal_graph, reorder_inverse
+from ..core.spmv import SpMVEngine
+from ..graphs.formats import Graph
 from ..models import transformer as tf
+
+
+# ---------------------------------------------------------------------------
+# PageRank serving
+# ---------------------------------------------------------------------------
+def _normalize_teleport(host: np.ndarray) -> np.ndarray:
+    """Validate and column-normalize teleport distributions (a single
+    (n,) vector or (n, batch) columns)."""
+    if host.ndim == 1:
+        s = float(host.sum())
+        if not (s > 0.0 and np.isfinite(s)):   # NaN fails s > 0.0
+            raise ValueError(
+                "every seed column must be finite with positive mass; "
+                f"got column sums {s!r}")
+        return host / np.float32(s)
+    sums = host.sum(axis=0)
+    if not (np.isfinite(sums).all() and np.all(sums > 0)):
+        raise ValueError(
+            "every seed column must be finite with positive mass; "
+            f"got column sums {sums!r}")
+    return host / sums
+
+
+class PageRankServer:
+    """Serve (personalized) PageRank queries from a fused iteration loop
+    built once.
+
+    ``batch`` > 1 serves a batch of personalization (seed) vectors in
+    lockstep as one (n, batch) multi-vector iteration: the SpMV engines
+    and kernel B1 are multi-vector native, so a batch costs one SpMV
+    pass per iteration, not ``batch`` passes.
+
+    Construction resolves the engine (the plan cache's plan), takes the
+    inverse out-degrees in the plan's internal id space and builds the
+    fused loop; ``query()`` only runs it. ``trace_count`` is 1 once the
+    loop is built and stays 1 (the JAX package counts traces of its
+    compiled loop; here it means the loop was built once).
+    ``sharded``/``num_shards`` come with the sharded-path slice
+    (``api.reject_later_knobs``). ``device`` defaults to ``"cuda"``
+    (ignored when ``engine`` is given).
+    """
+
+    def __init__(self, g: Graph, *, method: str = "pcpm_pallas",
+                 part_size: int = 65536, batch: int = 1,
+                 damping: float = 0.85, num_iterations: int = 20,
+                 tol: float = 0.0, check_every: int = 1,
+                 dangling: str = "none",
+                 engine: SpMVEngine | None = None, device=None, **later):
+        reject_later_knobs("PageRankServer", **later)
+        self.g = g
+        self.n = g.num_nodes
+        self.batch = batch
+        self.damping = damping
+        self.engine = resolve_engine(g, method=method,
+                                     part_size=part_size, engine=engine,
+                                     device=device)
+        self.device = self.engine.device
+        self._uniform_cache = None
+        # reordered plans: iterate in the plan's internal (relabeled)
+        # space — seeds map in at query, ranks map back out, inverse
+        # degrees come from the internal graph
+        self._perm = self.engine.plan.reorder_perm
+        self._inv = (None if self._perm is None
+                     else reorder_inverse(self.engine.plan))
+        gi = internal_graph(g, self.engine.plan)
+        self._run = fused_power_iteration(
+            self.engine, damping=damping, num_iterations=num_iterations,
+            tol=tol, check_every=check_every, multi=batch > 1,
+            dangling=dangling)
+        self._inv_deg = _inv_degree(gi, self.device)
+        self.trace_count = 1
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(host).to(self.device)
+
+    def _uniform_batch(self):
+        """The uniform-teleport start vector and base, both on the
+        device and built once: the fused loop never writes its start
+        vector, so one buffer serves every uniform query."""
+        if self._uniform_cache is None:
+            shape = (self.n, self.batch) if self.batch > 1 else (self.n,)
+            host = np.full(shape, 1.0 / self.n, dtype=np.float32)
+            self._uniform_cache = (self._upload(host),
+                                   self._upload((1.0 - self.damping) * host))
+        return self._uniform_cache
+
+    def query(self, seeds: np.ndarray | None = None):
+        """Rank one batch. ``seeds``: (n, batch) per-query teleport
+        distributions (columns need not be normalized — they are), or
+        None for the uniform-teleport batch. Returns (ranks, iters,
+        residuals) with ranks of shape (n, batch) (or (n,) when
+        ``batch == 1``) on the device, and residuals as in
+        ``PageRankResult`` (one float per convergence check, in
+        iteration order)."""
+        shape = (self.n, self.batch) if self.batch > 1 else (self.n,)
+        if seeds is None:
+            v, base = self._uniform_batch()
+        else:
+            host = _normalize_teleport(
+                np.asarray(seeds, dtype=np.float32).reshape(shape))
+            if self._perm is not None:
+                host = host[self._inv]        # into internal space
+            v = self._upload(np.ascontiguousarray(host))
+            base = (1.0 - self.damping) * v
+        pr, it, res = self._run(v, self._inv_deg, base)
+        if self._perm is not None:            # back to original ids
+            perm_dev, _ = reorder_device(self.engine.plan, self.device)
+            pr = pr.index_select(0, perm_dev)
+        res_host = res[:it].cpu().numpy()
+        return pr, int(it), [float(r) for r in res_host if r >= 0.0]
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

@@ -104,9 +104,13 @@ def test_cuda_is_the_default_and_raises_without_it(graphs):
 def test_later_slices_raise(graphs):
     g, _ = graphs
     sess = repro_torch.open(g, method="pcpm", part_size=256, device="cpu")
-    for name in ("serve", "server", "gateway", "observe"):
+    for name in ("gateway", "observe"):
         with pytest.raises(NotImplementedError, match="slice"):
             getattr(sess, name)()
+    for kw in (dict(num_shards=2), dict(observe=True)):
+        with pytest.raises(NotImplementedError, match="slice"):
+            repro_torch.open(g, method="pcpm", part_size=256, device="cpu",
+                             **kw)
     with pytest.raises(NotImplementedError, match="streaming"):
         sess.pagerank(warm=True)
     with pytest.raises(NotImplementedError, match="streaming"):

@@ -1,7 +1,8 @@
 """The port on the card: kernel B1 against its plain version through
 both of its paths ("warp", "tile"), and the
 main path ``open(g, device="cuda").pagerank()`` against the same solve
-on the CPU and the dense oracle; kernel B3 against its plain version
+on the CPU and the dense oracle; PageRank serving (``SlotScheduler``,
+``PageRankServer``, device push) with B1's launches counted per path; kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), and the smoke LM's
 ``ServeEngine`` on the card against the same run on the CPU; kernel B2
 against its plain version, and the smoke MIND's
@@ -216,6 +217,120 @@ def test_pcpm_pallas_solves_through_the_tile_path(cuda_device):
     assert kernel.launch_counts["warp"] == before["warp"]
     oracle = pagerank_reference(g, num_iterations=res.iterations)
     assert np.abs(res.ranks.cpu().numpy() - oracle).max() <= 1e-6
+
+
+# ------------------------------------------- PageRank serving through B1
+def _serving_workload(n):
+    rng = np.random.default_rng(3)
+    work = []
+    for i in range(24):
+        seed = np.zeros(n, np.float32)
+        seed[rng.integers(0, n, size=1 + (i % 3))] = 1.0
+        fixed = i % 2 == 0
+        work.append((None if i % 4 == 0 else seed,
+                     dict(tol=0.0 if fixed else 1e-6,
+                          max_iters=9 + i if fixed else 200,
+                          top_k=10 if i % 4 == 3 else None)))
+    return work
+
+
+@pytest.mark.parametrize("method", ["pcpm", "pcpm_pallas"])
+def test_slot_scheduler_on_the_card_matches_cpu(cuda_device, method):
+    """The stepper on the card: "warp" launches equal the iterations the
+    chunks ran (pcpm_pallas), fixed-count queries equal the CPU's ranks,
+    converged ones the dense oracle at their own count (the card's and
+    the CPU's sums round apart, so a residual within rounding of tol may
+    stop one iteration apart)."""
+    from repro_torch.serve import SlotScheduler
+    g = generators.rmat(10, 8, seed=0)
+    kw = dict(method=method, part_size=256, slots=4, chunk=4,
+              route="stepper")
+    card = SlotScheduler(g, device=cuda_device, **kw)
+    cpu = SlotScheduler(g, device="cpu", **kw)
+    iters = []
+    real = card._step_c
+
+    def step(*a):
+        out = real(*a)
+        iters.append(int(out[2].max()))
+        return out
+
+    card._step_c = step
+    work = _serving_workload(g.num_nodes)
+    uids = [(card.submit(s, **w), cpu.submit(s, **w)) for s, w in work]
+    before = dict(kernel.launch_counts)
+    card.run_until_drained()
+    torch.cuda.synchronize()
+    warp = kernel.launch_counts["warp"] - before["warp"]
+    assert warp == (sum(iters) if method == "pcpm_pallas" else 0)
+    assert kernel.launch_counts["tile"] == before["tile"]
+    cpu.run_until_drained()
+    done = ({r.uid: r for r in card.completed},
+            {r.uid: r for r in cpu.completed})
+    for (seed, w), (a, b) in zip(work, uids):
+        ra, rb = done[0][a], done[1][b]
+        if w["tol"] == 0.0:
+            assert ra.iterations == rb.iterations == w["max_iters"]
+            if ra.ranks is not None:
+                assert np.abs(ra.ranks - rb.ranks).max() <= 1e-6
+            else:
+                np.testing.assert_allclose(ra.top_scores, rb.top_scores,
+                                           atol=1e-6)
+        else:
+            assert ra.converged and rb.converged
+            assert abs(ra.iterations - rb.iterations) <= 1
+            col = seed / seed.sum()
+            x = col.astype(np.float64)
+            inv = np.where(g.out_degree == 0, 0.0,
+                           1.0 / np.maximum(g.out_degree, 1))
+            for _ in range(ra.iterations):
+                x = 0.15 * col + 0.85 * dense_spmv(g.num_nodes, g.src,
+                                                   g.dst, x * inv)
+            if ra.ranks is not None:
+                assert np.abs(ra.ranks - x).max() <= 1e-5
+            else:
+                assert np.abs(ra.top_scores - x[ra.top_ids]).max() <= 1e-5
+    card.metrics.reconcile()
+
+
+def test_pagerank_server_on_the_card_runs_warp_and_tile(cuda_device):
+    g = generators.rmat(10, 8, seed=0)
+    sess = repro_torch.open(g, method="pcpm_pallas", part_size=256)
+    cpu = repro_torch.open(g, method="pcpm_pallas", part_size=256,
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    seeds = (rng.random((g.num_nodes, 4)) < 0.05).astype(np.float32) + 1e-3
+    for batch, path in ((4, "warp"), (1, "tile")):
+        arg = seeds if batch > 1 else seeds[:, 0]
+        before = dict(kernel.launch_counts)
+        pr, it, res = sess.server(batch=batch).query(arg)
+        torch.cuda.synchronize()
+        assert kernel.launch_counts[path] - before[path] == it == 20
+        other = "tile" if path == "warp" else "warp"
+        assert kernel.launch_counts[other] == before[other]
+        ref, _, _ = cpu.server(batch=batch).query(arg)
+        assert np.abs(pr.cpu().numpy() - ref.numpy()).max() <= 1e-6
+
+
+def test_device_push_on_the_card(cuda_device):
+    """Push on a pcpm_pallas plan on the card, picked by ``"auto"``: B1
+    "tile" once for the seeding step and once per sweep; the estimate
+    within the host push's bound."""
+    from repro_torch.core import SpMVEngine
+    from repro_torch.serve import PushQueryEngine
+    g = generators.rmat(10, 8, seed=1)
+    eng = PushQueryEngine(g, SpMVEngine(g, method="pcpm_pallas",
+                                        part_size=256))
+    host = PushQueryEngine(g)
+    assert (eng.mode, host.mode) == ("device", "host")     # "auto"
+    seed = np.zeros(g.num_nodes, np.float32)
+    seed[int(np.argmax(g.out_degree))] = 1.0
+    before = kernel.launch_counts["tile"]
+    res = eng.query(seed, tol=1e-4, top_k=10)
+    assert res.converged
+    assert kernel.launch_counts["tile"] - before == res.sweeps + 1
+    ref = host.query(seed, tol=1e-4)
+    assert np.abs(res.estimate - ref.estimate).sum() <= 2e-4 * 0.85 / 0.15
 
 
 # ------------------------------------------------------------- kernel B3
