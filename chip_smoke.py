@@ -10,10 +10,12 @@ Phases, each of which exits non-zero when it fails:
    against its plain PyTorch version on the card, each call through the
    path ``b1_path`` names ("warp" for the blocked streams alone or d > 1,
    "tile" for d = 1 with the plan's gather order): the shapes of the JAX
-   package's ``TestPCPMKernel``, random unsorted float32 and bfloat16
-   streams, an all-pad partition through "warp"; the same rmat layouts at
-   d = 1 through "tile" (inputs that are multiples of 1/16, so the
-   output must equal the plain version's bit for bit);
+   package's ``TestPCPMKernel`` through "warp" from bins and in its fused
+   form (rows of x read through ``update_src``, float32 and bfloat16),
+   random unsorted float32 and bfloat16 streams, an all-pad partition
+   through both forms of "warp"; the same rmat layouts at d = 1 through
+   "tile" (inputs that are multiples of 1/16, so the output must equal
+   the plain version's bit for bit);
 3. the main path: ``open(g, EngineConfig(method=m), device="cuda")
    .pagerank()`` for pdpr, bvgas, pcpm and pcpm_pallas on the kron graph
    of ``configs/pagerank_kron.py`` (R-MAT a/b/c = 0.57/0.19/0.19, edge
@@ -22,12 +24,18 @@ Phases, each of which exits non-zero when it fails:
    have launched once per pcpm_pallas iteration, through "tile". Then the
    host time and device bytes of the gather order, and B1 against its
    plain version at the main path's shape (d = 1 through "tile", exact)
-   and at the serving stepper's (d = 16 through "warp", exact);
+   and at the serving stepper's (d = 16 through "warp", from bins and in
+   the fused form, exact);
 4. times with CUDA events after warm-up: ms per iteration and GB/s per
    engine (bytes of the paper's models, ``core/comm_model.py``), B1's
    time beside its byte bound, its plain version and a ``torch.sparse``
    CSR product with A^T, which the port never calls, at d = 1 ("tile")
-   and at d = 16 ("warp");
+   and at d = 16 ("warp" from bins); B1 "warp" at d = 16 in the fused
+   form that the serving stepper calls (``pcpm_spmv_cuda``: the kernels
+   line's "warp" entry) beside its bound (x and ``update_src`` read
+   once), its plain version and the same ``torch.sparse`` product; the
+   stepper's whole SpMV (``pcpm_spmv_pallas``) and its peak memory, which
+   must stay below half of the bins it no longer makes;
 5. the PageRank serving path on the same graph and pcpm_pallas plan:
    ``Session.serve(slots=16, chunk=8)`` drains 64 queries in the mix of
    the JAX package's scheduler test (uniform at 20 iterations; one seed,
@@ -94,6 +102,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -188,6 +197,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name without its source's anonymous namespace:
+    ``warp::gather_kernel IfLi4ELi4E`` (namespace warp; float, 4 values
+    a lane, 4 lanes an edge), ``cast_to_bf16_kernel``."""
+    found = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    rest = mangled[found.end(1) + int(found.group(1)):] if found else mangled
+    parts = []
+    while found := re.match(r"\d+", rest):
+        size = int(found.group(0))
+        parts.append(rest[found.end():found.end() + size])
+        rest = rest[found.end() + size:]
+    args = re.match(r"I.*?E(?=E)", rest)
+    return "::".join(parts) + (f" {args.group(0)}" if args else "")
+
+
+def ptxas_report(build_log: str) -> list[tuple[str, str]]:
+    """(kernel, "registers; spills") for each kernel ``nvcc -Xptxas -v``
+    compiled (``kernel_name``)."""
+    out, name, spills = [], "", ""
+    for line in build_log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = kernel_name(found.group(1))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((name, f"{regs} registers; {spills}"))
+    return out
+
+
 def time_ms(fn, *, reps: int, warmup: int = 2) -> float:
     """Mean ms of ``fn()`` over ``reps`` calls, by CUDA events."""
     import torch
@@ -206,26 +246,36 @@ def time_ms(fn, *, reps: int, warmup: int = 2) -> float:
 
 # --------------------------------------------------------------- phase 2
 def check_b1(bins, eu, ed, part_size, label, schedule=None,
-             exact=False) -> float:
+             exact=False, update_src=None) -> float:
     """Launch B1 once through the path ``b1_path`` names (failing if
     another ran), hold it against the plain version (bit for bit when
-    ``exact``); max abs err."""
+    ``exact``); max abs err. With ``update_src``, ``bins`` is x (n, d) and
+    the call is the "warp" path's fused form (``pcpm_spmv_cuda``)."""
     import torch
     from repro_torch.kernels.pcpm_spmv import (b1_path, kernel,
                                                pcpm_gather_cuda,
-                                               pcpm_gather_ref)
-    path = b1_path(bins.shape[2], schedule is not None)
+                                               pcpm_gather_ref,
+                                               pcpm_spmv_cuda, pcpm_spmv_ref)
+    fused = update_src is not None
+    path = b1_path(bins.shape[-1], schedule is not None and not fused)
     before = dict(kernel.launch_counts)
-    out = pcpm_gather_cuda(bins, eu, ed, part_size=part_size,
-                           schedule=schedule)
+    if fused:
+        out = pcpm_spmv_cuda(bins, update_src, eu, ed, part_size=part_size)
+    else:
+        out = pcpm_gather_cuda(bins, eu, ed, part_size=part_size,
+                               schedule=schedule)
     torch.cuda.synchronize()
     ran = [p for p in kernel.PATHS if kernel.launch_counts[p] != before[p]]
     if ran != [path]:
         fail(f"B1 {label}: expected path {path!r}, launched {ran}")
-    ref = pcpm_gather_ref(bins, eu, ed, part_size=part_size)
+    ref = (pcpm_spmv_ref(bins, update_src, eu, ed, part_size=part_size)
+           if fused else pcpm_gather_ref(bins, eu, ed, part_size=part_size))
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    log(f"B1 {label} via {path!r}: bins {tuple(bins.shape)} "
+    what = (f"x {tuple(bins.shape)} through update_src "
+            f"{tuple(update_src.shape)}" if fused else
+            f"bins {tuple(bins.shape)}")
+    log(f"B1 {label} via {path!r}{' (fused)' if fused else ''}: {what} "
         f"{str(bins.dtype)[6:]}, streams {tuple(eu.shape)}, P={part_size}: "
         f"max_abs_err={err!r}" + (f", exact {torch.equal(out, ref)}"
                                   if exact else ""))
@@ -255,6 +305,10 @@ def check_b1_test_shapes(dev) -> None:
         bins = x[packed.update_src.view(-1)].view(k, u, d)
         check_b1(bins, packed.edge_upd, packed.edge_dst, part_size,
                  f"rmat({scale},{deg}) part {part_size} d={d}")
+        for xd in (x, x.bfloat16()):
+            check_b1(xd, packed.edge_upd, packed.edge_dst, part_size,
+                     f"rmat({scale},{deg}) part {part_size} d={d}",
+                     update_src=packed.update_src)
         # "tile" at d = 1: one tile per partition, and tiles of 16 nodes
         x16 = torch.from_numpy(rng.integers(0, 16, (g.num_nodes, 1)).astype(
             np.float32) / 16).to(dev)
@@ -279,9 +333,14 @@ def check_b1_test_shapes(dev) -> None:
     eu = torch.full((k, 1, Eb), U, dtype=torch.int32, device=dev)
     ed = torch.full((k, 1, Eb), P, dtype=torch.int32, device=dev)
     check_b1(bins, eu, ed, P, "all-pad partition")
-    from repro_torch.kernels.pcpm_spmv import pcpm_gather_cuda
+    from repro_torch.kernels.pcpm_spmv import pcpm_gather_cuda, pcpm_spmv_cuda
     if torch.count_nonzero(pcpm_gather_cuda(bins, eu, ed, part_size=P)):
         fail("B1 all-pad partition: nonzero output")
+    x = bins.view(-1, d)
+    usrc = torch.arange(k * U, dtype=torch.int32, device=dev).view(k, U)
+    check_b1(x, eu, ed, P, "all-pad partition", update_src=usrc)
+    if torch.count_nonzero(pcpm_spmv_cuda(x, usrc, eu, ed, part_size=P)):
+        fail("B1 all-pad partition (fused): nonzero output")
 
 
 # --------------------------------------------------------------- phase 3
@@ -377,6 +436,9 @@ def pagerank_phases(dev, card):
     from repro_torch.kernels.pcpm_spmv import (kernel as b1, pack_blocked,
                                                pcpm_gather_cuda,
                                                pcpm_gather_ref,
+                                               pcpm_spmv_cuda,
+                                               pcpm_spmv_pallas,
+                                               pcpm_spmv_ref,
                                                tile_schedule)
     # ---------------------------------------------------- 3. main path
     cfg = kron()
@@ -477,6 +539,12 @@ def pagerank_phases(dev, card):
                            "main path d=1" if d == 1 else
                            "serving path d=16", schedule=schedule,
                            exact=True)
+    # the serving path's own form at d = 16: x read through update_src
+    x16 = torch.randint(0, 16, (g.num_nodes, 16), generator=gen,
+                        device=dev).float() / 16
+    errs["fused"] = check_b1(x16, packed.edge_upd, packed.edge_dst,
+                             part_size, "serving path d=16", exact=True,
+                             update_src=packed.update_src)
 
     # ---------------------------------------------------- 4. times
     for method in METHODS:
@@ -495,38 +563,90 @@ def pagerank_phases(dev, card):
         torch.from_numpy(at.data.astype(np.float32)).to(dev),
         size=(g.num_nodes, g.num_nodes))
     # the bound counts the work this run's data needs, not the padded
-    # layout: 8 B per real edge (both index streams), d float32 bins
-    # values per real update, the (k, P, d) float32 output; d adds per
-    # edge
+    # layout: 8 B per real edge (both index streams), the function's row
+    # input read once, the (k, P, d) float32 output; d adds per edge
     edges = int(((packed.edge_upd < u) & (packed.edge_dst < part_size)).sum())
+    num_updates = plan.png.num_updates
+
+    def bound(d, row_bytes):
+        bytes_moved = 8 * edges + row_bytes + 4 * d * k * part_size
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        ops_ms = d * edges / PEAK_F32_PER_S * 1e3
+        return bytes_moved, max(bytes_ms, ops_ms), (
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+    # B1 from bins, the gather's own input: d float32 values per real
+    # update; at d = 1 the main path's "tile", at d = 16 "warp" (the
+    # serving path does not call this form)
     timed = {}
     for d, path_schedule in ((1, schedule), (16, None)):
         args = (main_bins[d], packed.edge_upd, packed.edge_dst)
         ms = time_ms(lambda: pcpm_gather_cuda(
             *args, part_size=part_size, schedule=path_schedule),
-            reps=50 if d == 1 else 10, warmup=5)
+            reps=50 if d == 1 else 20, warmup=5)
         plain_ms = time_ms(lambda: pcpm_gather_ref(*args,
                                                    part_size=part_size),
                            reps=10 if d == 1 else 3)
-        bytes_moved = (8 * edges + 4 * d * plan.png.num_updates
-                       + 4 * d * k * part_size)
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        ops_ms = d * edges / PEAK_F32_PER_S * 1e3
+        bytes_moved, bound_ms, bound_by = bound(d, 4 * d * num_updates)
         xv = torch.rand((g.num_nodes, d), generator=gen, device=dev)
         library_ms = time_ms(lambda: at_dev @ xv, reps=20 if d == 1 else 5)
         path = "tile" if path_schedule is not None else "warp"
         timed[d] = {"path": path, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations", "library_ms": library_ms,
-                    "max_abs_err": errs[d]}
-        log(f"B1 {'on the main path' if d == 1 else 'at the serving path'}"
-            f" (d={d}, path {path!r}): {ms!r} ms; bound "
-            f"{timed[d]['bound_ms']!r} ms ({bytes_moved} B for {edges} edges "
-            f"and {plan.png.num_updates} updates at "
-            f"{PEAK_BYTES_PER_S / 1e12} TB/s); plain version {plain_ms!r} "
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "max_abs_err": errs[d]}
+        where = "on the main path" if d == 1 else "at the serving width"
+        log(f"B1 from bins {where} (d={d}, path {path!r}): {ms!r} ms; "
+            f"bound {bound_ms!r} ms "
+            f"({bytes_moved} B for {edges} edges and {num_updates} updates "
+            f"at {PEAK_BYTES_PER_S / 1e12} TB/s); plain version {plain_ms!r} "
             f"ms; torch.sparse CSR product with A^T (n, {d}) "
             f"{library_ms!r} ms ({card})")
+    # B1 "warp" as the serving stepper calls it at d = 16: the fused form
+    # (x read through update_src, no bins). Its bound reads the function's
+    # own inputs once: one update_src entry per real update and x (n, 16);
+    # the PCPM layout re-reads a row of x once per partition that it
+    # feeds, which is printed beside the bound and not counted in it
+    fused_args = (x16, packed.update_src, packed.edge_upd, packed.edge_dst)
+    ms = time_ms(lambda: pcpm_spmv_cuda(*fused_args, part_size=part_size),
+                 reps=20, warmup=5)
+    plain_ms = time_ms(lambda: pcpm_spmv_ref(*fused_args,
+                                             part_size=part_size), reps=3)
+    bytes_moved, bound_ms, bound_by = bound(
+        16, 4 * num_updates + 4 * 16 * g.num_nodes)
+    layout_bytes = bound(16, 4 * num_updates + 4 * 16 * num_updates)[0]
+    library_ms = time_ms(lambda: at_dev @ x16, reps=5)
+    # the whole SpMV as the stepper calls it (pcpm_spmv_pallas: the fused
+    # form plus its view); its peak memory must stay well below the
+    # (k, U, 16) bins that it no longer makes
+    spmv16 = lambda: pcpm_spmv_pallas(packed, x16)          # noqa: E731
+    spmv_ms = time_ms(spmv16, reps=20, warmup=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    spmv16()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    bins_bytes = k * u * 16 * 4
+    from_bins = timed[16]
+    timed[16] = {"path": "warp", "form": "fused", "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "max_abs_err": max(errs[16], errs["fused"]),
+                 "from_bins_ms": from_bins["ms"],
+                 "from_bins_bound_ms": from_bins["bound_ms"],
+                 "spmv_ms": spmv_ms, "spmv_bound_ms": bound_ms,
+                 "spmv_peak_bytes": peak}
+    log(f"B1 'warp' fused at the serving path (d=16, x read through "
+        f"update_src; pcpm_spmv_cuda): {ms!r} ms; bound {bound_ms!r} ms "
+        f"({bytes_moved} B: x and update_src read once); the layout's "
+        f"traffic with one row read per update {layout_bytes} B = "
+        f"{layout_bytes / PEAK_BYTES_PER_S * 1e3!r} ms; plain version "
+        f"{plain_ms!r} ms; torch.sparse CSR product with A^T (n, 16) "
+        f"{library_ms!r} ms; kernel from bins {from_bins['ms']!r} ms; "
+        f"pcpm_spmv_pallas {spmv_ms!r} ms, peak memory of one call {peak} "
+        f"B (bins would be {bins_bytes} B) ({card})")
+    if peak >= bins_bytes // 2:
+        fail("the fused SpMV's peak memory is that of a bins tensor")
     xv = torch.rand((g.num_nodes,), generator=gen, device=dev)
     spmv_ms = time_ms(lambda: sessions["pcpm_pallas"].engine(xv), reps=20)
     log(f"whole pcpm_pallas SpMV (d=1): {spmv_ms!r} ms ({card})")
@@ -1425,9 +1545,8 @@ def main() -> None:
     for built in build_all():
         log(f"build: nvcc for sm_90a: {built.path.name} took "
             f"{built.seconds:.2f} s")
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        for name, props in ptxas_report(built.log):
+            log(f"  ptxas {name}: {props}")
 
     # ---------------------------------------------------- 2. B1 checks
     check_b1_test_shapes(dev)

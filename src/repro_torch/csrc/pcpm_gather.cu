@@ -3,35 +3,72 @@
 // Replaces the JAX package's Pallas TPU kernel
 // src/repro/kernels/pcpm_spmv/kernel.py::pcpm_gather_pallas.
 //
-//   out[p, j, :] = sum over e of bins[p, edge_upd[p, e], :]
+//   out[p, j, :] = sum over e of row(p, edge_upd[p, e])
 //                  for the edges e of partition p with edge_dst[p, e] == j
 //
+//   row(p, u) is bins[p, u, :] (the gather's own input), or, in the
+//   fused form of the "warp" path, x[update_src[p, u], :]: the paper's
+//   scatter phase read inside the gather, with no bins tensor at all
+//   (the JAX package's `pcpm` engine with fused=True does the same).
+//   The "warp" kernel always reads rows through update_src; its wrapper
+//   gives bins as the rows of x (k * U, d) with the identity update_src.
+//
 //   bins      (k, U, d)       float32 or bfloat16
+//   x         (n, d)          float32 or bfloat16 (fused form)
+//   update_src (k, U)         int32 rows of x (fused form)
 //   edge_upd  (k, n_eb, Eb)   int32, pad = U  (adds nothing)
 //   edge_dst  (k, n_eb, Eb)   int32, pad = P  (dropped)
 //   acc       (k, P, d)       float32, zeroed by the caller
 //
-// An edge counts when 0 <= upd < U and 0 <= dst < P; any other edge is a
-// pad. Sums are float32; bfloat16 bins get a second pass that casts the
-// float32 accumulator.
+// An edge counts when 0 <= upd < U and 0 <= dst < P (in the fused form
+// also 0 <= update_src[p, upd] < n); any other edge is a pad, here and in
+// the plain versions (kernels/pcpm_spmv/ref.py). Sums are float32;
+// bfloat16 rows get a second pass that casts the float32 accumulator.
 //
 // Bound: bytes. Per call the work needs both index streams read once
-// (8 B per edge), each real update's bins value read once and the output
-// written once; the adds are d per edge, far below the card's arithmetic
-// rate.
+// (8 B per edge), its row input read once (from bins, each real update's
+// row; in the fused form each real update's update_src entry, 4 B, and x
+// once, n rows) and the output written once; the adds are d per edge,
+// far below the card's arithmetic rate. The fused form re-reads a row of
+// x once per partition that it feeds (the PCPM layout's cost); the bound
+// does not count that.
 //
 // Two paths, chosen by the wrapper from d and from whether the caller
 // gives a gather order (kernel.py::b1_path):
 //
-//   "warp"  any d, any edge order, the blocked (k, n_eb, Eb) streams.
-//           Grid (n_eb, k): one block per edge block of one partition; a
-//           warp takes 32 consecutive edges, one a lane, and reads
-//           bins[p, upd, :] by index. Lanes holding the same destination
-//           in adjacent positions are merged by a segmented scan over the
-//           warp (shuffles), and only the last lane of each run adds its
-//           sum into the float32 accumulator with a global atomicAdd. On
-//           the dst-sorted PNG stream runs are long; each lane's bins read
-//           is a random 4-byte load from a partition slice too big for L1.
+//   "warp"  any d, any edge order, the blocked (k, n_eb, Eb) streams read
+//           as one flat stream of k * n_eb * Eb slots (a slot's partition
+//           is slot / (n_eb * Eb)). At the serving width (d = 16,
+//           64-byte rows) each edge reads one random row of a partition's
+//           update rows, which is too big for L1 but, at kron sizes, fits
+//           the 50 MB L2 for one partition at a time; with that kept in
+//           L2, what bounds the path is issuing the walk's instructions,
+//           which the lanes of a group repeat for every slot, and the
+//           scattered update_src reads (tools/b1_variants.py). The
+//           design:
+//           - lanes across the row: each edge is taken by a group of
+//             `lanes` lanes, each lane one 16-byte slice of the row (4
+//             float32 or 8 bfloat16; one value when d is not a multiple
+//             of that or the rows are not 16-byte aligned), so a row is
+//             one coalesced access; a d wider than the group's slices is
+//             taken in column tiles;
+//           - sums in registers along the stream: a group walks a
+//             contiguous range of slots, keeps the current destination's
+//             partial row in registers and adds it into acc once per run
+//             (when the destination changes or the range ends), with
+//             16-byte vector reductions (atomicAdd on float4). Any edge
+//             order stays correct, an unsorted stream only has shorter
+//             runs; pads are skipped without ending a run;
+//           - rows in flight: a group's lanes fetch 4 * lanes slots of
+//             both index streams with 16-byte loads (one int4 pair a
+//             lane), the next fetch in flight while this one is summed,
+//             and load up to 8 rows a lane before adding them;
+//           - one wave, partition-major: the grid is the blocks the card
+//             holds at once; in each round every group takes the next
+//             `range` slots, so one round covers about one partition and
+//             the rounds walk the stream in order: a partition's rows
+//             (23 MB at kron-21, d = 16) stay in L2 while its edges are
+//             summed.
 //   "tile"  d = 1 and the port's gather order (ops.py::tile_schedule):
 //           the paper's own gather. Within a partition the real edges are
 //           ordered by (destination tile, update, destination), so the
@@ -78,50 +115,229 @@ namespace warp {
 
 constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(const T* __restrict__ bins, const int* __restrict__ edge_upd,
-              const int* __restrict__ edge_dst, float* __restrict__ acc,
-              int U, int n_eb, int Eb, int P, int d) {
-  const int p = blockIdx.y;
-  const long long row = (long long)p * n_eb + blockIdx.x;
-  const int* eu = edge_upd + row * Eb;
-  const int* ed = edge_dst + row * Eb;
-  const T* part_bins = bins + (long long)p * U * d;
-  float* part_acc = acc + (long long)p * P * d;
-  const int lane = threadIdx.x & 31;
-  const unsigned upto_lane = kFull >> (31 - lane);   // bits 0..lane
+// A lane's slice of a row: W values read with one load (`Raw`) and
+// widened to float32 when summed.
+template <typename T, int W>
+struct Slice;
 
-  // e0 is the same for the 32 lanes of a warp: whole warps enter and
-  // leave the loop together, as the shuffles below require
-  for (int e0 = threadIdx.x - lane; e0 < Eb; e0 += kThreads) {
-    const int e = e0 + lane;
-    int u = U, j = P;
-    if (e < Eb) {
-      u = eu[e];
-      j = ed[e];
-    }
-    const bool valid = u >= 0 && u < U && j >= 0 && j < P;
-    const int key = valid ? j : -1;
-    // runs of equal keys in adjacent lanes; h = first lane of my run
-    const int key_before = __shfl_up_sync(kFull, key, 1);
-    const int key_after = __shfl_down_sync(kFull, key, 1);
-    const bool head = lane == 0 || key_before != key;
-    const bool tail = lane == 31 || key_after != key;
-    const unsigned heads = __ballot_sync(kFull, head);
-    const int h = 31 - __clz(heads & upto_lane);
-    const T* src = part_bins + (long long)(valid ? u : 0) * d;
-    float* dst = part_acc + (long long)(valid ? j : 0) * d;
-    for (int c = 0; c < d; ++c) {
-      float v = valid ? load_value(src + c) : 0.0f;
+template <>
+struct Slice<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ Raw zero() { return 0.0f; }
+  static __device__ __forceinline__ void widen(Raw r, float (&f)[1]) {
+    f[0] = r;
+  }
+};
+
+template <>
+struct Slice<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ void widen(Raw r, float (&f)[4]) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return 0; }
+  static __device__ __forceinline__ void widen(Raw r, float (&f)[1]) {
+    f[0] = __uint_as_float((unsigned)r << 16);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  static __device__ __forceinline__ void widen(Raw r, float (&f)[8]) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float other = __shfl_up_sync(kFull, v, off);
-        if (lane - off >= h) v += other;
-      }
-      if (valid && tail) atomicAdd(dst + c, v);
+    for (int i = 0; i < 4; ++i) {        // the lower half is the first value
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
+};
+
+// Adds a run's W sums into acc: 16-byte vector reductions when W is a
+// multiple of 4 (the slice is then 16-byte aligned), else one scalar add.
+template <int W>
+__device__ __forceinline__ void flush(float* p, const float (&sum)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < W; q += 4) {
+      atomicAdd(reinterpret_cast<float4*>(p + q),
+                make_float4(sum[q], sum[q + 1], sum[q + 2], sum[q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < W; ++q) atomicAdd(p + q, sum[q]);
+  }
+}
+
+// The launch's shapes: S slots in all, E a partition; a group takes
+// `range` slots a round (a multiple of 4 * L).
+struct Shape {
+  int n, U, E, S, P, d, range;
+};
+
+// One kernel per (row type, slice width W, lanes per edge L). `rows` is
+// x (n, d); the row of update p * U + u is update_src[p * U + u].
+template <typename T, int W, int L>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const void* __restrict__ rows_v,
+              const int* __restrict__ update_src,
+              const int* __restrict__ edge_upd,
+              const int* __restrict__ edge_dst, float* __restrict__ acc,
+              Shape sh) {
+  using S = Slice<T, W>;
+  constexpr int kFetch = 4 * L;                 // slots of a group's fetch
+  constexpr int kChunk = kFetch < 8 ? kFetch : 8;   // rows in flight a lane
+  const T* rows = reinterpret_cast<const T*>(rows_v);
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (L - 1);                // lane in the group
+  const unsigned gmask =
+      L == 32 ? kFull : ((1u << L) - 1) << (lane & ~(L - 1));
+  const int group = (int)((blockIdx.x * kThreads + threadIdx.x) / L);
+  const long long window = (long long)gridDim.x * (kThreads / L) * sh.range;
+  const int4* upd4 = reinterpret_cast<const int4*>(edge_upd);
+  const int4* dst4 = reinterpret_cast<const int4*>(edge_dst);
+
+  for (int c0 = 0; c0 < sh.d; c0 += L * W) {    // column tiles
+    const int col = c0 + gl * W;
+    const bool has_col = col < sh.d;
+    for (long long r0 = (long long)group * sh.range; r0 < sh.S;
+         r0 += window) {                        // rounds
+      const int r1 = (int)min(r0 + sh.range, (long long)sh.S);
+      int cur = -1;                             // the run's key
+      float sum[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) sum[w] = 0.0f;
+      // this lane's four slots of the fetch at s0: s0 + 4 * gl + 0..3
+      int4 nu, nj;
+      auto fetch = [&](int s0) {
+        const int s = s0 + 4 * gl;
+        if (s + 3 < r1) {
+          nu = __ldcs(upd4 + s / 4);
+          nj = __ldcs(dst4 + s / 4);
+        } else {                                // the stream's ragged end
+          nu = make_int4(sh.U, sh.U, sh.U, sh.U);
+          nj = make_int4(sh.P, sh.P, sh.P, sh.P);
+          if (s < r1) { nu.x = edge_upd[s]; nj.x = edge_dst[s]; }
+          if (s + 1 < r1) { nu.y = edge_upd[s + 1]; nj.y = edge_dst[s + 1]; }
+          if (s + 2 < r1) { nu.z = edge_upd[s + 2]; nj.z = edge_dst[s + 2]; }
+        }
+      };
+      fetch((int)r0);
+      for (int s0 = (int)r0; s0 < r1; s0 += kFetch) {
+        const int u[4] = {nu.x, nu.y, nu.z, nu.w};
+        const int j[4] = {nj.x, nj.y, nj.z, nj.w};
+        if (s0 + kFetch < r1) fetch(s0 + kFetch);
+        // each slot's key (partition * P + destination, -1 for a pad) and
+        // row of x
+        const int s = s0 + 4 * gl;
+        int p = s / sh.E;
+        long long p_end = (long long)(p + 1) * sh.E;
+        int key[4], row[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          while (s + c >= p_end) {
+            ++p;
+            p_end += sh.E;
+          }
+          bool ok = (unsigned)u[c] < (unsigned)sh.U &&
+                    (unsigned)j[c] < (unsigned)sh.P;
+          int r = ok ? p * sh.U + u[c] : 0;     // p < k for a real edge
+          r = ok ? __ldg(update_src + r) : 0;
+          ok = ok && (unsigned)r < (unsigned)sh.n;     // else a pad
+          key[c] = ok ? p * sh.P + j[c] : -1;
+          row[c] = r;
+        }
+        // the group's kFetch slots in order, kChunk rows in flight a lane
+#pragma unroll 1
+        for (int t0 = 0; t0 < kFetch; t0 += kChunk) {
+          typename S::Raw v[kChunk];
+          int kk[kChunk];
+#pragma unroll
+          for (int q = 0; q < kChunk; ++q) {    // slot t0 + q: t0 % 4 == 0
+            const int src = (t0 + q) >> 2;
+            kk[q] = __shfl_sync(gmask, key[q & 3], src, L);
+            const int rq = __shfl_sync(gmask, row[q & 3], src, L);
+            v[q] = kk[q] >= 0 && has_col
+                       ? S::load(rows + (long long)rq * sh.d + col)
+                       : S::zero();
+          }
+#pragma unroll
+          for (int q = 0; q < kChunk; ++q) {
+            if (kk[q] < 0) continue;            // a pad ends no run
+            float f[W];
+            S::widen(v[q], f);
+            if (kk[q] != cur) {
+              if (cur >= 0 && has_col) {
+                flush<W>(acc + (long long)cur * sh.d + col, sum);
+              }
+              cur = kk[q];
+#pragma unroll
+              for (int w = 0; w < W; ++w) sum[w] = f[w];
+            } else {
+#pragma unroll
+              for (int w = 0; w < W; ++w) sum[w] += f[w];
+            }
+          }
+        }
+      }
+      if (cur >= 0 && has_col) {
+        flush<W>(acc + (long long)cur * sh.d + col, sum);
+      }
+    }
+  }
+}
+
+using Kernel = void (*)(const void*, const int*, const int*, const int*,
+                        float*, Shape);
+
+template <typename T, int W>
+Kernel pick_lanes(int lanes) {
+  switch (lanes) {
+    case 1: return gather_kernel<T, W, 1>;
+    case 2: return gather_kernel<T, W, 2>;
+    case 4: return gather_kernel<T, W, 4>;
+    case 8: return gather_kernel<T, W, 8>;
+    case 16: return gather_kernel<T, W, 16>;
+    case 32: return gather_kernel<T, W, 32>;
+    default: return nullptr;
+  }
+}
+
+// The kernel of a launch, or nullptr for a combination it does not take
+// (a float32 slice is 1 or 4 values, a bfloat16 one 1 or 8).
+Kernel pick(bool bf16, int vec, int lanes) {
+  if (!bf16) {
+    if (vec == 1) return pick_lanes<float, 1>(lanes);
+    if (vec == 4) return pick_lanes<float, 4>(lanes);
+    return nullptr;
+  }
+  if (vec == 1) return pick_lanes<__nv_bfloat16, 1>(lanes);
+  if (vec == 8) return pick_lanes<__nv_bfloat16, 8>(lanes);
+  return nullptr;
 }
 
 }  // namespace warp
@@ -302,45 +518,64 @@ __global__ void cast_to_bf16_kernel(const float* __restrict__ in,
 // this order (tests/test_torch_pcpm_gather_paths.py reads this list).
 enum Arg {
   kPath,          // 0 "warp", 1 "tile"
-  kBf16,          // bins: 0 float32, 1 bfloat16
-  kBins,          // (k, U, d)
-  kEdgeUpd,       // "warp": (k, n_eb, Eb) int32
-  kEdgeDst,       // "warp": (k, n_eb, Eb) int32
+  kBf16,          // rows: 0 float32, 1 bfloat16
+  kRows,          // "tile": bins (k, U, d); "warp": x (n, d)
+  kUpdateSrc,     // "warp": (k, U) int32 rows of x
+  kN,             // "warp": rows of x
+  kEdgeUpd,       // "warp": (k, n_eb, Eb) int32, 16-B aligned
+  kEdgeDst,       // "warp": (k, n_eb, Eb) int32, 16-B aligned
   kAcc,           // (k, P, d) float32, zeroed by the caller
-  kOut,           // bfloat16 bins: (k, P, d) bfloat16 output, else 0
+  kOut,           // bfloat16 rows: (k, P, d) bfloat16 output, else 0
   kK,
   kU,
   kNEb,
   kEb,
   kP,
   kD,
+  kVec,           // "warp": row values a lane reads at once (1, 4 or 8)
+  kLanes,         // "warp": lanes per edge, a power of two <= 32
+  kRange,         // "warp": slots a group takes a round, a multiple of
+                  // 4 * lanes
   kTileUpd,       // "tile": (M,) int32 in the gather order, 16-B aligned
   kTileDst,       // "tile": (M,) int32, idem
   kChunks,        // "tile": (N, 4) int32 chunk table
   kBlockChunks,   // "tile": (blocks + 1,) int32
   kHubTable,      // "tile": (k * ceil(P / tile), 8) int32, tile-local or -1
   kTile,          // "tile": destinations per tile, a multiple of 4
-  kBlocks,        // "tile": blocks of the launch
+  kBlocks,        // blocks of the launch
   kNumArgs
 };
 
-template <typename T>
-cudaError_t launch_gather(const long long* a, cudaStream_t stream) {
-  const int k = (int)a[kK], U = (int)a[kU], P = (int)a[kP], d = (int)a[kD];
-  const T* bins = reinterpret_cast<const T*>(a[kBins]);
-  float* acc = reinterpret_cast<float*>(a[kAcc]);
-  if (k <= 0 || d <= 0 || P <= 0) return cudaSuccess;
-  if (a[kPath] == 0) {
-    const int n_eb = (int)a[kNEb], Eb = (int)a[kEb];
-    if (n_eb <= 0 || Eb <= 0) return cudaSuccess;
-    const dim3 grid((unsigned)n_eb, (unsigned)k);
-    warp::gather_kernel<T><<<grid, warp::kThreads, 0, stream>>>(
-        bins, reinterpret_cast<const int*>(a[kEdgeUpd]),
-        reinterpret_cast<const int*>(a[kEdgeDst]), acc, U, n_eb, Eb, P, d);
-    return cudaGetLastError();
+cudaError_t launch_warp(const long long* a, cudaStream_t stream) {
+  const long long k = a[kK], e = a[kNEb] * a[kEb];
+  const warp::Shape sh{(int)a[kN], (int)a[kU], (int)e, (int)(k * e),
+                       (int)a[kP], (int)a[kD], (int)a[kRange]};
+  const int vec = (int)a[kVec], lanes = (int)a[kLanes];
+  const int blocks = (int)a[kBlocks];
+  const warp::Kernel kernel = warp::pick(a[kBf16] != 0, vec, lanes);
+  if (kernel == nullptr || a[kUpdateSrc] == 0 || sh.range <= 0 ||
+      sh.range % (4 * lanes) != 0 ||
+      (vec > 1 && (sh.d % vec != 0 || a[kRows] % 16 != 0)) ||
+      a[kEdgeUpd] % 16 != 0 || a[kEdgeDst] % 16 != 0) {
+    return cudaErrorInvalidValue;
   }
+  if (sh.S <= 0 || blocks <= 0) return cudaSuccess;
+  kernel<<<blocks, warp::kThreads, 0, stream>>>(
+      reinterpret_cast<const void*>(a[kRows]),
+      reinterpret_cast<const int*>(a[kUpdateSrc]),
+      reinterpret_cast<const int*>(a[kEdgeUpd]),
+      reinterpret_cast<const int*>(a[kEdgeDst]),
+      reinterpret_cast<float*>(a[kAcc]), sh);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tile(const long long* a, cudaStream_t stream) {
+  const int U = (int)a[kU], P = (int)a[kP];
+  const T* bins = reinterpret_cast<const T*>(a[kRows]);
+  float* acc = reinterpret_cast<float*>(a[kAcc]);
   const int tile = (int)a[kTile], blocks = (int)a[kBlocks];
-  if (a[kPath] != 1 || d != 1 || tile <= 0 || tile % 4 != 0) {
+  if (a[kD] != 1 || tile <= 0 || tile % 4 != 0) {
     return cudaErrorInvalidValue;
   }
   if (blocks <= 0) return cudaSuccess;
@@ -358,19 +593,26 @@ cudaError_t launch_gather(const long long* a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_gather(const long long* a, cudaStream_t stream) {
+  if (a[kK] <= 0 || a[kD] <= 0 || a[kP] <= 0) return cudaSuccess;
+  if (a[kPath] == 0) return launch_warp(a, stream);
+  if (a[kPath] != 1) return cudaErrorInvalidValue;
+  return a[kBf16] ? launch_tile<__nv_bfloat16>(a, stream)
+                  : launch_tile<float>(a, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // a: kNumArgs int64 values in the order of enum Arg. acc (k, P, d)
-// float32 is zeroed by the caller; for float32 bins it is the output, for
-// bfloat16 bins a second kernel casts it into out. Returns the
+// float32 is zeroed by the caller; for float32 rows it is the output, for
+// bfloat16 rows a second kernel casts it into out. Returns the
 // cudaError_t of the launches.
 int pcpm_gather(const long long* a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!a[kBf16]) return (int)launch_gather<float>(a, s);
-  cudaError_t err = launch_gather<__nv_bfloat16>(a, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = launch_gather(a, s);
+  if (err != cudaSuccess || !a[kBf16]) return (int)err;
   const long long n = a[kK] * a[kP] * a[kD];
   if (n <= 0) return (int)cudaSuccess;
   constexpr int kCastThreads = 256;
@@ -380,6 +622,17 @@ int pcpm_gather(const long long* a, void* stream) {
       reinterpret_cast<const float*>(a[kAcc]),
       reinterpret_cast<__nv_bfloat16*>(a[kOut]), n);
   return (int)cudaGetLastError();
+}
+
+// The "warp" kernel's resident blocks per SM for a row type (bf16 0/1),
+// slice width and lanes per edge, into *blocks; the wrapper launches that
+// many times the SMs (one wave). Returns the cudaError_t
+// (cudaErrorInvalidValue for a combination without a kernel).
+int pcpm_warp_occupancy(int bf16, int vec, int lanes, int* blocks) {
+  const warp::Kernel kernel = warp::pick(bf16 != 0, vec, lanes);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, warp::kThreads, 0);
 }
 
 }  // extern "C"

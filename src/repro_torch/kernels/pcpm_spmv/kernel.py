@@ -9,44 +9,58 @@ bound with ``ctypes``; ``kernels/_launch.py`` keeps the launch's host
 side short.
 
 Bound: bytes. One call must read the two int32 index streams once (8 B
-per edge), each real update's bins row once (U·d values) and write the
-(k, P, d) output once; at PageRank sizes (d = 1) that is a few hundred
-MB per call against the card's 3.35 TB/s. Two paths, chosen by
-``b1_path`` from d and from whether the caller gives a gather order
-(the source note in the ``.cu`` file has their designs):
+per edge), each real update's row of bins once (U·d values; in the
+fused form each real update's ``update_src`` entry and x once, n·d
+values) and write the (k, P, d) output once; at
+PageRank sizes (d = 1) that is a few hundred MB per call against the
+card's 3.35 TB/s. Two paths, chosen by ``b1_path`` from d and from
+whether the caller gives a gather order (the source note in the ``.cu``
+file has their designs):
 
 - ``"tile"``: d = 1 with an ``ops.TileSchedule``: the paper's gather.
   Update values are read in order and added into a tile of destinations
   in shared memory (the tile's heaviest destinations in registers),
   flushed with vector reductions; no pad slot is read.
 - ``"warp"``: everything else (d > 1, the blocked streams alone, any
-  order): one edge per lane, runs of equal destinations merged inside a
-  warp before one float32 global ``atomicAdd`` per run.
+  order): a group of lanes per edge, each lane a 16-byte slice of the
+  row, each group summing runs of equal destinations along a range of
+  the stream in registers and adding each run once with vector
+  reductions (``WarpGeometry``). It reads each row through
+  ``update_src``: in the fused form (``pcpm_spmv_cuda``) straight from
+  the SpMV's input, so no (k, U, d) bins tensor exists; from bins
+  (``pcpm_gather_cuda``) as rows of a (k·U, d) x with the identity
+  ``update_src``.
 
-``pcpm_gather_cuda`` launches the kernel for CUDA tensors and raises on
-what it cannot take; for CPU tensors it computes the plain version of
-the chosen path (``ref.py``). There is no other fallback.
+``pcpm_gather_cuda`` and ``pcpm_spmv_cuda`` launch the kernel for CUDA
+tensors and raise on what it cannot take; for CPU tensors they compute
+the plain version of the chosen path (``ref.py``). There is no other
+fallback.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from .. import _build, _launch
-from .ref import pcpm_gather_ref, tile_gather_ref
+from .ref import pcpm_gather_ref, pcpm_spmv_ref, tile_gather_ref
 
 SOURCE = _build.CSRC / "pcpm_gather.cu"
 PATHS = ("warp", "tile")              # their codes in the C interface
 # the C interface's arguments, in the order of ``enum Arg`` in the source
-ARGS = _launch.Args("path", "bf16", "bins", "edge_upd", "edge_dst", "acc",
-                    "out", "k", "U", "n_eb", "Eb", "P", "d", "tile_upd",
-                    "tile_dst", "chunks", "block_chunks", "hub_table",
-                    "tile", "blocks")
+ARGS = _launch.Args("path", "bf16", "rows", "update_src", "n", "edge_upd",
+                    "edge_dst", "acc", "out", "k", "U", "n_eb", "Eb", "P",
+                    "d", "vec", "lanes", "range", "tile_upd", "tile_dst",
+                    "chunks", "block_chunks", "hub_table", "tile", "blocks")
+# threads of a "warp" block (warp::kThreads in the source)
+WARP_THREADS = 256
 
-# Calls of ``pcpm_gather_cuda`` that launched on the card in this process
-# (CPU calls of the plain version do not count), in all and per path.
-# Reset by assigning 0 and ``dict.fromkeys(PATHS, 0)``.
+# Calls of ``pcpm_gather_cuda`` and ``pcpm_spmv_cuda`` that launched on
+# the card in this process (CPU calls of the plain version do not count),
+# in all and per path; both forms of "warp" count as "warp". Reset by
+# assigning 0 and ``dict.fromkeys(PATHS, 0)``.
 launch_count = 0
 launch_counts = dict.fromkeys(PATHS, 0)
 # What the last build did: seconds spent in nvcc (0.0 when the library
@@ -65,10 +79,77 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib, built = _build.load(SOURCE)
     build_seconds, build_log = built.seconds, built.log
-    lib.pcpm_gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.pcpm_gather.restype = ctypes.c_int
+    bind(lib)
     _lib = lib
     return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument and result types on ``lib``."""
+    lib.pcpm_gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.pcpm_gather.restype = ctypes.c_int
+    lib.pcpm_warp_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.pcpm_warp_occupancy.restype = ctypes.c_int
+    return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpGeometry:
+    """How one "warp" launch cuts its work. ``vec`` row values a lane
+    reads at once (16 bytes: 4 float32 or 8 bfloat16; 1 when d is not a
+    multiple of that or the rows are not 16-byte aligned), ``lanes`` per
+    edge (the group), ``blocks`` of ``WARP_THREADS`` threads (one wave),
+    and ``range``, the slots a group takes a round (a multiple of the
+    ``4 * lanes`` slots of its fetch)."""
+    vec: int
+    lanes: int
+    blocks: int
+    range: int
+
+    @property
+    def groups(self) -> int:
+        return self.blocks * WARP_THREADS // self.lanes
+
+
+def warp_lanes(d: int, bf16: bool, aligned: bool) -> tuple[int, int]:
+    """(vec, lanes) of a d-wide row: 16-byte slices when d is a multiple
+    of their width and the rows are 16-byte aligned, else one value a
+    lane; as many lanes as slices, rounded up to a power of two, at most
+    a warp's 32."""
+    width = 8 if bf16 else 4
+    vec = width if aligned and d % width == 0 else 1
+    slices = -(-d // vec)
+    return vec, min(32, 1 << (slices - 1).bit_length())
+
+
+def warp_geometry(d: int, bf16: bool, aligned: bool, part_slots: int,
+                  blocks_of) -> WarpGeometry:
+    """The geometry of a launch over streams of ``part_slots`` slots a
+    partition; ``blocks_of(vec, lanes)`` gives the blocks of one wave.
+    ``range`` makes one round of all groups cover about one partition, so
+    the rounds walk the stream partition after partition."""
+    vec, lanes = warp_lanes(d, bf16, aligned)
+    blocks = blocks_of(vec, lanes)
+    fetch = 4 * lanes
+    groups = blocks * WARP_THREADS // lanes
+    return WarpGeometry(vec, lanes, blocks,
+                        max(fetch, part_slots // (groups * fetch) * fetch))
+
+
+@functools.cache
+def _wave_blocks(device: torch.device, bf16: bool, vec: int,
+                 lanes: int) -> int:
+    """Blocks of one wave of the "warp" kernel on ``device``: its SMs
+    times the kernel's resident blocks per SM."""
+    per_sm = ctypes.c_int(0)
+    err = load_library().pcpm_warp_occupancy(int(bf16), vec, lanes,
+                                             ctypes.byref(per_sm))
+    if err != 0 or per_sm.value < 1:
+        raise RuntimeError(f"pcpm_warp_occupancy failed: CUDA error {err}, "
+                           f"{per_sm.value} blocks per SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * per_sm.value
 
 
 def b1_path(d: int, has_schedule: bool) -> str:
@@ -78,12 +159,9 @@ def b1_path(d: int, has_schedule: bool) -> str:
     return "tile" if d == 1 and has_schedule else "warp"
 
 
-def _check(bins: torch.Tensor, edge_upd: torch.Tensor,
-           edge_dst: torch.Tensor, part_size: int, schedule) -> None:
-    if bins.dim() != 3:
-        raise ValueError(f"bins must be (k, U, d); got {tuple(bins.shape)}")
-    if bins.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"bins must be float32 or bfloat16; got {bins.dtype}")
+def _check_streams(edge_upd: torch.Tensor, edge_dst: torch.Tensor,
+                   k: int, part_size: int, dev: torch.device,
+                   what: str) -> None:
     eu_shape = edge_upd.shape
     if len(eu_shape) != 3 or eu_shape != edge_dst.shape:
         raise ValueError(
@@ -92,42 +170,124 @@ def _check(bins: torch.Tensor, edge_upd: torch.Tensor,
     if edge_upd.dtype != torch.int32 or edge_dst.dtype != torch.int32:
         raise TypeError("edge_upd/edge_dst must be int32; got "
                         f"{edge_upd.dtype} and {edge_dst.dtype}")
-    if eu_shape[0] != bins.shape[0]:
-        raise ValueError(f"bins has {bins.shape[0]} partitions, the edge "
-                         f"streams {eu_shape[0]}")
+    if eu_shape[0] != k:
+        raise ValueError(f"{what} has {k} partitions, the edge streams "
+                         f"{eu_shape[0]}")
     if part_size < 1:
         raise ValueError(f"part_size must be >= 1; got {part_size}")
-    dev = bins.device
     if edge_upd.device != dev or edge_dst.device != dev:
-        raise ValueError("bins and edge streams must share one device; got "
-                         f"{dev}, {edge_upd.device}, {edge_dst.device}")
+        raise ValueError(f"{what} and edge streams must share one device; "
+                         f"got {dev}, {edge_upd.device}, {edge_dst.device}")
+
+
+def _check_rows(rows: torch.Tensor, name: str, dim: int) -> None:
+    if rows.dim() != dim:
+        shape = "(k, U, d)" if dim == 3 else "(n, d)"
+        raise ValueError(f"{name} must be {shape}; got {tuple(rows.shape)}")
+    if rows.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16; got "
+                        f"{rows.dtype}")
+
+
+def _check(bins: torch.Tensor, edge_upd: torch.Tensor,
+           edge_dst: torch.Tensor, part_size: int, schedule) -> None:
+    _check_rows(bins, "bins", 3)
+    dev = bins.device
+    _check_streams(edge_upd, edge_dst, bins.shape[0], part_size, dev, "bins")
     if schedule is not None and (
             schedule.part_size != part_size
-            or schedule.num_partitions != eu_shape[0]
+            or schedule.num_partitions != bins.shape[0]
             or schedule.edge_upd.device != dev):
         raise ValueError(
             f"the schedule (P={schedule.part_size}, k="
             f"{schedule.num_partitions}, on {schedule.edge_upd.device}) "
-            f"is not of these streams (P={part_size}, k={eu_shape[0]}, "
+            f"is not of these streams (P={part_size}, k={bins.shape[0]}, "
             f"on {dev})")
 
 
-def launch_args(path: str, bins: torch.Tensor, edge_upd: torch.Tensor,
+def launch_args(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
                 edge_dst: torch.Tensor, acc: torch.Tensor,
-                out: torch.Tensor | None, part_size: int,
+                out: torch.Tensor | None, part_size: int, *,
+                num_updates: int, update_src: torch.Tensor | None = None,
+                geometry: WarpGeometry | None = None,
                 schedule=None) -> bytes:
-    """The packed C arguments of one launch (``ARGS`` order)."""
-    k, num_updates, d = bins.shape
-    _, n_eb, eb = edge_upd.shape
-    tile = ((0,) * 7 if path == "warp" else (
+    """The packed C arguments of one launch (``ARGS`` order): "tile"
+    takes bins (k, U, 1) as ``rows`` and a ``schedule``, "warp" x (n, d)
+    as ``rows`` with ``update_src`` and a ``geometry``."""
+    k, n_eb, eb = edge_upd.shape
+    d = rows.shape[-1]
+    fused = (0, 0) if update_src is None else (update_src.data_ptr(),
+                                               rows.shape[0])
+    warp = ((0, 0, 0) if geometry is None
+            else (geometry.vec, geometry.lanes, geometry.range))
+    tile = ((0,) * 6 if schedule is None else (
         schedule.edge_upd.data_ptr(), schedule.edge_dst.data_ptr(),
         schedule.chunks.data_ptr(), schedule.block_chunks.data_ptr(),
-        schedule.hubs.data_ptr(), schedule.tile, schedule.blocks))
-    return ARGS.pack(PATHS.index(path), int(bins.dtype == torch.bfloat16),
-                     bins.data_ptr(), edge_upd.data_ptr(),
+        schedule.hubs.data_ptr(), schedule.tile))
+    blocks = geometry.blocks if path == "warp" else schedule.blocks
+    return ARGS.pack(PATHS.index(path), int(rows.dtype == torch.bfloat16),
+                     rows.data_ptr(), *fused, edge_upd.data_ptr(),
                      edge_dst.data_ptr(), acc.data_ptr(),
                      0 if out is None else out.data_ptr(), k, num_updates,
-                     n_eb, eb, part_size, d, *tile)
+                     n_eb, eb, part_size, d, *warp, *tile, blocks)
+
+
+def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
+         edge_dst: torch.Tensor, part_size: int, *, num_updates: int,
+         update_src: torch.Tensor | None = None,
+         schedule=None) -> torch.Tensor:
+    """Check what the card's kernel needs, launch it on the current
+    stream and count the launch; (k, P, d) in ``rows``' dtype. ``rows``
+    is bins for "tile", x (n, d) with ``update_src`` for "warp"."""
+    global launch_count
+    dev = rows.device
+    _launch.check_hopper(dev, "PCPM gather")
+    k, n_eb, eb = edge_upd.shape
+    d = rows.shape[-1]
+    n = rows.shape[0] if update_src is not None else 0
+    # int32 indices in the kernel; the stream's slots with room for the
+    # "warp" loop's fetches past its end
+    if k > 65535 or max(num_updates, n_eb, eb, part_size, d, n,
+                        k * n_eb * eb + 1024, k * num_updates,
+                        k * part_size * d) >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: k={k} (max "
+                         f"65535), U={num_updates}, n_eb={n_eb}, Eb={eb}, "
+                         f"P={part_size}, d={d}, n={n} (each product of "
+                         "them below 2**31)")
+    named = [("edge_upd", edge_upd), ("edge_dst", edge_dst)]
+    named += ([("bins", rows)] if update_src is None
+              else [("x", rows), ("update_src", update_src)])
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = load_library()
+    bf16 = rows.dtype == torch.bfloat16
+    geometry = None
+    if path == "warp":
+        for name, t in named[:2]:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned on the "
+                                 "card (the kernel reads it 16 bytes at a "
+                                 "time)")
+        geometry = warp_geometry(
+            d, bf16, rows.data_ptr() % 16 == 0, n_eb * eb,
+            lambda vec, lanes: _wave_blocks(dev, bf16, vec, lanes))
+    acc = torch.zeros((k, part_size, d), dtype=torch.float32, device=dev)
+    out = acc
+    if bf16:
+        out = torch.empty((k, part_size, d), dtype=torch.bfloat16, device=dev)
+    args = launch_args(path, rows, edge_upd, edge_dst, acc,
+                       None if out is acc else out, part_size,
+                       num_updates=num_updates, update_src=update_src,
+                       geometry=geometry, schedule=schedule)
+    with _launch.device_guard(dev):
+        err = lib.pcpm_gather(args, _launch.raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"pcpm_gather kernel launch failed (path "
+                           f"{path!r}): CUDA error {err}")
+    launch_count += 1
+    launch_counts[path] += 1
+    return out
 
 
 def pcpm_gather_cuda(bins: torch.Tensor, edge_upd: torch.Tensor,
@@ -141,10 +301,8 @@ def pcpm_gather_cuda(bins: torch.Tensor, edge_upd: torch.Tensor,
     path at d = 1 (``b1_path``). CUDA tensors go to the kernel (or
     raise); CPU tensors go to the path's plain version.
     """
-    global launch_count
     _check(bins, edge_upd, edge_dst, part_size, schedule)
-    k, num_updates, d = bins.shape
-    path = b1_path(d, schedule is not None)
+    path = b1_path(bins.shape[2], schedule is not None)
     dev = bins.device
     if dev.type == "cpu":
         if path == "tile":
@@ -152,29 +310,53 @@ def pcpm_gather_cuda(bins: torch.Tensor, edge_upd: torch.Tensor,
         return pcpm_gather_ref(bins, edge_upd, edge_dst, part_size=part_size)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _launch.check_hopper(dev, "PCPM gather")
-    _, n_eb, eb = edge_upd.shape
-    if k > 65535 or max(num_updates, n_eb, eb, part_size, d,
-                        k * part_size * d) >= 2 ** 31:
-        raise ValueError(f"shape out of the kernel's range: k={k} (max "
-                         f"65535), U={num_updates}, n_eb={n_eb}, Eb={eb}, "
-                         f"P={part_size}, d={d}")
-    for name, t in (("bins", bins), ("edge_upd", edge_upd),
-                    ("edge_dst", edge_dst)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = load_library()
-    acc = torch.zeros((k, part_size, d), dtype=torch.float32, device=dev)
-    out = acc
-    if bins.dtype == torch.bfloat16:
-        out = torch.empty((k, part_size, d), dtype=torch.bfloat16, device=dev)
-    args = launch_args(path, bins, edge_upd, edge_dst, acc,
-                       None if out is acc else out, part_size, schedule)
-    with _launch.device_guard(dev):
-        err = lib.pcpm_gather(args, _launch.raw_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"pcpm_gather kernel launch failed (path "
-                           f"{path!r}): CUDA error {err}")
-    launch_count += 1
-    launch_counts[path] += 1
-    return out
+    k, num_updates, d = bins.shape
+    if path == "tile":
+        return _run(path, bins, edge_upd, edge_dst, part_size,
+                    num_updates=num_updates, schedule=schedule)
+    if not bins.is_contiguous():
+        raise ValueError("bins must be contiguous")
+    # "warp" reads rows through update_src: bins as (k·U, d) rows of x
+    # and the identity update_src
+    identity = torch.arange(k * num_updates, dtype=torch.int32,
+                            device=dev).view(k, num_updates)
+    return _run(path, bins.view(k * num_updates, d), edge_upd, edge_dst,
+                part_size, num_updates=num_updates, update_src=identity)
+
+
+def pcpm_spmv_cuda(x: torch.Tensor, update_src: torch.Tensor,
+                   edge_upd: torch.Tensor, edge_dst: torch.Tensor, *,
+                   part_size: int) -> torch.Tensor:
+    """x: (n, d); update_src: (k, U); edge_upd/edge_dst: (k, n_eb, Eb)
+    -> (k, P, d): the gather of ``x[update_src]`` without the bins.
+
+    B1's "warp" path in its fused form: each edge's row is read as
+    ``x[update_src[p, edge_upd[p, e]]]`` inside the kernel, the paper's
+    scatter phase moved into the gather's loads. Sums in float32 and
+    returns ``x``' dtype. CUDA tensors go to the kernel (or raise: a
+    non-contiguous ``x``, n ≥ 2**31; the kernel's row offsets are 64-bit,
+    so n·d may exceed it); CPU tensors go to the plain
+    version (``ref.pcpm_spmv_ref``). An ``update_src`` entry outside
+    [0, n) makes the edges that read it pads, on the card and in the
+    plain version.
+    """
+    _check_rows(x, "x", 2)
+    if (update_src.dim() != 2 or update_src.dtype != torch.int32
+            or update_src.shape[0] != edge_upd.shape[0]):
+        raise ValueError("update_src must be (k, U) int32 with the edge "
+                         f"streams' k; got {tuple(update_src.shape)} "
+                         f"{update_src.dtype}")
+    dev = x.device
+    if update_src.device != dev:
+        raise ValueError(f"x and update_src must share one device; got "
+                         f"{dev}, {update_src.device}")
+    _check_streams(edge_upd, edge_dst, update_src.shape[0], part_size, dev,
+                   "update_src")
+    path = b1_path(x.shape[1], False)          # no gather order: "warp"
+    if dev.type == "cpu":
+        return pcpm_spmv_ref(x, update_src, edge_upd, edge_dst,
+                             part_size=part_size)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _run(path, x, edge_upd, edge_dst, part_size,
+                num_updates=update_src.shape[1], update_src=update_src)

@@ -1,6 +1,8 @@
-"""BlockedPNG + feature matrix -> full PCPM SpMV through the gather kernel
-(the scatter phase is a torch gather producing the bins, as it was an
-XLA gather in the JAX package).
+"""BlockedPNG + feature matrix -> full PCPM SpMV through the gather kernel.
+On B1's "tile" path (d = 1 with the gather order) the scatter phase is a
+torch gather producing the bins, as it was an XLA gather in the JAX
+package; on its "warp" path the kernel reads ``x[update_src]`` itself
+(the fused form, ``kernel.pcpm_spmv_cuda``) and no bins exist.
 
 Two device layouts of one plan's gather streams: ``PackedPNG``, the
 reference's blocked (k, n_eb, Eb) streams in destination order (kernel
@@ -17,7 +19,7 @@ import torch
 
 from ...core.png import BlockedPNG
 from ...device import resolve_device
-from .kernel import pcpm_gather_cuda
+from .kernel import b1_path, pcpm_gather_cuda, pcpm_spmv_cuda
 
 # shared memory of one "tile" block, which sets the tile size: two such
 # blocks fit an SM (228 KB, 1 KB of it reserved per block)
@@ -258,26 +260,32 @@ def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor, *,
 
     The name is the JAX package's (``ops.pcpm_spmv_pallas``), kept so
     the counterpart is easy to find; on the card the gather runs the
-    CUDA kernel (``kernel.pcpm_gather_cuda``), and d is not padded.
-    With ``schedule`` (built from the same blocked PNG) a d = 1 gather
-    takes B1's "tile" path (``kernel.b1_path``).
+    CUDA kernel, and d is not padded. With ``schedule`` (built from the
+    same blocked PNG) a d = 1 gather takes B1's "tile" path over bins
+    gathered here; every other call takes the "warp" path's fused form
+    (``kernel.b1_path``), which reads ``x[update_src]`` inside the kernel,
+    so no (k, U, d) bins tensor is made.
 
     The JAX version zeroes the pad update slots (``* update_valid``);
     here that pass is left out because no edge reads those slots: real
     edges point at real updates, and ``pack_blocked`` points pad edges
-    at ``U``, which the gather drops. The bins of pad slots hold
-    ``x[0]`` and are never summed.
+    at ``U``, which the gather drops.
     """
     squeeze = x.dim() == 1
     if squeeze:
         x = x[:, None]
     n, d = x.shape
     k, num_updates = packed.update_src.shape
-    # scatter phase: compressed bins (k, U, d) — one value per
-    # (src, dst-partition) pair, the paper's update_bins.
-    bins = x.index_select(0, packed.update_src.view(-1)).view(
-        k, num_updates, d)
-    out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
-                           part_size=packed.part_size, schedule=schedule)
+    if b1_path(d, schedule is not None) == "tile":
+        # scatter phase: compressed bins (k, U, 1), one value per
+        # (src, dst-partition) pair, the paper's update_bins
+        bins = x.index_select(0, packed.update_src.view(-1)).view(
+            k, num_updates, d)
+        out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
+                               part_size=packed.part_size, schedule=schedule)
+    else:
+        out = pcpm_spmv_cuda(x.contiguous(), packed.update_src,
+                             packed.edge_upd, packed.edge_dst,
+                             part_size=packed.part_size)
     y = out.view(-1, d)[:n]
     return y[:, 0] if squeeze else y

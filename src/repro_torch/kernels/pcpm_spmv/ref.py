@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the PCPM gather kernel's two paths."""
+"""Plain PyTorch versions of the PCPM gather kernel's two paths and of
+the "warp" path's fused form."""
 from __future__ import annotations
 
 import torch
@@ -8,13 +9,18 @@ def pcpm_gather_ref(bins: torch.Tensor, edge_upd: torch.Tensor,
                     edge_dst: torch.Tensor, *, part_size: int) -> torch.Tensor:
     """bins: (k, U, d); edge_upd/edge_dst: (k, n_eb, Eb) -> (k, P, d).
 
-    Pad conventions identical to the kernel: edge_upd == U selects a zero
-    update; edge_dst == part_size discards the contribution. Sums in
-    float32 and returns ``bins``' dtype, as the kernel does.
+    Pad conventions identical to the kernel: an edge counts when
+    0 <= edge_upd < U and 0 <= edge_dst < part_size; any other edge (the
+    packed layout's pads are edge_upd == U, edge_dst == part_size) adds
+    nothing. Sums in float32 and returns ``bins``' dtype, as the kernel
+    does.
     """
     k, num_updates, d = bins.shape
     eu = edge_upd.reshape(k, -1)
     ed = edge_dst.reshape(k, -1)
+    ok = (eu >= 0) & (eu < num_updates) & (ed >= 0) & (ed < part_size)
+    eu = torch.where(ok, eu, num_updates)
+    ed = torch.where(ok, ed, part_size)
     bins_z = torch.cat([bins.float(), bins.new_zeros((k, 1, d),
                                                      dtype=torch.float32)],
                        dim=1)
@@ -28,6 +34,23 @@ def pcpm_gather_ref(bins: torch.Tensor, edge_upd: torch.Tensor,
     out.index_add_(0, rows_d, vals)
     out = out.view(k, part_size + 1, d)[:, :part_size, :]
     return out.to(bins.dtype).contiguous()
+
+
+def pcpm_spmv_ref(x: torch.Tensor, update_src: torch.Tensor,
+                  edge_upd: torch.Tensor, edge_dst: torch.Tensor, *,
+                  part_size: int) -> torch.Tensor:
+    """x: (n, d); update_src: (k, U); edge_upd/edge_dst: (k, n_eb, Eb) ->
+    (k, P, d): ``pcpm_gather_ref`` on the bins ``x[update_src]``, the
+    function of the "warp" path's fused form. An ``update_src`` entry
+    outside [0, n) makes the edges that read it pads, as in the kernel.
+    Sums in float32 and returns ``x``' dtype."""
+    k, num_updates = update_src.shape
+    src = update_src.reshape(-1)
+    ok = (src >= 0) & (src < x.shape[0])
+    rows = x.index_select(0, torch.where(ok, src, 0))
+    bins = torch.where(ok[:, None], rows, rows.new_zeros(())).view(
+        k, num_updates, x.shape[1])
+    return pcpm_gather_ref(bins, edge_upd, edge_dst, part_size=part_size)
 
 
 def tile_gather_ref(bins: torch.Tensor, schedule) -> torch.Tensor:

@@ -26,7 +26,8 @@ from repro_torch.graphs import generators
 from repro_torch.core.png import BlockedPNG
 from repro_torch.kernels.pcpm_spmv import (kernel, ops, pack_blocked,
                                            pcpm_gather_cuda, pcpm_gather_ref,
-                                           pcpm_spmv_pallas, tile_schedule)
+                                           pcpm_spmv_cuda, pcpm_spmv_pallas,
+                                           pcpm_spmv_ref, tile_schedule)
 from repro_torch.kernels import embedding_bag as b2
 from repro_torch.kernels import flash_attention as b3
 from repro_torch.models import recsys
@@ -217,6 +218,159 @@ def test_pcpm_pallas_solves_through_the_tile_path(cuda_device):
     assert kernel.launch_counts["warp"] == before["warp"]
     oracle = pagerank_reference(g, num_iterations=res.iterations)
     assert np.abs(res.ranks.cpu().numpy() - oracle).max() <= 1e-6
+
+
+# ----------------------------------------------- kernel B1, path "warp"
+def _warp_call(fn, *args, **kw):
+    """One call of a "warp" entry point: exactly one "warp" launch."""
+    before = dict(kernel.launch_counts)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["warp"] == before["warp"] + 1
+    assert kernel.launch_counts["tile"] == before["tile"]
+    return out
+
+
+def _warp_both_forms(x, packed, eu=None, ed=None):
+    """B1 "warp" from bins and in the fused form, each with its plain
+    version, on the same x (n, d)."""
+    eu = packed.edge_upd if eu is None else eu
+    ed = packed.edge_dst if ed is None else ed
+    k, u = packed.update_src.shape
+    bins = x[packed.update_src.view(-1)].view(k, u, x.shape[1])
+    p = packed.part_size
+    return {
+        "bins": (_warp_call(pcpm_gather_cuda, bins, eu, ed, part_size=p),
+                 pcpm_gather_ref(bins, eu, ed, part_size=p)),
+        "fused": (_warp_call(pcpm_spmv_cuda, x, packed.update_src, eu, ed,
+                             part_size=p),
+                  pcpm_spmv_ref(x, packed.update_src, eu, ed, part_size=p)),
+    }
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [None, 1, 3, 16, 17, 33])
+@pytest.mark.parametrize("scale,deg,part_size,d0", SHAPES)
+def test_b1_warp_both_forms_vs_plain(cuda_device, scale, deg, part_size, d0,
+                                     d, dtype):
+    """The TestPCPMKernel rmat layouts at their own d (None) and at other
+    widths, among them ones that are no multiple of a 16-byte slice:
+    float32 within 1e-5 (atomics add in a run-dependent order), bfloat16
+    within 5e-2 (one rounding of the output apart)."""
+    d = d0 if d is None else d
+    g = generators.rmat(scale, deg, seed=scale)
+    packed = pack_blocked(block_png(build_png(
+        g, Partitioning(g.num_nodes, part_size))), g.num_nodes,
+        edge_block=128, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(d).random(
+        (g.num_nodes, d)).astype(np.float32)).to(cuda_device,
+                                                 getattr(torch, dtype))
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for form, (out, ref) in _warp_both_forms(x, packed).items():
+        assert out.dtype == x.dtype and out.shape == ref.shape, form
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{form}: {m}")
+
+
+@pytest.mark.parametrize("order", ["shuffled", "reversed"])
+@pytest.mark.parametrize("d", [1, 16, 17])
+def test_b1_warp_unsorted_streams_exact(cuda_device, order, d):
+    """Each partition's slots shuffled or reversed (pads among the edges):
+    on rows that are multiples of 1/16 every summation order gives the
+    same bits, so both forms equal the plain version exactly."""
+    g = generators.rmat(9, 8, seed=3)
+    packed = pack_blocked(block_png(build_png(
+        g, Partitioning(g.num_nodes, 64))), g.num_nodes, edge_block=128,
+        device=cuda_device)
+    k = packed.num_partitions
+    eu = packed.edge_upd.reshape(k, -1).clone()
+    ed = packed.edge_dst.reshape(k, -1).clone()
+    gen = torch.Generator(device="cpu").manual_seed(d)
+    for p in range(k):
+        perm = (torch.randperm(eu.shape[1], generator=gen)
+                if order == "shuffled"
+                else torch.arange(eu.shape[1] - 1, -1, -1)).to(cuda_device)
+        eu[p], ed[p] = eu[p][perm], ed[p][perm]
+    eu, ed = eu.view_as(packed.edge_upd), ed.view_as(packed.edge_dst)
+    x = (torch.randint(0, 16, (g.num_nodes, d), generator=gen).float()
+         / 16).to(cuda_device)
+    for form, (out, ref) in _warp_both_forms(x, packed, eu, ed).items():
+        assert torch.equal(out, ref), form
+
+
+@pytest.mark.parametrize("d", [1, 16])
+def test_b1_warp_all_pad_partition(cuda_device, d):
+    g = generators.rmat(8, 6, seed=8)
+    packed = pack_blocked(block_png(build_png(
+        g, Partitioning(g.num_nodes, 64))), g.num_nodes, edge_block=128,
+        device=cuda_device)
+    eu, ed = packed.edge_upd.clone(), packed.edge_dst.clone()
+    eu[1] = packed.update_src.shape[1]
+    ed[1] = packed.part_size
+    x = torch.rand((g.num_nodes, d), device=cuda_device)
+    for form, (out, ref) in _warp_both_forms(x, packed, eu, ed).items():
+        assert torch.count_nonzero(out[1]) == 0, form
+        assert torch.count_nonzero(out) > 0, form
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 16])
+def test_b1_warp_fused_update_src_outside_x_makes_pads(cuda_device, d):
+    """An ``update_src`` entry outside [0, n) makes the edges that read it
+    pads on the card, as in the plain version (rows that are multiples of
+    1/16: exact)."""
+    g = generators.rmat(8, 6, seed=8)
+    packed = pack_blocked(block_png(build_png(
+        g, Partitioning(g.num_nodes, 64))), g.num_nodes, edge_block=128,
+        device=cuda_device)
+    bad = packed.update_src.clone()
+    bad[0, 0], bad[1, 1] = g.num_nodes, -1
+    x = (torch.randint(0, 16, (g.num_nodes, d), device=cuda_device).float()
+         / 16)
+    args = (x, bad, packed.edge_upd, packed.edge_dst)
+    out = _warp_call(pcpm_spmv_cuda, *args, part_size=packed.part_size)
+    assert torch.equal(out, pcpm_spmv_ref(*args, part_size=packed.part_size))
+
+
+def test_b1_warp_fused_rejects_what_it_cannot_take(cuda_device):
+    g = generators.rmat(8, 6, seed=8)
+    packed = pack_blocked(block_png(build_png(
+        g, Partitioning(g.num_nodes, 64))), g.num_nodes, edge_block=128,
+        device=cuda_device)
+    args = (packed.update_src, packed.edge_upd, packed.edge_dst)
+    x = torch.rand((16, g.num_nodes), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        pcpm_spmv_cuda(x.t(), *args, part_size=packed.part_size)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pcpm_spmv_cuda(x.t().contiguous().half(), *args,
+                       part_size=packed.part_size)
+    with pytest.raises(ValueError, match="device"):
+        pcpm_spmv_cuda(x.t().contiguous().cpu(), *args,
+                       part_size=packed.part_size)
+
+
+def test_b1_warp_spmv_allocates_no_bins(cuda_device):
+    """``pcpm_spmv_pallas`` at d = 16 through the fused form: the peak
+    memory of the call is its (k, P, 16) output and not the (k, U, 16)
+    bins, which at this layout are 7.6 times larger."""
+    g = generators.rmat(14, 16, seed=1)
+    blk = block_png(build_png(g, Partitioning(g.num_nodes, 512)))
+    packed = pack_blocked(blk, g.num_nodes, device=cuda_device)
+    k, u = packed.update_src.shape
+    x = torch.rand((g.num_nodes, 16), device=cuda_device)
+    bins_bytes = k * u * 16 * 4
+    out_bytes = k * packed.part_size * 16 * 4
+    assert bins_bytes > 7 * out_bytes
+    pcpm_spmv_pallas(packed, x)                    # builds, warms up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = _warp_call(pcpm_spmv_pallas, packed, x)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < out_bytes + bins_bytes // 4
+    want = pcpm_spmv_pallas(pack_blocked(blk, g.num_nodes, device="cpu"),
+                            x.cpu())
+    torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------- PageRank serving through B1

@@ -374,27 +374,46 @@ def test_packed_arguments_are_the_c_sides_in_its_order():
     k, u, d = bins.shape
     acc = torch.zeros((k, blk.part_size, 1))
     _, n_eb, eb = packed.edge_upd.shape
-    common = dict(bf16=0, bins=bins.data_ptr(),
+    common = dict(bf16=0, rows=bins.data_ptr(), update_src=0, n=0,
                   edge_upd=packed.edge_upd.data_ptr(),
                   edge_dst=packed.edge_dst.data_ptr(), acc=acc.data_ptr(),
-                  out=0, k=k, U=u, n_eb=n_eb, Eb=eb, P=blk.part_size, d=d)
+                  out=0, k=k, U=u, n_eb=n_eb, Eb=eb, P=blk.part_size, d=d,
+                  vec=0, lanes=0, range=0)
     got = kernel.ARGS.unpack(kernel.launch_args(
         "tile", bins, packed.edge_upd, packed.edge_dst, acc, None,
-        blk.part_size, s))
+        blk.part_size, num_updates=u, schedule=s))
     assert got == dict(common, path=1, tile_upd=s.edge_upd.data_ptr(),
                        tile_dst=s.edge_dst.data_ptr(),
                        chunks=s.chunks.data_ptr(),
                        block_chunks=s.block_chunks.data_ptr(),
                        hub_table=s.hubs.data_ptr(), tile=s.tile, blocks=5)
+    # "warp" from bins, as pcpm_gather_cuda launches it: bins as the
+    # (k·U, d) rows of x with the identity update_src; its geometry, no
+    # tile tables
+    geometry = kernel.WarpGeometry(vec=8, lanes=2, blocks=3, range=24)
     out = torch.empty((k, blk.part_size, 1), dtype=torch.bfloat16)
+    b16 = bins.bfloat16().view(k * u, d)
+    identity = torch.arange(k * u, dtype=torch.int32).view(k, u)
     got = kernel.ARGS.unpack(kernel.launch_args(
-        "warp", bins.bfloat16(), packed.edge_upd, packed.edge_dst, acc, out,
-        blk.part_size))
-    assert got["path"] == 0 and got["bf16"] == 1
-    assert got["out"] == out.data_ptr()
-    assert [got[f] for f in ("tile_upd", "tile_dst", "chunks",
-                             "block_chunks", "hub_table", "tile",
-                             "blocks")] == [0] * 7
+        "warp", b16, packed.edge_upd, packed.edge_dst, acc, out,
+        blk.part_size, num_updates=u, update_src=identity,
+        geometry=geometry))
+    tables = ("tile_upd", "tile_dst", "chunks", "block_chunks", "hub_table",
+              "tile")
+    assert got == dict(common, path=0, bf16=1, rows=b16.data_ptr(),
+                       update_src=identity.data_ptr(), n=k * u,
+                       out=out.data_ptr(), vec=8, lanes=2, range=24,
+                       blocks=3, **dict.fromkeys(tables, 0))
+    # the fused form: x (n, d) and update_src in place of bins
+    x = torch.zeros((packed.num_nodes, 16))
+    got = kernel.ARGS.unpack(kernel.launch_args(
+        "warp", x, packed.edge_upd, packed.edge_dst, acc, None,
+        blk.part_size, num_updates=u, update_src=packed.update_src,
+        geometry=geometry))
+    assert got == dict(common, path=0, rows=x.data_ptr(),
+                       update_src=packed.update_src.data_ptr(),
+                       n=packed.num_nodes, d=16, vec=8, lanes=2, range=24,
+                       blocks=3, **dict.fromkeys(tables, 0))
 
 
 # ------------------------------------------------------------ end to end
