@@ -50,7 +50,26 @@ Phases, each of which exits non-zero when it fails:
    times: queries/s over the drain, ms per chunk with 16 active slots,
    ms per ``PageRankServer.query``, and a profile of chunks with B1's
    device time;
-6. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
+6. streaming edge deltas on the same graph and pcpm_pallas session: a
+   cold prior at tol 1e-6; two localized deltas (D1: 32,768 insertions
+   and 32,768 removals in the two partitions whose edge counts are
+   nearest the median, D2: 8,192 + 8,192 in the third) through
+   ``Session.apply_delta``, which must patch the plan twice (no rebuild);
+   ``pagerank(warm=True)``: B1 "tile" once per push sweep and no "warp",
+   fewer sweeps than the prior, L1 to a float64 fixed point of the new
+   graph within 75.6·tol and the same top-10 ids; a cold solve on the
+   patched plan beside it; the patched plan against a fresh
+   ``build_png`` + ``block_png`` (every array) and its "tile" gather
+   order against a fresh one, B1 "tile" on it exact against its plain
+   version; ``SlotScheduler.apply_delta`` under 16 queries in phase 5's
+   mix (every query once, ``rebind_count`` 1, B1 "warp" once per chunk
+   iteration on the new plan, answers within tol·d/(1−d) of the new
+   graph's float64 fixed points, push answers of the old one's); four
+   more deltas with warm updates, the device memory ending no more than
+   one plan's uploads above its start. Times: the parts of
+   ``apply_delta``, ``seed_residual``, the push, the cold solve, the
+   fresh build and the scheduler's rebind;
+7. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
    against its plain version on the same inputs upcast to float32, on
    the card, each call through the path ``b3_path`` names ("tc" for
    bfloat16 with Sq > 1, "split" for Sq = 1, "simt" for float32): the
@@ -60,7 +79,7 @@ Phases, each of which exits non-zero when it fails:
    mixed per-slot lengths) and its prefill shape (4, 2048, causal);
    bfloat16 outputs within rtol 1.6e-2, atol 2e-3 (their rounding; inside
    TestFlashAttention's 5e-2);
-7. the LM serving path: TinyLlama-1.1B at its configured widths
+8. the LM serving path: TinyLlama-1.1B at its configured widths
    (``configs/tinyllama_1_1b.py``: 22 layers, d_model 2048, 32/4 heads,
    d_ff 5632, vocab 32000), random bfloat16 weights from a seeded
    generator; a ``ServeEngine`` with 8 slots and max_len 1024 drains 16
@@ -68,18 +87,18 @@ Phases, each of which exits non-zero when it fails:
    launched once per layer per decode step; then ``prefill`` at
    (4, 2048), and ``decode_step`` over 256 tokens against ``forward`` on
    the same tokens;
-8. times with CUDA events: ms per decode step and tokens/s, prefill ms,
+9. times with CUDA events: ms per decode step and tokens/s, prefill ms,
    B3 beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
    port never calls); the device idle share and top kernels of profiled
    decode steps and prefills, with B3's share of each;
-9. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
+10. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
    against its plain version on the card: the shapes of the JAX
    package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
    in float32 and with a bfloat16 table, pad ids and a negative id (row
    0); then MIND's lookups (one-id bags) on its 10M-row table at the
-   shapes of phase 10, which must give the plain version's rows exactly;
-10. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
+   shapes of phase 11, which must give the plain version's rows exactly;
+11. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
    embed_dim 64, 4 interests, 3 routing iterations, hist_len 50),
    float32 parameters from a seeded generator; ``serve_step`` at
    serve_p99 (B 512) and serve_bulk (B 262,144), ``retrieval_step`` for
@@ -920,6 +939,465 @@ def serving_phase(dev, card, reuse, warp_timed) -> dict:
 
 
 # --------------------------------------------------------------- phase 6
+STREAM_TOL = 1e-6
+STREAM_ITERATIONS = 200
+D1_EDGES, DELTA_EDGES, STREAM_DELTAS = 32768, 8192, 4
+
+
+def warm_bound(tol: float, damping: float) -> float:
+    """L1 bound of a warm update against the new graph's fixed point: the
+    push's own stop, tol·d/(1−d), plus (1+d)/(1−d) times the prior's
+    tol·d/(1−d) error, which the warm seed carries (75.6·tol at 0.85)."""
+    stop = tol * damping / (1.0 - damping)
+    return stop + (1.0 + damping) / (1.0 - damping) * stop
+
+
+def card_transpose64(g, dev):
+    """A^T in float64 as a torch.sparse CSR on the card, built from the
+    graph's edge list alone (repeated edges sum), and 1/out-degree: the
+    yardsticks of phase 6, which nothing on the served path calls."""
+    import torch
+    n = g.num_nodes
+    idx = torch.stack([torch.from_numpy(g.dst).to(dev).long(),
+                       torch.from_numpy(g.src).to(dev).long()])
+    ones = torch.ones(g.num_edges, dtype=torch.float64, device=dev)
+    at64 = torch.sparse_coo_tensor(idx, ones, (n, n)).coalesce()
+    del idx, ones
+    at64 = at64.to_sparse_csr()
+    deg = np.asarray(g.out_degree)
+    inv64 = torch.from_numpy(np.where(deg == 0, 0.0, 1.0 / np.maximum(
+        deg, 1))).to(dev)
+    return at64, inv64
+
+
+def uniform_fixed_point(at64, inv64, damping) -> np.ndarray:
+    """The float64 global fixed point: ``personalized_oracle`` with every
+    node a seed (uniform teleport), FIXED_POINT_ITERATIONS steps."""
+    n = at64.shape[0]
+    return personalized_oracle(at64, inv64, [np.arange(n)],
+                               [FIXED_POINT_ITERATIONS],
+                               damping)[:, 0].cpu().numpy()
+
+
+def local_delta(rng, g, parts, count, part_size):
+    """``count`` insertions (sources uniform in [0, n), destinations
+    uniform in ``parts``) and ``count`` removals of distinct existing
+    edges whose destinations lie in ``parts``: a recrawl of a few sites
+    whose ids are contiguous."""
+    from repro_torch.stream import GraphDelta
+    n = g.num_nodes
+    dst = (rng.choice(parts, count) * part_size
+           + rng.integers(0, part_size, count))
+    add = np.stack([rng.integers(0, n, count), np.minimum(dst, n - 1)],
+                   axis=1).astype(np.int32)
+    pool = np.flatnonzero(np.isin(g.dst // part_size, parts))
+    ridx = rng.choice(pool, size=count, replace=False)
+    return GraphDelta.of(add=add, remove=np.stack([g.src[ridx],
+                                                   g.dst[ridx]], axis=1))
+
+
+class StageTimer:
+    """Seconds spent in named module functions while installed: each
+    ``(module, name)`` is wrapped (the card synchronized around each
+    call) and restored on exit. The push loop's sweeps are timed with
+    CUDA events instead (``push_ms``, ``push_sweeps``)."""
+
+    def __init__(self, *targets):
+        self.targets, self.seconds, self.saved = targets, {}, []
+        self.push_ms, self.push_sweeps = 0.0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.stream import incremental
+        for mod, name in self.targets:
+            real = getattr(mod, name)
+
+            def timed(*a, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_name] = (self.seconds.get(_name, 0.0)
+                                       + time.perf_counter() - t0)
+                return out
+
+            self.saved.append((mod, name, real))
+            setattr(mod, name, timed)
+        real_loop = incremental.residual_push_loop
+
+        def push_loop(*a, **kw):
+            run = real_loop(*a, **kw)
+
+            def timed_run(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = run(*args)
+                end.record()
+                torch.cuda.synchronize()
+                self.push_ms += start.elapsed_time(end)
+                self.push_sweeps += int(out[1])
+                return out
+
+            return timed_run
+
+        self.saved.append((incremental, "residual_push_loop", real_loop))
+        incremental.residual_push_loop = push_loop
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self.saved):
+            setattr(mod, name, real)
+        self.saved.clear()
+
+    def get(self, name) -> float:
+        return self.seconds.get(name, 0.0)
+
+
+def plan_device_tensors(plan, dev) -> list:
+    """A pcpm_pallas plan's uploads: the packed streams and the "tile"
+    gather order."""
+    packed = plan._device[("packed", str(dev))]
+    schedule = plan._device[("tile_schedule", str(dev))]
+    return [packed.update_src, packed.update_valid, packed.edge_upd,
+            packed.edge_dst, schedule.edge_upd, schedule.edge_dst,
+            schedule.chunks, schedule.block_chunks, schedule.hubs]
+
+
+def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
+    """Phase 6: streaming edge deltas on phase 3's kron graph and
+    pcpm_pallas session: two localized deltas patched into the plan, a
+    warm update (B1 "tile" once per push sweep) against a float64 fixed
+    point, the patched plan against a fresh build, a scheduler rebind
+    under in-flight queries (B1 "warp" on the new plan), and the device
+    memory across a stream of four more deltas. Adds the launch counts
+    and times to B1's two entries of the kernels line."""
+    import torch
+    import repro_torch.kernels.pcpm_spmv as b1_pkg
+    from repro_torch.core import Partitioning, block_png, build_png
+    from repro_torch.core.pagerank import pagerank
+    from repro_torch.core.plan import evict_plans, plan_cache_stats
+    from repro_torch.kernels.pcpm_spmv import kernel as b1, tile_schedule
+    from repro_torch.serve import scheduler as sched_mod
+    from repro_torch.stream import delta as delta_mod
+    from repro_torch.stream import incremental
+    from repro_torch.stream import patch as patch_mod
+    g0, sess = reuse["g"], reuse["sess"]
+    n, damping, psz = g0.num_nodes, kron().damping, kron().part_size
+    tol, budget = STREAM_TOL, STREAM_ITERATIONS
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        b1.launch_count = 0
+        b1.launch_counts = dict.fromkeys(b1.PATHS, 0)
+
+    # ------------------------------------------------- 1. the cold prior
+    t0 = time.perf_counter()
+    prior = sess.pagerank(num_iterations=budget, tol=tol)
+    torch.cuda.synchronize()
+    log(f"streaming prior: cold pcpm_pallas solve at tol {tol}: "
+        f"{prior.iterations} iterations, last residual "
+        f"{prior.residuals[-1]!r}, {time.perf_counter() - t0:.2f} s "
+        f"({card})")
+    if not prior.residuals[-1] <= tol:
+        fail("streaming prior: the cold solve did not reach its tol")
+
+    # ------------------------------------------------- 2. the deltas
+    counts = np.diff(sess.plan.png.edge_offsets)
+    near = np.argsort(np.abs(counts - np.median(counts)), kind="stable")[:3]
+    pa, pb, pc = (int(p) for p in near)
+    log(f"streaming: edges per partition {counts.tolist()}; partitions "
+        f"nearest the median: P_a {pa}, P_b {pb}, P_c {pc}")
+    rng = np.random.default_rng(5)
+    d1 = local_delta(rng, g0, [pa, pb], D1_EDGES, psz)
+
+    # ------------------------------------------------- 3. patch, warm
+    stats = plan_cache_stats()
+    patches0, builds0 = stats.plan_patches, stats.plan_builds
+    stages = ((delta_mod, "apply_delta"), (patch_mod, "patch_png"),
+              (patch_mod, "block_png"), (b1_pkg, "pack_blocked"),
+              (b1_pkg, "tile_schedule"), (incremental, "seed_residual"))
+    with StageTimer(*stages) as timer:
+        t0 = time.perf_counter()
+        sess.apply_delta(d1)
+        t_d1 = time.perf_counter() - t0
+        d2 = local_delta(rng, sess.graph, [pc], DELTA_EDGES, psz)
+        t0 = time.perf_counter()
+        sess.apply_delta(d2)
+        t_d2 = time.perf_counter() - t0
+        patched, g2 = sess.plan, sess.graph
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        warm = sess.pagerank(warm=True, tol=tol, num_iterations=budget)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        warm_counts = dict(b1.launch_counts)
+    push_ms = timer.push_ms
+    patches = stats.plan_patches - patches0
+    log(f"streaming deltas: D1 {d1.num_added} + {d1.num_removed} in "
+        f"partitions {pa}, {pb}; D2 {d2.num_added} + {d2.num_removed} in "
+        f"{pc}: m {g0.num_edges} -> {g2.num_edges}; plan patches {patches} "
+        f"(plan builds {stats.plan_builds - builds0})")
+    if patches != 2 or stats.plan_builds != builds0:
+        fail("streaming: the two deltas were not both patched by the splice")
+    sec = timer.get
+    log(f"time Session.apply_delta: D1 {t_d1!r} s, D2 {t_d2!r} s; of the "
+        f"two: the edge list's update (apply_delta: multiset removal and "
+        f"the fingerprint shift) {sec('apply_delta')!r} s, the splice "
+        f"(patch_png) {sec('patch_png')!r} s, block_png "
+        f"{sec('block_png')!r} s ({card})")
+    log(f"time warm update (pagerank(warm=True)): {t_warm!r} s: "
+        f"pack_blocked with its upload {sec('pack_blocked')!r} s, "
+        f"tile_schedule {sec('tile_schedule')!r} s (the patched plan's "
+        f"first use), seed_residual with g_old.csr {sec('seed_residual')!r}"
+        f" s, the push {timer.push_sweeps} sweeps in {timer.push_ms!r} ms "
+        f"({timer.push_ms / max(timer.push_sweeps, 1)!r} ms/sweep) ({card})")
+
+    at2, inv2 = card_transpose64(g2, dev)
+    fixed2 = uniform_fixed_point(at2, inv2, damping)
+    top10 = np.lexsort((np.arange(n), -fixed2))[:10]
+    bound = warm_bound(tol, damping)
+    warm_l1 = float(np.abs(warm.ranks.cpu().numpy().astype(np.float64)
+                           - fixed2).sum())
+    ids10, _ = sess.top_ranked(10)
+    log(f"warm update: {warm.iterations} sweeps (cold prior "
+        f"{prior.iterations} iterations), last residual "
+        f"{warm.residuals[-1]!r}; L1 vs the float64 fixed point of g2 "
+        f"{warm_l1!r} (<= {bound!r} = 75.6 tol); top-10 ids equal: "
+        f"{np.array_equal(ids10, top10)}; B1 launches by path {warm_counts}")
+    if not 0 < warm.iterations < prior.iterations:
+        fail("warm update: not fewer sweeps than the cold prior")
+    if warm_l1 > bound or not np.array_equal(ids10, top10):
+        fail("warm update disagrees with the float64 fixed point")
+    warm_sweeps = warm.iterations
+    if warm_counts != {"tile": warm_sweeps, "warp": 0}:
+        fail("warm update: B1 'tile' not launched once per sweep, or "
+             "'warp' launched")
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    cold = pagerank(g2, engine=sess.engine, num_iterations=budget, tol=tol)
+    end.record()
+    torch.cuda.synchronize()
+    cold_ms, cold_counts = start.elapsed_time(end), dict(b1.launch_counts)
+    cold_l1 = float(np.abs(cold.ranks.cpu().numpy().astype(np.float64)
+                           - fixed2).sum())
+    log(f"cold solve on the patched plan at tol {tol}: {cold.iterations} "
+        f"iterations, {cold_ms!r} ms, L1 vs the fixed point {cold_l1!r} "
+        f"(warm {warm_l1!r}); B1 launches by path {cold_counts} ({card})")
+    if cold_counts["tile"] != cold.iterations:
+        fail("cold solve on the patched plan: B1 'tile' launches differ "
+             "from its iterations")
+
+    # ------------------------------------------------- 4. the plan itself
+    t0 = time.perf_counter()
+    png = build_png(g2, Partitioning(n, psz))
+    fresh = block_png(png)
+    t_fresh = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(patched.png, f), getattr(png, f))
+               for f in ("update_src", "update_offsets", "edge_update_idx",
+                         "edge_dst", "edge_offsets"))
+    same &= all(np.array_equal(getattr(patched.blocked, f),
+                               getattr(fresh, f))
+                for f in ("update_src", "edge_update_local",
+                          "edge_dst_local"))
+    sched = patched._device[("tile_schedule", str(dev))]
+    fresh_sched = tile_schedule(fresh, device=dev)
+    same_order = (sched.tile, sched.blocks) == (fresh_sched.tile,
+                                                fresh_sched.blocks) and all(
+        torch.equal(getattr(sched, f), getattr(fresh_sched, f))
+        for f in ("edge_upd", "edge_dst", "chunks", "block_chunks", "hubs"))
+    del fresh_sched, png, fresh
+    log(f"patched plan vs a fresh build_png + block_png of g2 "
+        f"({t_fresh!r} s on the host, the cost a patch replaces; {card}): "
+        f"arrays equal {same}, 'tile' gather order equal {same_order}")
+    if not (same and same_order):
+        fail("the patched plan is not the fresh build")
+    packed = patched._device[("packed", str(dev))]
+    k, u = packed.update_src.shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randint(0, 16, (n, 1), generator=gen, device=dev).float() / 16
+    bins = x[packed.update_src.view(-1)].view(k, u, 1)
+    patched_err = check_b1(bins, packed.edge_upd, packed.edge_dst, psz,
+                           "patched plan d=1", schedule=sched, exact=True)
+    del bins, x, packed, sched
+
+    # ------------------------------------------------- 5. serving, delta
+    sch = sess.serve(slots=SERVE_SLOTS, chunk=SERVE_CHUNK)
+    work = []
+    for i in range(SERVE_SLOTS):
+        kind = i % 4
+        if kind == 0:                          # uniform
+            work.append((kind, None, dict(tol=tol, max_iters=budget)))
+        elif kind == 1:                        # one seed, top-k: push
+            work.append((kind, [int(rng.integers(0, n))],
+                         dict(top_k=10, tol=PUSH_TOL)))
+        elif kind == 2:                        # four seeds
+            work.append((kind, rng.integers(0, n, size=4).tolist(),
+                         dict(tol=tol, max_iters=budget)))
+        else:                                  # uniform top-k
+            work.append((kind, None, dict(top_k=10, tol=tol,
+                                          max_iters=budget)))
+
+    def seed_vector(ids):
+        s = np.zeros(n, np.float32)
+        s[ids] = 1.0
+        return s
+
+    uids = [sch.submit(None if ids is None else seed_vector(ids), **kw)
+            for _, ids, kw in work]
+    sch.step()
+    inflight, queued = sch.active_slots, sch.queued
+    d3 = local_delta(rng, g2, [pa], DELTA_EDGES, psz)
+    t0 = time.perf_counter()
+    sch.apply_delta(d3)
+    torch.cuda.synchronize()
+    t_rebind = time.perf_counter() - t0
+    g3 = sch.g
+    chunk_iters = []
+    read_chunk = sched_mod._read_chunk
+
+    def counted_read(*args):
+        out = read_chunk(*args)
+        chunk_iters.append(int(out[1].max()))
+        return out
+
+    sched_mod._read_chunk = counted_read
+    reset_counts()
+    try:
+        sch.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        sched_mod._read_chunk = read_chunk
+    rebind_counts = dict(b1.launch_counts)
+    done = {r.uid: r for r in sch.completed}
+    if (sorted(done) != sorted(uids) or len(sch.completed) != len(uids)
+            or any(r.error for r in sch.completed)):
+        fail("serving across a delta: not every query ended exactly once")
+    sch.metrics.reconcile()
+    log(f"time SlotScheduler.apply_delta (D3 {d3.num_added} + "
+        f"{d3.num_removed} in partition {pa}, {inflight} queries in "
+        f"flight, {queued} queued): {t_rebind!r} s ({card}); rebind_count "
+        f"{sch.rebind_count}; B1 launches by path after it {rebind_counts} "
+        f"(chunk iterations {sum(chunk_iters)})")
+    if sch.rebind_count != 1:
+        fail("serving across a delta: rebind_count is not 1")
+    if rebind_counts != {"warp": sum(chunk_iters), "tile": 0} or \
+            not chunk_iters:
+        fail("serving across a delta: B1 'warp' not once per chunk "
+             "iteration on the new plan")
+    at3, inv3 = card_transpose64(g3, dev)
+    fixed3 = uniform_fixed_point(at3, inv3, damping)
+    top3 = np.lexsort((np.arange(n), -fixed3))[:10]
+    stop = tol * damping / (1.0 - damping)
+    push_stop = PUSH_TOL * damping / (1.0 - damping)
+    worst = dict.fromkeys(range(4), 0.0)
+    for (kind, ids, _), u in zip(work, uids):
+        r = done[u]
+        if kind == 0:
+            worst[0] = max(worst[0], float(np.abs(
+                r.ranks.astype(np.float64) - fixed3).sum()))
+        elif kind == 3:
+            worst[3] = max(worst[3], float(np.abs(
+                r.top_scores - fixed3[r.top_ids]).sum()))
+            if not np.array_equal(r.top_ids, top3):
+                fail(f"serving across a delta uid {u}: top-10 ids differ "
+                     "from the float64 fixed point's")
+        if kind in (0, 2, 3) and not r.converged:
+            fail(f"serving across a delta uid {u}: not converged")
+    seeded = [(u, ids) for (kind, ids, _), u in zip(work, uids) if kind == 2]
+    want = personalized_oracle(at3, inv3, [ids for _, ids in seeded],
+                               [FIXED_POINT_ITERATIONS] * len(seeded),
+                               damping).cpu().numpy()
+    for j, (u, _) in enumerate(seeded):
+        worst[2] = max(worst[2], float(np.abs(
+            done[u].ranks.astype(np.float64) - want[:, j]).sum()))
+    del at3, inv3, want
+    pushed = [(u, ids) for (kind, ids, _), u in zip(work, uids) if kind == 1]
+    routes = [sch.metrics.traces[u].route for u, _ in pushed]
+    want = personalized_oracle(at2, inv2, [ids for _, ids in pushed],
+                               [FIXED_POINT_ITERATIONS] * len(pushed),
+                               damping).cpu().numpy()
+    for j, (u, _) in enumerate(pushed):
+        r = done[u]
+        worst[1] = max(worst[1], float(np.abs(
+            r.top_scores - want[r.top_ids, j]).sum()))
+    del at2, inv2, want
+    log(f"serving across a delta vs float64 fixed points of g3: uniform L1 "
+        f"{worst[0]!r}, uniform top-10 scores L1 {worst[3]!r}, seeded "
+        f"{worst[2]!r} (<= tol*d/(1-d) = {stop!r}); push (answered at "
+        f"submit, before D3; routes {routes}) top-10 scores L1 vs g2's "
+        f"{worst[1]!r} (<= {push_stop!r})")
+    if max(worst[0], worst[2], worst[3]) > stop or worst[1] > push_stop \
+            or routes != ["push"] * len(pushed):
+        fail("serving across a delta disagrees with the float64 fixed "
+             "points")
+    # what the stream is measured against: the session's state alone (its
+    # graph, plan and ranks; the dropped scheduler's last plan keeps its
+    # uploads in the plan cache and counts as part of the start)
+    sweeps0 = prior.iterations
+    del sch, patched, g2, g3, warm, cold, prior
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 6. memory, stream
+    mem0 = torch.cuda.memory_allocated()
+    parts = [pa, pb, pc, pa]
+    stream = []
+    first_stages = dict(timer.seconds)
+    with StageTimer(*stages) as timer:
+        for i in range(STREAM_DELTAS):
+            d = local_delta(rng, sess.graph, [parts[i]], DELTA_EDGES, psz)
+            t0 = time.perf_counter()
+            sess.apply_delta(d)
+            res = sess.pagerank(warm=True, tol=tol, num_iterations=budget)
+            torch.cuda.synchronize()
+            stream.append((time.perf_counter() - t0, res.iterations,
+                           torch.cuda.memory_allocated()))
+            log(f"session delta {i + 3} (partition {parts[i]}): apply_delta "
+                f"+ warm update {stream[-1][0]:.2f} s, {res.iterations} "
+                f"sweeps, last residual {res.residuals[-1]!r}; "
+                f"torch.cuda.memory_allocated() {stream[-1][2]} "
+                f"(start {mem0}) ({card})")
+            if not 0 < res.iterations < sweeps0:
+                fail(f"session delta {i + 3}: not a warm update")
+    uploads = plan_device_tensors(sess.plan, dev)
+    one_plan = sum(t.numel() * t.element_size() for t in uploads)
+    # torch's caching allocator keeps a block whole when less than 1 MiB
+    # of it would be left over, and counts the whole block as allocated:
+    # each of the plan's tensors, and the session's new rank and degree
+    # vectors, may count up to 1 MiB more than its bytes
+    slack = (len(uploads) + 2) << 20
+    log(f"stream of {STREAM_DELTAS} deltas after the scheduler's: device "
+        f"memory {mem0} -> {stream[-1][2]} B (+{stream[-1][2] - mem0}; one "
+        f"plan's uploads {one_plan} B in {len(uploads)} tensors, the "
+        f"allocator's block slack <= {slack} B); stage seconds over the "
+        f"stream { {k: round(v, 3) for k, v in timer.seconds.items()} }, "
+        f"push {timer.push_ms!r} ms for {timer.push_sweeps} sweeps "
+        f"({card})")
+    if stream[-1][2] - mem0 > one_plan + slack:
+        fail("streaming: device memory grew by more than one plan's "
+             "uploads across the stream")
+    # the version chain's cached plans (host arrays, and the first graph's
+    # plans of the four engines with their uploads) go with the phase
+    evict_plans(g0)
+    torch.cuda.synchronize()
+    log(f"phase 6 (streaming): {time.perf_counter() - t_phase:.1f} s")
+    tile_entry["streaming"] = {
+        "warm_launches": warm_counts, "warm_sweeps": warm_sweeps,
+        "cold_launches_on_patched": cold_counts,
+        "patched_max_abs_err": patched_err,
+        "stream_sweeps": [s[1] for s in stream],
+        "apply_delta_s": [t_d1, t_d2], "warm_update_s": t_warm,
+        "stages_s": first_stages, "stream_stages_s": timer.seconds,
+        "push_ms": push_ms, "cold_ms": cold_ms,
+        "fresh_build_s": t_fresh}
+    warp_entry["streaming"] = {"rebind_launches": rebind_counts,
+                               "rebind_s": t_rebind}
+
+
+# --------------------------------------------------------------- phase 7
 def b3_inputs(dev, gen, b, hq, hkv, sq, skv, d, dtype):
     """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), standard normal."""
     import torch
@@ -1001,7 +1479,7 @@ def check_b3_shapes(dev) -> dict:
     return cases
 
 
-# --------------------------------------------------------------- phase 7
+# --------------------------------------------------------------- phase 8
 def sdpa_call(q, k, v, *, causal, kv_len=None):
     """``scaled_dot_product_attention`` on the same inputs, the
     yardstick: heads-major views of the (B, S, H, D) tensors, GQA by
@@ -1234,7 +1712,7 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
             b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
 
 
-# --------------------------------------------------------------- phase 9
+# --------------------------------------------------------------- phase 10
 def check_b2(table, idx, w, label, tol) -> float:
     """Launch B2 once, hold it against the plain version; max abs err."""
     import torch
@@ -1285,7 +1763,7 @@ def check_b2_shapes(dev) -> None:
         fail("B2 negative id: not row 0 (the reference's clip)")
 
 
-# --------------------------------------------------------------- phase 10
+# --------------------------------------------------------------- phase 11
 def zipf_ids(rng, shape, vocab) -> np.ndarray:
     """int32 item ids in [0, vocab) whose popularity follows Zipf(ZIPF_A)."""
     ranks = rng.zipf(ZIPF_A, size=shape).astype(np.uint64)
@@ -1555,19 +2033,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     # ---------------------------------------------------- 5. PageRank serving
     kernels = [tile_entry, serving_phase(dev, card, reuse, warp_timed)]
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 6. streaming
+    streaming_phase(dev, card, reuse, *kernels)
     del reuse
     torch.cuda.empty_cache()
-    # ---------------------------------------------------- 6. B3 checks
+    # ---------------------------------------------------- 7. B3 checks
     b3_cases = check_b3_shapes(dev)
-    # ---------------------------------------------------- 7-8. LM serving
+    # ---------------------------------------------------- 8-9. LM serving
     kernels += lm_phases(dev, card, b3_cases)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # ---------------------------------------------------- 9. B2 checks
+    # ---------------------------------------------------- 10. B2 checks
     check_b2_shapes(dev)
-    # ---------------------------------------------------- 9-10. MIND serving
+    # ---------------------------------------------------- 10-11. MIND serving
     kernels += mind_phases(dev, card)
-    log(f"phases 9-10 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
+    log(f"phases 10-11 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

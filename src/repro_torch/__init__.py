@@ -9,7 +9,9 @@ one; pass ``device="cpu"`` to run on the CPU. The plan/run split lives
 in ``repro_torch.core.plan`` (one immutable ``GraphPlan`` per (graph,
 config), process-cached) and ``repro_torch.core.backends`` (the engine
 registry). The PCPM gather phase of the ``pcpm_pallas`` engine is a
-CUDA kernel (``repro_torch/csrc/pcpm_gather.cu``).
+CUDA kernel (``repro_torch/csrc/pcpm_gather.cu``). Streaming edge deltas
+(``GraphDelta``, ``Session.apply_delta``, ``pagerank(warm=True)``) live
+in ``repro_torch.stream``.
 
 LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
 (``transformer``: ``init_lm``, ``forward``, ``prefill``,
@@ -27,11 +29,14 @@ from .core.plan import (GraphPlan, PlanConfig, build_plan,
                         clear_plan_cache, install_plan, plan_cache_stats,
                         plan_from_arrays)
 from .device import resolve_device
+from .reliability import ResilienceConfig, check_plan_integrity
+from .stream import DynamicGraph, GraphDelta
 
 __all__ = [
     "EngineConfig", "Session", "open",
     "Backend", "available_backends", "get_backend", "register_backend",
     "GraphPlan", "PlanConfig", "build_plan", "clear_plan_cache",
     "install_plan", "plan_cache_stats", "plan_from_arrays",
-    "resolve_device",
+    "resolve_device", "ResilienceConfig", "check_plan_integrity",
+    "DynamicGraph", "GraphDelta",
 ]

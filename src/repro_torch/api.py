@@ -11,13 +11,15 @@ workload from it, on one device:
     ids, scores = sess.top_ranked(10)
     sch  = sess.serve()                     # continuous-batching pool
     srv  = sess.server(batch=8)             # lockstep batch server
+    sess.apply_delta(GraphDelta.insert(e))  # patch the plan (stream/)
+    res  = sess.pagerank(warm=True)         # residual push from the old ranks
     sess.plan.save("web.plan.npz")          # persist the preprocessing
 
 ``device`` defaults to ``"cuda"`` and raises on a machine without CUDA;
 ``device="cpu"`` runs on the CPU when asked for.
 
-Deltas, warm starts, checkpoints, the gateway, observability and the
-sharded path are later slices of the port: those methods and knobs raise
+Checkpoints, the gateway, observability and the sharded path are later
+slices of the port: those methods and knobs raise
 ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
@@ -134,7 +136,14 @@ class Session:
         # out-of-range ids / bad dtypes)
         self.plan: GraphPlan = build_plan(g, cfg.plan_config())
         self.engine = SpMVEngine(g, plan=self.plan, device=self.device)
+        # warm-start state (DESIGN.md §9): the graph and ranks of the
+        # last solve, its (damping, dangling), the L1 step-residual it
+        # achieved, and the concatenated deltas applied since
+        self._solved_graph = None
         self._solved_ranks = None
+        self._solved_key = None
+        self._solved_res = np.inf
+        self._delta_acc = None
 
     def stats(self) -> dict:
         """Process-level plan-cache counters and the session's shape."""
@@ -142,6 +151,34 @@ class Session:
         return {"plan_cache": dataclasses.asdict(plan_cache_stats()),
                 "method": self.config.method, "device": str(self.device),
                 "n": self.plan.num_nodes, "m": self.plan.num_edges}
+
+    # ---------------------------------------------------------- deltas
+    def apply_delta(self, delta) -> "Session":
+        """Advance the session's graph by one edge-delta batch: the plan
+        is patched incrementally (dirty partitions only, a full rebuild
+        past the dirtiness threshold — stream/patch.py) and the engine
+        rebound to it. Accumulates warm-start state so a following
+        ``pagerank(warm=True)`` costs a residual push, not a full power
+        iteration. The plan left behind stays in the plan cache for its
+        host arrays, but its device uploads are released
+        (``core.plan.release_device``); serving handles created before
+        the delta keep running on the old plan with the uploads they
+        already hold — call their ``apply_delta`` or construct new ones
+        for the updated graph."""
+        from .core.plan import release_device
+        from .stream.delta import apply_delta as apply_edges
+        from .stream.patch import patch_plan
+        g_new = apply_edges(self.graph, delta)
+        old_plan = self.plan
+        self.plan = patch_plan(old_plan, delta, g_new)
+        self.graph = g_new
+        self.engine = SpMVEngine(g_new, plan=self.plan, device=self.device)
+        if self.plan is not old_plan:
+            release_device(old_plan)
+        if self._solved_graph is not None:
+            self._delta_acc = (delta if self._delta_acc is None
+                               else self._delta_acc + delta)
+        return self
 
     # ------------------------------------------------------------- run
     def spmv(self, x) -> torch.Tensor:
@@ -152,16 +189,47 @@ class Session:
                  **overrides) -> PageRankResult:
         """Run the fused power iteration with the session defaults;
         keyword overrides (num_iterations/tol/damping/check_every/
-        dangling/driver) apply per call."""
-        if warm:
-            _later("pagerank(warm=True)", "streaming")
+        dangling/driver) apply per call.
+
+        ``warm=True`` after ``apply_delta`` patches the PREVIOUS result
+        through the residual push (seeded only at the changed edges'
+        endpoints) instead of iterating from scratch. The sparse seed is
+        only exact when the stored ranks are a converged fixed point of
+        the old graph, so the warm path runs iff the previous solve
+        achieved an L1 step-residual <= this call's ``tol`` (and
+        damping/dangling match); otherwise it is an honest cold run.
+        ``tol`` and ``num_iterations`` mean what they mean cold: the
+        same stopping rule, ``num_iterations`` bounds the push sweeps.
+        Either way the result is stored as the next warm-start point."""
         cfg = self.config
         kw = dict(num_iterations=cfg.num_iterations, damping=cfg.damping,
                   tol=cfg.tol, check_every=cfg.check_every,
                   dangling=cfg.dangling)
         kw.update(overrides)
-        res = pagerank(self.graph, engine=self.engine, **kw)
+        key = (kw["damping"], kw["dangling"])
+        tol, budget = kw["tol"], kw["num_iterations"]
+        # reordered plans warm-start too: update_ranks maps the stored
+        # original-space ranks into the plan's internal space and the
+        # result back
+        warm_hit = (warm and self._solved_ranks is not None
+                    and self._solved_key == key
+                    and 0.0 < tol and self._solved_res <= tol)
+        if warm_hit:
+            from .stream.delta import GraphDelta
+            from .stream.incremental import update_ranks
+            res = update_ranks(
+                self.plan, self._delta_acc or GraphDelta.of(),
+                self._solved_ranks, g_old=self._solved_graph,
+                g_new=self.graph, damping=kw["damping"],
+                dangling=kw["dangling"], tol=tol, max_push=budget,
+                device=self.device)
+        else:
+            res = pagerank(self.graph, engine=self.engine, **kw)
+        self._solved_graph = self.graph
         self._solved_ranks = res.ranks
+        self._solved_key = key
+        self._solved_res = float((res.residuals or [np.inf])[-1])
+        self._delta_acc = None
         return res
 
     def top_ranked(self, k: int = 10):
@@ -176,9 +244,6 @@ class Session:
         return ids.astype(np.int64), ranks[ids]
 
     # ---------------------------------------------- later slices
-    def apply_delta(self, delta):
-        _later("Session.apply_delta", "streaming")
-
     def save_checkpoint(self, path):
         _later("Session.save_checkpoint", "reliability")
 

@@ -57,13 +57,19 @@ class Backend:
     supports_push_query: bool = False
     phase_fns: Optional[Callable[[GraphPlan, torch.device],
                                  tuple[Callable, Callable]]] = None
-    # incremental plan patching; filled in by the streaming slice —
-    # until then every backend rebuilds on a delta
+    # incremental plan patching (stream/patch.py): rebuild only the
+    # partitions an edge delta touched and splice them into the old
+    # plan. ``(plan, g_new, delta) -> GraphPlan`` — backends without it
+    # fall back to a full rebuild on every delta.
     patch_plan: Optional[Callable] = None
 
     @property
     def supports_two_phase(self) -> bool:
         return self.phase_fns is not None
+
+    @property
+    def supports_incremental(self) -> bool:
+        return self.patch_plan is not None
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -314,14 +320,42 @@ def _spmv_pcpm_pallas(plan: GraphPlan, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# Incremental patchers (stream/patch.py) — imported lazily: the stream
+# package imports this registry, so the hook bodies must not import it
+# at module load. A patched plan is a new GraphPlan: its device uploads
+# are made on first use, as for a fresh one.
+# ---------------------------------------------------------------------------
+def _patch_pdpr(plan, g_new, delta):
+    from ..stream.patch import patch_pdpr_plan
+    return patch_pdpr_plan(plan, g_new, delta)
+
+
+def _patch_bvgas(plan, g_new, delta):
+    from ..stream.patch import patch_bvgas_plan
+    return patch_bvgas_plan(plan, g_new, delta)
+
+
+def _patch_pcpm(plan, g_new, delta):
+    from ..stream.patch import patch_pcpm_plan
+    return patch_pcpm_plan(plan, g_new, delta)
+
+
+def _patch_pcpm_pallas(plan, g_new, delta):
+    from ..stream.patch import patch_pcpm_pallas_plan
+    return patch_pcpm_pallas_plan(plan, g_new, delta)
+
+
+# ---------------------------------------------------------------------------
 for _backend in (
     Backend("pdpr", _build_pdpr, _blocked_gather, uses_gather_block=True,
-            supports_push_query=True),
+            patch_plan=_patch_pdpr, supports_push_query=True),
     Backend("bvgas", _build_bvgas, _spmv_bvgas, uses_gather_block=True,
-            phase_fns=_phases_bvgas, supports_push_query=True),
-    Backend("pcpm", _build_pcpm, _spmv_pcpm, uses_gather_block=True,
-            phase_fns=_phases_pcpm, supports_push_query=True),
-    Backend("pcpm_pallas", _build_pcpm_pallas, _spmv_pcpm_pallas,
+            phase_fns=_phases_bvgas, patch_plan=_patch_bvgas,
             supports_push_query=True),
+    Backend("pcpm", _build_pcpm, _spmv_pcpm, uses_gather_block=True,
+            phase_fns=_phases_pcpm, patch_plan=_patch_pcpm,
+            supports_push_query=True),
+    Backend("pcpm_pallas", _build_pcpm_pallas, _spmv_pcpm_pallas,
+            patch_plan=_patch_pcpm_pallas, supports_push_query=True),
 ):
     register_backend(_backend)

@@ -264,6 +264,7 @@ class PlanCacheStats:
     plan_hits: int = 0
     png_builds: int = 0
     png_hits: int = 0
+    plan_patches: int = 0    # incremental patches (stream/patch.py)
 
 
 _PLAN_CACHE: dict[tuple, GraphPlan] = {}
@@ -303,6 +304,7 @@ def clear_plan_cache() -> None:
     _PNG_CACHE.clear()
     _STATS.plan_builds = _STATS.plan_hits = 0
     _STATS.png_builds = _STATS.png_hits = 0
+    _STATS.plan_patches = 0
 
 
 def add_plan_observer(obs) -> None:
@@ -354,15 +356,21 @@ def graph_fingerprint(g: Graph) -> str:
 
     The hash is a commutative-invertible pair (sum, xor) over per-edge
     splitmix64 values: order-independent WITHOUT sorting (one O(M)
-    vectorized pass), and the same string the JAX package computes for
-    the same graph. Memoized on the instance."""
+    vectorized pass), the same string the JAX package computes for the
+    same graph, and incrementally updatable: ``stream.apply_delta``
+    derives the new graph's parts from the old one's in O(|delta|), so
+    a delta stream never re-hashes the full edge list. The string and
+    the parts are memoized on the instance."""
     fp = g.__dict__.get("_plan_fingerprint")
     if fp is None:
-        h = _edge_hash64(g.src, g.dst)
-        parts = (int(h.sum(dtype=np.uint64)),
-                 int(np.bitwise_xor.reduce(h, initial=np.uint64(0))))
+        parts = g.__dict__.get("_fp_parts")
+        if parts is None:
+            h = _edge_hash64(g.src, g.dst)
+            parts = (int(h.sum(dtype=np.uint64)),
+                     int(np.bitwise_xor.reduce(h, initial=np.uint64(0))))
+            g.__dict__["_fp_parts"] = parts   # frozen-safe: dict write
         fp = _fp_string(g.num_nodes, g.num_edges, parts)
-        g.__dict__["_plan_fingerprint"] = fp   # frozen-safe: dict write
+        g.__dict__["_plan_fingerprint"] = fp
     return fp
 
 
@@ -482,6 +490,16 @@ def reorder_inverse(plan: GraphPlan) -> np.ndarray:
         inv = inverse_permutation(plan.reorder_perm)
         plan._device["reorder_inv"] = inv
     return inv
+
+
+def release_device(plan: GraphPlan) -> None:
+    """Drop the plan's runtime cache (``_device``): its device uploads,
+    closures and loops. The streaming rebinds call it on the plan they
+    leave, which the plan cache keeps for its host arrays: at kron-21
+    each version would otherwise pin ≈1.15 GB of the card. A closure a
+    live consumer still holds keeps its own tensors, so an older handle
+    keeps working; a later use of the plan uploads again."""
+    plan._device.clear()
 
 
 def plan_nbytes(plan: GraphPlan) -> int:

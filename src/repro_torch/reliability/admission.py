@@ -47,9 +47,7 @@ class ResilienceConfig:
       tolerated (the dispatch is retried next ``step()``) before the
       in-flight pool is declared lost and its queries failed.
     - ``verify_plans``: run ``guardrails.check_plan_integrity`` on
-      every plan swapped in by ``apply_delta``. Read only by
-      ``apply_delta``, which comes with the streaming slice (and the
-      integrity check with the reliability slice).
+      every plan swapped in by ``apply_delta``.
     """
     max_queue: Optional[int] = None
     default_deadline_s: Optional[float] = None

@@ -41,9 +41,13 @@ freezes on the device and is re-admitted from a clean seed or failed
 explicitly) and stepper-failure recovery. All of it is host-side policy
 over the one stepper.
 
+Streaming (``apply_delta``): an edge delta patches the plan and rebinds
+the stepper atomically, under both locks, while in-flight columns carry
+over as warm starts.
+
 A port of the JAX package's ``serve/scheduler.py``. What depends on
 later slices raises ``NotImplementedError`` naming the slice:
-``apply_delta`` (streaming, A5), ``fault_injector`` (reliability, A6),
+``fault_injector`` (reliability, A6),
 ``idmap`` (ingest, A7), ``gateway()`` and the registry's weighted drain
 (gateway, A8), ``obs`` (observability, A9) and ``sharded=True``
 (sharded path, A10).
@@ -272,8 +276,12 @@ class SlotScheduler:
     # ----------------------------------------------------- plan binding
     def _build_stepper(self, engine: SpMVEngine, g: Graph):
         """The chunk stepper over ``engine``'s plan and the matching
-        inverse-degree vector (in the plan's internal id space). Called
-        once, at construction."""
+        inverse-degree vector (in the plan's internal id space), built
+        WITHOUT touching scheduler state, so ``apply_delta`` can fully
+        validate and build a rebind before committing anything. Called
+        once at construction and once per ``apply_delta``; the admit,
+        extract and top-k paths depend only on shapes and are not
+        rebuilt."""
         gi = internal_graph(g, engine.plan)
         step = masked_chunk_stepper(engine, damping=self.damping,
                                     chunk=self.chunk,
@@ -282,9 +290,67 @@ class SlotScheduler:
         return step, _inv_degree(gi, engine.device)
 
     def apply_delta(self, delta, *, g_new: Graph | None = None) -> None:
-        """Swapping the scheduler onto a delta-updated graph comes with
-        the streaming slice."""
-        _later("SlotScheduler.apply_delta", "streaming (A5)")
+        """Swap the scheduler onto the delta-updated graph WITHOUT
+        dropping in-flight queries: the plan is patched incrementally
+        (stream/patch.py), only the stepper is rebuilt against the new
+        streams (counted in ``trace_count`` and ``rebind_count``), and
+        the (n, B) slot state carries over as-is. Active columns continue
+        iterating under the new operator — their current state is a warm
+        start, so they converge to the NEW graph's answer under their
+        own tolerance. Queued queries are admitted against the new plan.
+
+        The rebind is ATOMIC: delta validation, plan patch, integrity
+        check (``resilience.verify_plans``) and the new engine and
+        stepper all happen before any scheduler state changes, so a
+        failing delta (bad edges, corrupted plan, patcher bug) leaves
+        the old plan serving — the failure is counted
+        (``delta_failures``) and re-raised. The plan left behind keeps
+        its host arrays in the plan cache; its device uploads are
+        released (``core.plan.release_device``)."""
+        from ..core.plan import release_device
+        from ..stream.delta import apply_delta as apply_edges
+        from ..stream.patch import patch_plan
+        if self._perm is not None:
+            raise ValueError(
+                "apply_delta on a reorder-enabled scheduler is not "
+                "supported: the locality permutation is a function of "
+                "the graph, so the delta would change the slot pool's "
+                "internal id space under the in-flight columns — "
+                "drain and construct a fresh scheduler for the updated "
+                "graph instead")
+        # the JAX package's fault-injector hooks (check_delta,
+        # wants_corrupt) come with the reliability slice (A6)
+        try:
+            delta.validate(self.g)
+            if g_new is None:
+                g_new = apply_edges(self.g, delta)
+            old_plan = self.engine.plan
+            new_plan = patch_plan(old_plan, delta, g_new)
+            if self.resilience.verify_plans:
+                from ..reliability.guardrails import check_plan_integrity
+                check_plan_integrity(new_plan)
+            new_engine = SpMVEngine(g_new, plan=new_plan,
+                                    device=self.device)
+            step, inv_deg = self._build_stepper(new_engine, g_new)
+        except Exception:
+            self.metrics.incr("delta_failures")
+            raise
+        # commit under both locks: the step thread must not dispatch
+        # against a half-swapped (plan, stepper, inv_deg) triple, and
+        # submit threads must not route against a stale engine. Lock
+        # order (step, then intake) matches step().
+        with self._step_lock, self._lock:
+            self.g = g_new
+            self.engine = new_engine
+            self._step_c, self._inv_deg = step, inv_deg
+            # push engines index the graph's CSR: refresh the internal
+            # graph and bump the generation so every thread-local
+            # engine rebuilds against the post-delta edges
+            self._g_int = internal_graph(g_new, new_plan)
+            self._push_gen += 1
+            self.rebind_count += 1
+        if new_plan is not old_plan:
+            release_device(old_plan)
 
     # ------------------------------------------------------------ intake
     def submit(self, seeds: np.ndarray | None = None, *,

@@ -111,10 +111,12 @@ def test_later_slices_raise(graphs):
         with pytest.raises(NotImplementedError, match="slice"):
             repro_torch.open(g, method="pcpm", part_size=256, device="cpu",
                              **kw)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        sess.pagerank(warm=True)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        sess.apply_delta(None)
+    # the streaming slice is in: a warm call with no prior solve is a
+    # cold one, and an empty delta keeps the plan
+    assert sess.pagerank(warm=True).iterations == sess.config.num_iterations
+    plan = sess.plan
+    assert sess.apply_delta(repro_torch.GraphDelta()) is sess
+    assert sess.plan is plan
     with pytest.raises(NotImplementedError, match="reliability"):
         sess.save_checkpoint("x")
     with pytest.raises(NotImplementedError, match="reliability"):

@@ -2,7 +2,11 @@
 both of its paths ("warp", "tile"), and the
 main path ``open(g, device="cuda").pagerank()`` against the same solve
 on the CPU and the dense oracle; PageRank serving (``SlotScheduler``,
-``PageRankServer``, device push) with B1's launches counted per path; kernel B3 against its plain version
+``PageRankServer``, device push) with B1's launches counted per path;
+streaming deltas (patched plans of each method against the CPU, B1 on a
+patched plan against its plain version, ``Session.apply_delta`` with a
+warm update and ``SlotScheduler.apply_delta`` with launches counted by
+path); kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), and the smoke LM's
 ``ServeEngine`` on the card against the same run on the CPU; kernel B2
 against its plain version, and the smoke MIND's
@@ -485,6 +489,155 @@ def test_device_push_on_the_card(cuda_device):
     assert kernel.launch_counts["tile"] - before == res.sweeps + 1
     ref = host.query(seed, tol=1e-4)
     assert np.abs(res.estimate - ref.estimate).sum() <= 2e-4 * 0.85 / 0.15
+
+
+# ------------------------------------------------- streaming edge deltas
+def _local_delta(g, rng, parts, part_size, count=64, n_add=None):
+    """``count`` removals and ``n_add`` (default ``count``) insertions
+    with destinations in ``parts``."""
+    from repro_torch.stream import GraphDelta
+    n_add = count if n_add is None else n_add
+    pool = np.flatnonzero(np.isin(g.dst // part_size, parts))
+    ridx = rng.choice(pool, size=count, replace=False)
+    dst = rng.choice(parts, n_add) * part_size + rng.integers(
+        0, part_size, n_add)
+    add = np.stack([rng.integers(0, g.num_nodes, n_add),
+                    np.minimum(dst, g.num_nodes - 1)], 1).astype(np.int32)
+    return GraphDelta.of(add=add, remove=np.stack([g.src[ridx],
+                                                   g.dst[ridx]], 1))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_patched_plan_on_the_card_matches_cpu(cuda_device, method):
+    from repro_torch.core import PlanConfig, SpMVEngine, build_plan
+    from repro_torch.stream import apply_delta, patch_plan
+    rng = np.random.default_rng(4)
+    g = generators.rmat(10, 8, seed=2)
+    plan = build_plan(g, PlanConfig(method=method, part_size=256))
+    delta = _local_delta(g, rng, [1], 256)
+    g2 = apply_delta(g, delta)
+    patched = patch_plan(plan, delta, g2)
+    # multiples of 1/64: every summation order gives the same bits
+    x = (rng.integers(0, 64, g.num_nodes) / 64).astype(np.float32)
+    before = dict(kernel.launch_counts)
+    y = SpMVEngine(g2, plan=patched, device=cuda_device)(x)
+    torch.cuda.synchronize()
+    tile = kernel.launch_counts["tile"] - before["tile"]
+    assert tile == (1 if method == "pcpm_pallas" else 0)
+    want = SpMVEngine(g2, plan=patched, device="cpu")(x)
+    assert torch.equal(y.cpu(), want)
+    assert np.array_equal(want.numpy(), dense_spmv(
+        g.num_nodes, g2.src, g2.dst, x).astype(np.float32))
+
+
+def test_b1_on_a_patched_plan_vs_plain(cuda_device):
+    """Both paths of B1 on the streams of a patched pcpm_pallas plan
+    (new ``max_u``/``max_e``, a new "tile" order), bit for bit."""
+    from repro_torch.core import PlanConfig, build_plan
+    from repro_torch.stream import apply_delta, patch_plan
+    rng = np.random.default_rng(6)
+    g = generators.rmat(11, 8, seed=3)
+    plan = build_plan(g, PlanConfig(method="pcpm_pallas", part_size=256))
+    # insertions into the fullest partition: the blocked streams widen
+    fullest = int(np.argmax(np.diff(plan.png.edge_offsets)))
+    delta = _local_delta(g, rng, [fullest, 5], 256, count=100, n_add=600)
+    patched = patch_plan(plan, delta, apply_delta(g, delta))
+    assert patched.blocked.edge_dst_local.shape != \
+        plan.blocked.edge_dst_local.shape
+    packed = pack_blocked(patched.blocked, g.num_nodes, device=cuda_device)
+    schedule = tile_schedule(patched.blocked, device=cuda_device)
+    k, u = packed.update_src.shape
+    for d in (1, 16):
+        x = torch.randint(0, 16, (g.num_nodes, d), device=cuda_device,
+                          generator=torch.Generator(cuda_device)
+                          .manual_seed(d)).float() / 16
+        bins = x[packed.update_src.view(-1)].view(k, u, d)
+        ref = pcpm_gather_ref(bins, packed.edge_upd, packed.edge_dst,
+                              part_size=256)
+        if d == 1:
+            assert torch.equal(_tile_call(bins, packed, schedule), ref)
+        for out, plain in _warp_both_forms(x, packed).values():
+            assert torch.equal(out, plain)
+
+
+def test_session_delta_and_warm_update_on_the_card(cuda_device):
+    """``apply_delta`` twice, then ``pagerank(warm=True)`` on the card:
+    one B1 "tile" launch per push sweep, no "warp"; ranks within 1e-6 of
+    the same steps on the CPU; the old plan's uploads released."""
+    from repro_torch.stream import apply_delta
+    rng = np.random.default_rng(8)
+    g = generators.rmat(11, 8, seed=3)
+    d1 = _local_delta(g, rng, [1, 6], 256)
+    d2 = _local_delta(apply_delta(g, d1), rng, [3], 256)
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        sess = repro_torch.open(g, method="pcpm_pallas", part_size=256,
+                                device=dev)
+        sess.pagerank(num_iterations=300, tol=1e-6)
+        old = sess.plan
+        sess.apply_delta(d1).apply_delta(d2)
+        assert len(old._device) == 0
+        before = dict(kernel.launch_counts)
+        res = sess.pagerank(warm=True, tol=1e-6, num_iterations=300)
+        torch.cuda.synchronize()
+        runs[str(dev)] = (res, {p: kernel.launch_counts[p] - before[p]
+                                for p in before})
+    (card, counts), (cpu, _) = runs[str(cuda_device)], runs["cpu"]
+    assert 0 < card.iterations < 100
+    assert counts == {"tile": card.iterations, "warp": 0}
+    assert abs(card.iterations - cpu.iterations) <= 1     # float32 stops
+    assert np.abs(card.ranks.cpu().numpy()
+                  - cpu.ranks.numpy()).max() <= 1e-6
+
+
+def test_slot_scheduler_apply_delta_on_the_card(cuda_device):
+    """A rebind under in-flight queries on the card: the new plan's
+    stepper runs B1 "warp" once per chunk iteration and nothing else;
+    the answers within 1e-6 of the same run on the CPU."""
+    from repro_torch.serve import SlotScheduler
+    from repro_torch.stream import apply_delta
+    rng = np.random.default_rng(9)
+    g = generators.rmat(10, 8, seed=0)
+    delta = _local_delta(g, rng, [2], 256)
+    g2 = apply_delta(g, delta)
+    kw = dict(method="pcpm_pallas", part_size=256, slots=4, chunk=4,
+              route="stepper")
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        sch = SlotScheduler(g, device=dev, **kw)
+        iters = []
+        for s, w in _serving_workload(g.num_nodes)[:8]:
+            sch.submit(s, **w)
+        sch.step()
+        old = sch.engine.plan
+        sch.apply_delta(delta, g_new=g2)
+        assert sch.rebind_count == 1 and len(old._device) == 0
+        real = sch._step_c
+
+        def step(*a, real=real, iters=iters):
+            out = real(*a)
+            iters.append(int(out[2].max()))
+            return out
+
+        sch._step_c = step
+        before = dict(kernel.launch_counts)
+        sch.run_until_drained()
+        torch.cuda.synchronize()
+        sch.metrics.reconcile()
+        runs.append((sch, iters, {p: kernel.launch_counts[p] - before[p]
+                                  for p in before}))
+    (card, iters, counts), (cpu, _, _) = runs
+    assert counts == {"warp": sum(iters), "tile": 0} and sum(iters) > 0
+    a = sorted(card.completed, key=lambda r: r.uid)
+    b = sorted(cpu.completed, key=lambda r: r.uid)
+    assert len(a) == len(b) == 8
+    for ra, rb in zip(a, b):
+        assert abs(ra.iterations - rb.iterations) <= 1
+        if ra.ranks is not None:
+            assert np.abs(ra.ranks - rb.ranks).max() <= 1e-6
+        else:
+            np.testing.assert_allclose(ra.top_scores, rb.top_scores,
+                                       atol=1e-6)
 
 
 # ------------------------------------------------------------- kernel B3

@@ -11,6 +11,8 @@ reference from here and never imports ``repro``.
 from __future__ import annotations
 
 import importlib
+import importlib.util
+import re
 import subprocess
 import sys
 import types
@@ -31,7 +33,51 @@ def load_reference(name: str = ""):
         pkg.__path__ = [str(REPO / "src" / "repro")]
         pkg.__package__ = REF_ALIAS
         sys.modules[REF_ALIAS] = pkg
+    if name == "stream" or name.startswith("stream."):
+        load_reference_stream()
     return importlib.import_module(f"{REF_ALIAS}.{name}") if name else pkg
+
+
+# ``stream/delta.py`` gives the frozen dataclass ``GraphDelta`` four
+# ``np.ndarray`` defaults, which Python 3.11+ refuses as mutable; each is
+# rewritten, in memory only, as the default_factory it means
+_DELTA_DEFAULT = re.compile(r"^(\s+\w+): np\.ndarray = _EMPTY$", re.M)
+_DELTA_FACTORY = (r"\1: np.ndarray = "
+                  r"dataclasses.field(default_factory=lambda: _EMPTY)")
+
+
+def load_reference_stream():
+    """``repro_ref.stream``: the package registered bare, its ``delta``
+    module compiled from its source with the four ``= _EMPTY`` defaults
+    rewritten (exactly four, or this raises), then ``patch``,
+    ``incremental`` and the package's ``__init__`` imported as they
+    are. ``src/repro`` is not edited."""
+    name = f"{REF_ALIAS}.stream"
+    pkg = sys.modules.get(name)
+    if pkg is not None and hasattr(pkg, "GraphDelta"):
+        return pkg
+    load_reference()
+    root = REPO / "src" / "repro" / "stream"
+    spec = importlib.util.spec_from_file_location(
+        name, root / "__init__.py", submodule_search_locations=[str(root)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    path = root / "delta.py"
+    source, count = _DELTA_DEFAULT.subn(_DELTA_FACTORY, path.read_text())
+    if count != 4:
+        raise RuntimeError(f"{path}: expected 4 np.ndarray defaults to "
+                           f"rewrite, found {count}")
+    delta = types.ModuleType(f"{name}.delta")
+    delta.__file__ = str(path)
+    delta.__package__ = name
+    sys.modules[delta.__name__] = delta
+    exec(compile(source, str(path), "exec"), delta.__dict__)
+    pkg.delta = delta
+    importlib.import_module(f"{name}.patch")
+    importlib.import_module(f"{name}.incremental")
+    spec.loader.exec_module(pkg)
+    pkg.rewritten_defaults = count
+    return pkg
 
 
 @pytest.fixture
@@ -98,6 +144,27 @@ def test_alias_leaves_repro_unimported():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_stream_loader_rewrites_four_defaults_and_leaves_repro_unimported():
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import test_torch_reference as t; "
+            "s = t.load_reference('stream'); "
+            "assert s.rewritten_defaults == 4; "
+            "assert t.load_reference('stream.patch').patch_plan; "
+            "d = s.GraphDelta.insert([[0, 1]]); "
+            "assert s.GraphDelta().add_src.size == 0 and d.num_added == 1; "
+            "bad = [m for m in sys.modules if m.split('.')[0] == 'repro']; "
+            "assert not bad, bad; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code, str(REPO / "tests")],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+    # the pattern matches the four defaults of the source as it stands,
+    # and nothing else in it
+    source = (REPO / "src" / "repro" / "stream" / "delta.py").read_text()
+    assert len(_DELTA_DEFAULT.findall(source)) == 4
+    assert source.count("= _EMPTY\n") == 4
 
 
 @pytest.mark.parametrize("method", ["pdpr", "bvgas", "pcpm"])

@@ -872,9 +872,11 @@ def test_later_slices_raise_naming_them(graphs):
         SlotScheduler(g, **kw, no_such_knob=1)
     # the default values of the later knobs pass
     SlotScheduler(g, **kw, sharded=False, num_shards=1, obs=None)
+    # the streaming slice (A5) is in: an empty delta rebinds in place
     sch = SlotScheduler(g, **kw)
-    with pytest.raises(NotImplementedError, match="A5"):
-        sch.apply_delta(None)
+    plan = sch.engine.plan
+    sch.apply_delta(repro_torch.GraphDelta())
+    assert sch.rebind_count == 1 and sch.engine.plan is plan
     reg = GraphRegistry(device="cpu", part_size=PART)
     reg.add("a", g)
     for call in (reg.run_until_drained, reg.gateway):
