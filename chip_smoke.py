@@ -69,6 +69,33 @@ Phases, each of which exits non-zero when it fails:
    one plan's uploads above its start. Times: the parts of
    ``apply_delta``, ``seed_residual``, the push, the cold solve, the
    fresh build and the scheduler's rebind;
+6b. reliability on phase 3's graph and pcpm_pallas plan (its uploads made
+   again): ``SlotScheduler(slots=16, chunk=8, route="stepper")`` drains
+   32 queries in phase 5's seeded mix at converging tolerances, twice
+   fault-free (equal iteration counts, or the phase fails); (a) under a
+   fault plan (NaN at step 2, Inf at step 3, a stepper failure at step
+   5) with one stepper retry: two quarantines, one failure, every query
+   converged with the fault-free ranks (≤ 1e-6) and iterations (plus
+   those the poisoned columns burned), B1 "warp" once per chunk
+   iteration; (b) the same plan without retries: exactly the 16 queries
+   in flight fail, the rest converge; (c) a failing and a corrupted
+   ``apply_delta`` of phase 6's first delta leave the old plan serving;
+   (d) ``snapshot_scheduler`` three chunks in, ``restore_scheduler``
+   into a fresh scheduler: the uninterrupted drain's iterations and
+   ranks, uids kept, refused on another graph; (e) ``save_checkpoint`` /
+   ``load_checkpoint`` of a pcpm_pallas solve, a warm restart on the same
+   graph and across the first delta (B1 "tile" once per push sweep,
+   within 75.6·tol of a float64 fixed point), wrong lineage refused;
+6c. ingest: the kron graph at scale 18 written as ~8.1M tab-separated
+   lines in sparse 64-bit ids (dense id times an odd constant mod 2**61)
+   under a comment header; ``ingest_edge_list`` with an offsite filter
+   (~5% of the edges), self-loops dropped and duplicates removed; the
+   stats balance, the id map survives save/load, ``res.open(method=
+   "pcpm_pallas")`` solves to phase 3's gate against a float64 oracle of
+   the ingested graph (B1 "tile" once an iteration), and ``top_ranked``
+   and serving (a stepper top 10, a push seeded at one external id)
+   answer in external ids. Times: writing, parsing, id mapping, dedup,
+   edges/s;
 7. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
    against its plain version on the same inputs upcast to float32, on
    the card, each call through the path ``b3_path`` names ("tc" for
@@ -674,8 +701,46 @@ def pagerank_phases(dev, card):
     entry = {**B1_ENTRY, "launches": main_launches,
              "launches_by_path": main_by_path, **timed[1]}
     reuse = {"g": g, "sess": sessions["pcpm_pallas"], "oracle": oracle,
-             "at_dev": at_dev}
+             "at_dev": at_dev, "plan": plan}
     return entry, timed[16], reuse
+
+
+# ------------------------------------------------- shared by phases 5-6c
+def reset_b1_counts() -> None:
+    """Kernel B1's launch counts, in all and by path, set to 0."""
+    from repro_torch.kernels.pcpm_spmv import kernel as b1
+    b1.launch_count = 0
+    b1.launch_counts = dict.fromkeys(b1.PATHS, 0)
+
+
+def seed_vector(n: int, ids) -> np.ndarray:
+    """A teleport vector with weight 1 on each of ``ids``."""
+    s = np.zeros(n, np.float32)
+    s[ids] = 1.0
+    return s
+
+
+class ChunkCounter:
+    """While installed, ``iterations`` gets each stepper chunk's
+    iteration count (the largest ``took`` of its one read-back,
+    ``serve/scheduler.py::_read_chunk``): B1 "warp" launches once per
+    chunk iteration on a pcpm_pallas plan."""
+
+    def __enter__(self):
+        from repro_torch.serve import scheduler
+        self.iterations, real = [], scheduler._read_chunk
+
+        def counted(*args):
+            out = real(*args)
+            self.iterations.append(int(out[1].max()))
+            return out
+
+        self.real, scheduler._read_chunk = real, counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import scheduler
+        scheduler._read_chunk = self.real
 
 
 # --------------------------------------------------------------- phase 5
@@ -716,21 +781,11 @@ def serving_phase(dev, card, reuse, warp_timed) -> dict:
     import torch
     from repro_torch.kernels.pcpm_spmv import kernel as b1
     from repro_torch.serve import PushQueryEngine
-    from repro_torch.serve import scheduler as sched_mod
     from repro_torch.serve.topk import host_topk
     g, sess, oracle, at_dev = (reuse[k] for k in ("g", "sess", "oracle",
                                                   "at_dev"))
     n, damping = g.num_nodes, kron().damping
     t_phase = time.perf_counter()
-
-    def reset_counts():
-        b1.launch_count = 0
-        b1.launch_counts = dict.fromkeys(b1.PATHS, 0)
-
-    def seed_vector(ids):
-        s = np.zeros(n, np.float32)
-        s[ids] = 1.0
-        return s
 
     # ------------------------------------------- the scheduler's drain
     # the entry point as a user calls it: its push (``push_mode="auto"``)
@@ -751,26 +806,16 @@ def serving_phase(dev, card, reuse, warp_timed) -> dict:
         else:                                  # uniform top-k
             work.append((kind, None, dict(top_k=10, tol=0.0,
                                           max_iters=20)))
-    chunk_iters = []
-    read_chunk = sched_mod._read_chunk
-
-    def counted_read(*args):
-        out = read_chunk(*args)
-        chunk_iters.append(int(out[1].max()))
-        return out
-
-    sched_mod._read_chunk = counted_read
     torch.cuda.synchronize()
-    reset_counts()
+    reset_b1_counts()
     t0 = time.perf_counter()
-    try:
-        uids = [sch.submit(None if ids is None else seed_vector(ids), **kw)
-                for _, ids, kw in work]
+    with ChunkCounter() as chunks:
+        uids = [sch.submit(None if ids is None else seed_vector(n, ids),
+                           **kw) for _, ids, kw in work]
         submit_s = time.perf_counter() - t0    # the pushes run inline
         sch.run_until_drained()
         torch.cuda.synchronize()
-    finally:
-        sched_mod._read_chunk = read_chunk
+    chunk_iters = chunks.iterations
     drain_s = time.perf_counter() - t0
     drain_counts = dict(b1.launch_counts)
     done = {r.uid: r for r in sch.completed}
@@ -857,7 +902,7 @@ def serving_phase(dev, card, reuse, warp_timed) -> dict:
         r = done[u]
         worst[1] = max(worst[1], float(np.abs(
             r.top_scores - fixed[r.top_ids, j]).sum()))
-        est = engine.query(seed_vector(ids), tol=PUSH_TOL).estimate
+        est = engine.query(seed_vector(n, ids), tol=PUSH_TOL).estimate
         push_l1 = max(push_l1, float(np.abs(est - fixed[:, j]).sum()))
     log(f"serving drain vs float64: uniform L1 {worst[0]!r}, uniform top-10 "
         f"scores L1 {worst[3]!r} (<= 1e-5, top-10 ids equal); stepper "
@@ -879,7 +924,7 @@ def serving_phase(dev, card, reuse, warp_timed) -> dict:
     for name, srv, arg in (("batch 16", srv16, seeds16),
                            ("batch 1", srv1, seeds16[:, 0].copy())):
         torch.cuda.synchronize()
-        reset_counts()
+        reset_b1_counts()
         pr, it, _ = srv.query(arg)
         torch.cuda.synchronize()
         server_counts[name] = dict(b1.launch_counts)
@@ -1064,21 +1109,22 @@ def plan_device_tensors(plan, dev) -> list:
             schedule.chunks, schedule.block_chunks, schedule.hubs]
 
 
-def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
+def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     """Phase 6: streaming edge deltas on phase 3's kron graph and
     pcpm_pallas session: two localized deltas patched into the plan, a
     warm update (B1 "tile" once per push sweep) against a float64 fixed
     point, the patched plan against a fresh build, a scheduler rebind
     under in-flight queries (B1 "warp" on the new plan), and the device
     memory across a stream of four more deltas. Adds the launch counts
-    and times to B1's two entries of the kernels line."""
+    and times to B1's two entries of the kernels line. Returns what phase
+    6b reuses: the first delta (D1) and the graph of the rebind (g3); the
+    version chain's plans stay in the plan cache until phase 6b ends."""
     import torch
     import repro_torch.kernels.pcpm_spmv as b1_pkg
     from repro_torch.core import Partitioning, block_png, build_png
     from repro_torch.core.pagerank import pagerank
-    from repro_torch.core.plan import evict_plans, plan_cache_stats
+    from repro_torch.core.plan import plan_cache_stats
     from repro_torch.kernels.pcpm_spmv import kernel as b1, tile_schedule
-    from repro_torch.serve import scheduler as sched_mod
     from repro_torch.stream import delta as delta_mod
     from repro_torch.stream import incremental
     from repro_torch.stream import patch as patch_mod
@@ -1086,10 +1132,6 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
     n, damping, psz = g0.num_nodes, kron().damping, kron().part_size
     tol, budget = STREAM_TOL, STREAM_ITERATIONS
     t_phase = time.perf_counter()
-
-    def reset_counts():
-        b1.launch_count = 0
-        b1.launch_counts = dict.fromkeys(b1.PATHS, 0)
 
     # ------------------------------------------------- 1. the cold prior
     t0 = time.perf_counter()
@@ -1127,7 +1169,7 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
         t_d2 = time.perf_counter() - t0
         patched, g2 = sess.plan, sess.graph
         torch.cuda.synchronize()
-        reset_counts()
+        reset_b1_counts()
         t0 = time.perf_counter()
         warm = sess.pagerank(warm=True, tol=tol, num_iterations=budget)
         torch.cuda.synchronize()
@@ -1174,7 +1216,7 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
     if warm_counts != {"tile": warm_sweeps, "warp": 0}:
         fail("warm update: B1 'tile' not launched once per sweep, or "
              "'warp' launched")
-    reset_counts()
+    reset_b1_counts()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     cold = pagerank(g2, engine=sess.engine, num_iterations=budget, tol=tol)
@@ -1225,27 +1267,8 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
 
     # ------------------------------------------------- 5. serving, delta
     sch = sess.serve(slots=SERVE_SLOTS, chunk=SERVE_CHUNK)
-    work = []
-    for i in range(SERVE_SLOTS):
-        kind = i % 4
-        if kind == 0:                          # uniform
-            work.append((kind, None, dict(tol=tol, max_iters=budget)))
-        elif kind == 1:                        # one seed, top-k: push
-            work.append((kind, [int(rng.integers(0, n))],
-                         dict(top_k=10, tol=PUSH_TOL)))
-        elif kind == 2:                        # four seeds
-            work.append((kind, rng.integers(0, n, size=4).tolist(),
-                         dict(tol=tol, max_iters=budget)))
-        else:                                  # uniform top-k
-            work.append((kind, None, dict(top_k=10, tol=tol,
-                                          max_iters=budget)))
-
-    def seed_vector(ids):
-        s = np.zeros(n, np.float32)
-        s[ids] = 1.0
-        return s
-
-    uids = [sch.submit(None if ids is None else seed_vector(ids), **kw)
+    work = serving_mix(rng, n, SERVE_SLOTS)
+    uids = [sch.submit(None if ids is None else seed_vector(n, ids), **kw)
             for _, ids, kw in work]
     sch.step()
     inflight, queued = sch.active_slots, sch.queued
@@ -1255,21 +1278,11 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
     torch.cuda.synchronize()
     t_rebind = time.perf_counter() - t0
     g3 = sch.g
-    chunk_iters = []
-    read_chunk = sched_mod._read_chunk
-
-    def counted_read(*args):
-        out = read_chunk(*args)
-        chunk_iters.append(int(out[1].max()))
-        return out
-
-    sched_mod._read_chunk = counted_read
-    reset_counts()
-    try:
+    reset_b1_counts()
+    with ChunkCounter() as chunks:
         sch.run_until_drained()
         torch.cuda.synchronize()
-    finally:
-        sched_mod._read_chunk = read_chunk
+    chunk_iters = chunks.iterations
     rebind_counts = dict(b1.launch_counts)
     done = {r.uid: r for r in sch.completed}
     if (sorted(done) != sorted(uids) or len(sch.completed) != len(uids)
@@ -1337,6 +1350,7 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
     # graph, plan and ranks; the dropped scheduler's last plan keeps its
     # uploads in the plan cache and counts as part of the start)
     sweeps0 = prior.iterations
+    streamed = {"d1": d1, "g3": g3}
     del sch, patched, g2, g3, warm, cold, prior
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1379,9 +1393,6 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
     if stream[-1][2] - mem0 > one_plan + slack:
         fail("streaming: device memory grew by more than one plan's "
              "uploads across the stream")
-    # the version chain's cached plans (host arrays, and the first graph's
-    # plans of the four engines with their uploads) go with the phase
-    evict_plans(g0)
     torch.cuda.synchronize()
     log(f"phase 6 (streaming): {time.perf_counter() - t_phase:.1f} s")
     tile_entry["streaming"] = {
@@ -1395,6 +1406,640 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> None:
         "fresh_build_s": t_fresh}
     warp_entry["streaming"] = {"rebind_launches": rebind_counts,
                                "rebind_s": t_rebind}
+    return streamed
+
+
+# --------------------------------------------------------------- phase 6b
+CHAOS_QUERIES, SNAPSHOT_CHUNKS = 32, 3
+
+
+def serving_mix(rng, n, count):
+    """Phase 5's query mix by ``i % 4`` (uniform; one seed, top 10; four
+    seeds; uniform top 10), each query at a tolerance it reaches within
+    its budget, as phase 6's serving mix: tol 1e-6 in at most 200
+    iterations, the single-seed top 10 at tol 1e-3."""
+    work = []
+    for i in range(count):
+        kind = i % 4
+        if kind == 0:
+            kw = dict(tol=STREAM_TOL)
+        elif kind == 1:
+            kw = dict(top_k=10, tol=PUSH_TOL)
+        elif kind == 2:
+            kw = dict(tol=STREAM_TOL)
+        else:
+            kw = dict(top_k=10, tol=STREAM_TOL)
+        ids = ([int(rng.integers(0, n))] if kind == 1 else
+               rng.integers(0, n, size=4).tolist() if kind == 2 else None)
+        work.append((kind, ids, dict(kw, max_iters=STREAM_ITERATIONS)))
+    return work
+
+
+def result_gap(a, b) -> float:
+    """Largest |difference| between two results of one query: their
+    ranks, or their top-10 scores (infinite when the ids differ)."""
+    if a.ranks is not None:
+        return float(np.abs(a.ranks - b.ranks).max())
+    if not np.array_equal(a.top_ids, b.top_ids):
+        return float("inf")
+    return float(np.abs(a.top_scores - b.top_scores).max())
+
+
+def reliability_phase(dev, card, reuse, streamed, tile_entry,
+                      warp_entry) -> None:
+    """Phase 6b: the reliability layer at kron-21, on phase 3's graph and
+    pcpm_pallas plan (phase 6 moved the session on; its rebinds released
+    the plan's uploads, which are made again here). Schedulers of 16
+    slots and chunks of 8, every query on the stepper (B1 "warp"), drain
+    32 queries in phase 5's seeded mix: twice fault-free, then (a) under
+    a fault plan (NaN at step 2, Inf at step 3, a stepper failure at
+    step 5) with one stepper retry, (b) the same plan with none; (c) a
+    failing and a corrupted ``apply_delta`` of phase 6's first delta;
+    (d) a snapshot three chunks in, restored into a fresh scheduler; (e)
+    rank checkpoints of a pcpm_pallas solve (B1 "tile"), restarted on the
+    same graph and across the first delta. Adds the launch counts and
+    times to B1's two entries of the kernels line."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import EngineConfig, open as open_session
+    from repro_torch.core.plan import plan_cache_stats
+    from repro_torch.core.spmv import SpMVEngine
+    from repro_torch.kernels.pcpm_spmv import kernel as b1
+    from repro_torch.reliability import (FaultInjector, FaultPlan, FaultSpec,
+                                         InjectedFault, ResilienceConfig,
+                                         restore_scheduler,
+                                         snapshot_scheduler)
+    from repro_torch.serve import SlotScheduler
+    from repro_torch.stream import GraphDelta
+    g, plan0 = reuse["g"], reuse["plan"]
+    d1, g3 = streamed["d1"], streamed["g3"]
+    n, damping, psz = g.num_nodes, kron().damping, kron().part_size
+    tol, budget = STREAM_TOL, STREAM_ITERATIONS
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+
+    engine = SpMVEngine(g, plan=plan0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine(torch.zeros((n, SERVE_SLOTS), device=dev))
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    log(f"reliability: phase 3's pcpm_pallas plan from the plan cache, its "
+        f"uploads made again (packed streams; the 'tile' gather order built "
+        f"anew) with one d={SERVE_SLOTS} SpMV in {t_upload!r} s ({card})")
+    work = serving_mix(np.random.default_rng(3), n, CHAOS_QUERIES)
+
+    def scheduler(**kw):
+        return SlotScheduler(g, engine=engine, slots=SERVE_SLOTS,
+                             chunk=SERVE_CHUNK, route="stepper", **kw)
+
+    def submit_all(sch):
+        return [sch.submit(None if ids is None else seed_vector(n, ids), **kw)
+                for _, ids, kw in work]
+
+    def drained(sch):
+        uids = submit_all(sch)
+        sch.run_until_drained()
+        return uids
+
+    def run(body):
+        """``body()`` with B1's launches by path and the chunks'
+        iterations counted from 0: (its value, launches, iterations)."""
+        torch.cuda.synchronize()
+        reset_b1_counts()
+        with ChunkCounter() as chunks:
+            out = body()
+            torch.cuda.synchronize()
+        return out, dict(b1.launch_counts), sum(chunks.iterations)
+
+    def in_order(sch, uids):
+        done = {r.uid: r for r in sch.completed}
+        return [done[u] for u in uids]
+
+    # ------------------------------------------------- fault-free, twice
+    free = []
+    for _ in range(2):
+        sch = scheduler()
+        uids, counts, iters = run(lambda: drained(sch))
+        free.append(in_order(sch, uids))
+        if counts != {"warp": iters, "tile": 0} or not iters or any(
+                r.error or not r.converged for r in free[-1]):
+            fail("reliability: a fault-free drain did not converge every "
+                 "query through B1 'warp' once per chunk iteration")
+    ff = free[0]
+    apart = [(i, a.iterations, b.iterations, a.residual, b.residual)
+             for i, (a, b) in enumerate(zip(*free))
+             if a.iterations != b.iterations]
+    twice_gap = max(result_gap(a, b) for a, b in zip(*free))
+    log(f"reliability: two fault-free drains of {CHAOS_QUERIES} queries: "
+        f"iterations {[r.iterations for r in ff]}, equal in both: "
+        f"{not apart}; largest rank gap between them {twice_gap!r}; B1 "
+        f"launches by path {counts} (chunk iterations {iters})")
+    if apart:
+        log(f"reliability: drains apart (index, iterations, iterations, "
+            f"residual, residual): {apart}")
+        fail("two fault-free drains on the card differ in an iteration "
+             "count")
+
+    # ------------------------------------------------- (a), (b) chaos
+    specs = [FaultSpec("nan_slot", step=2), FaultSpec("inf_slot", step=3),
+             FaultSpec("step_error", step=5)]
+
+    def chaos(max_step_retries):
+        inj = FaultInjector(FaultPlan.of(specs))
+        sch = scheduler(fault_injector=inj, resilience=ResilienceConfig(
+            max_step_retries=max_step_retries))
+        hits, failed = [], []
+        poisons, check_step = inj.poisons, inj.check_step
+
+        def watched_poisons(step, live):
+            # (uid, iterations it has burned once the poisoned chunk ran)
+            out = poisons(step, live)
+            hits.extend((sch._slot_query[slot].uid,
+                         int(sch._iters[slot]) + 1, kind)
+                        for slot, kind in out)
+            return out
+
+        def watched_check(step):
+            flight = {q.uid for q in sch._slot_query if q is not None}
+            try:
+                check_step(step)
+            except InjectedFault:
+                failed.append(flight)
+                raise
+
+        inj.poisons, inj.check_step = watched_poisons, watched_check
+        t0 = time.perf_counter()
+        uids, counts, iters = run(lambda: drained(sch))
+        return (inj, sch, in_order(sch, uids), uids, counts, iters, hits,
+                failed, time.perf_counter() - t0)
+
+    inj, sch, res, uids, counts, iters, hits, _, t_chaos = chaos(1)
+    burned = {u: b for u, b, _ in hits}
+    want = [f.iterations + burned.get(u, 0) for u, f in zip(uids, ff)]
+    chaos_gap = max(result_gap(r, f) for r, f in zip(res, ff))
+    c = sch.metrics.counters
+    log(f"reliability (a) chaos drain, faults {[s.kind for s in specs]} at "
+        f"steps {[s.step for s in specs]}, max_step_retries 1: "
+        f"{t_chaos!r} s; poisoned (uid, iterations burned, kind) {hits}; "
+        f"fault plan exhausted {inj.exhausted}; quarantined "
+        f"{c['quarantined']}, requeued {c['requeued']}, stepper_failures "
+        f"{c['stepper_failures']}; all converged without error "
+        f"{all(r.converged and not r.error for r in res)}; iterations = the "
+        f"fault-free drain's plus those burned: "
+        f"{[r.iterations for r in res] == want}; largest rank gap to it "
+        f"{chaos_gap!r} (<= 1e-6); trace_count {sch.trace_count}; B1 "
+        f"launches by path {counts} (chunk iterations {iters})")
+    if not (inj.exhausted and c["quarantined"] == 2
+            and c["stepper_failures"] == 1 and len(hits) == 2
+            and all(r.converged and not r.error for r in res)
+            and [r.iterations for r in res] == want and chaos_gap <= 1e-6
+            and sch.trace_count == 1
+            and counts == {"warp": iters, "tile": 0} and iters):
+        fail("reliability (a): the chaos drain is not the fault-free one")
+    chaos_counts = counts
+
+    inj, sch, res, uids, counts, iters, hits, failed, t_hard = chaos(0)
+    errs = {u for u, r in zip(uids, res) if r.error}
+    kept_gap = max(result_gap(r, f) for r, f in zip(res, ff) if not r.error)
+    log(f"reliability (b) the same plan, max_step_retries 0: {t_hard!r} s; "
+        f"{len(errs)} queries ended with an error, exactly those in flight "
+        f"at the failure: {failed == [errs]}, all 'stepper failure': "
+        f"{all('stepper failure' in r.error for r in res if r.error)}; the "
+        f"other {len(res) - len(errs)} converged: "
+        f"{all(r.converged for r in res if not r.error)}, largest rank gap "
+        f"to the fault-free drain {kept_gap!r}; B1 launches by path "
+        f"{counts} (chunk iterations {iters})")
+    if not (len(errs) == SERVE_SLOTS and failed == [errs]
+            and all("stepper failure" in r.error for r in res if r.error)
+            and all(r.converged for r in res if not r.error)
+            and kept_gap <= 1e-6 and counts == {"warp": iters, "tile": 0}):
+        fail("reliability (b): a hard stepper failure did not fail exactly "
+             "the in-flight queries")
+
+    # ------------------------------------------------- (c) plan faults
+    inj = FaultInjector(FaultPlan.of([FaultSpec("delta_error", step=1),
+                                      FaultSpec("corrupt_plan", step=2)]))
+    sch = scheduler(fault_injector=inj)
+    stats = plan_cache_stats()
+    builds0, patches0 = stats.plan_builds, stats.plan_patches
+    tries = []
+    for expected in (InjectedFault, ValueError):
+        t0 = time.perf_counter()
+        try:
+            sch.apply_delta(d1)
+        except expected as exc:
+            tries.append((time.perf_counter() - t0, str(exc)))
+        else:
+            fail("reliability (c): apply_delta did not fail")
+    hit = (stats.plan_builds, stats.plan_patches) == (builds0, patches0)
+    small = work[:4]
+
+    def old_plan_drain():
+        for _, ids, kw in small:
+            sch.submit(None if ids is None else seed_vector(n, ids), **kw)
+        sch.run_until_drained()
+
+    _, counts, iters = run(old_plan_drain)
+    c = sch.metrics.counters
+    log(f"reliability (c) plan faults on phase 6's D1: delta_error raised in "
+        f"{tries[0][0]!r} s ({tries[0][1]!r}); corrupt_plan refused in "
+        f"{tries[1][0]!r} s ({tries[1][1][:80]!r}), the patched plan from "
+        f"the plan cache: {hit}; delta_failures {c['delta_failures']}, "
+        f"rebind_count {sch.rebind_count}; the old plan drains "
+        f"{len(sch.completed)} queries, converged "
+        f"{all(r.converged for r in sch.completed)}; B1 launches by path "
+        f"{counts} (chunk iterations {iters})")
+    if not (c["delta_failures"] == 2 and sch.rebind_count == 0
+            and "plan integrity" in tries[1][1] and inj.exhausted
+            and sch.engine.plan is plan0 and len(sch.completed) == len(small)
+            and all(r.converged for r in sch.completed)
+            and counts == {"warp": iters, "tile": 0} and iters):
+        fail("reliability (c): a failed delta did not leave the old plan "
+             "serving")
+
+    # ------------------------------------------------- (d) snapshot
+    sch = scheduler()
+
+    def partial():
+        uids = submit_all(sch)
+        for _ in range(SNAPSHOT_CHUNKS):
+            sch.step()
+        return uids
+
+    uids, counts_pre, _ = run(partial)
+    before = {r.uid for r in sch.completed}
+    flight, queued = sch.active_slots, sch.queued
+    path = os.path.join(tmp.name, "scheduler.npz")
+    t0 = time.perf_counter()
+    snapshot_scheduler(sch, path)
+    t_snap = time.perf_counter() - t0
+    snap_bytes = os.path.getsize(path)
+    kw = dict(engine=engine, slots=SERVE_SLOTS, chunk=SERVE_CHUNK,
+              route="stepper")
+    t0 = time.perf_counter()
+    restored = restore_scheduler(path, g, **kw)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    kept = [q.uid for q in restored._slot_query if q is not None] + [
+        q.uid for q in restored._queue]
+    _, counts, iters = run(restored.run_until_drained)
+    res = [r for r in sch.completed if r.uid in before]
+    done = {r.uid: r for r in res + restored.completed}
+    res = [done[u] for u in uids]
+    snap_gap = max(result_gap(r, f) for r, f in zip(res, ff))
+    same_iters = [r.iterations for r in res] == [f.iterations for f in ff]
+    later = restored.submit(None, tol=tol, max_iters=1)
+    try:
+        restore_scheduler(path, g3, **kw)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    log(f"reliability (d) snapshot {SNAPSHOT_CHUNKS} chunks in ({flight} in "
+        f"flight, {queued} queued, {len(before)} done): {snap_bytes} B "
+        f"written in {t_snap!r} s; restore_scheduler {t_restore!r} s "
+        f"({card}); uids kept {sorted(kept) == sorted(set(uids) - before)}, "
+        f"the next submit's uid {later} > {max(uids)}; iterations equal to "
+        f"the uninterrupted drain's: {same_iters}, largest rank gap "
+        f"{snap_gap!r} (<= 1e-6); trace_count "
+        f"{restored.trace_count}; refused on phase 6's g3: "
+        f"{'fingerprint' in refused}; B1 launches by path before the "
+        f"snapshot {counts_pre}, after the restore {counts} (chunk "
+        f"iterations {iters})")
+    if not (same_iters and snap_gap <= 1e-6 and restored.trace_count == 1
+            and sorted(kept) == sorted(set(uids) - before)
+            and later > max(uids) and "fingerprint" in refused
+            and counts == {"warp": iters, "tile": 0} and iters):
+        fail("reliability (d): the restored drain is not the "
+             "uninterrupted one")
+    del restored, sch
+
+    # ------------------------------------------------- (e) checkpoints
+    cfg = EngineConfig(method="pcpm_pallas", part_size=psz)
+    sess = open_session(g, cfg, device=dev)
+    reset_b1_counts()
+    cold = sess.pagerank(num_iterations=budget, tol=tol)
+    torch.cuda.synchronize()
+    cold_counts = dict(b1.launch_counts)
+    ck = os.path.join(tmp.name, "ranks.npz")
+    t0 = time.perf_counter()
+    sess.save_checkpoint(ck)
+    t_save = time.perf_counter() - t0
+    fresh = open_session(g, cfg, device=dev)
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(ck)
+    t_load = time.perf_counter() - t0
+    reset_b1_counts()
+    warm = fresh.pagerank(warm=True, num_iterations=budget, tol=tol)
+    torch.cuda.synchronize()
+    warm_counts = dict(b1.launch_counts)
+    warm_gap = float((warm.ranks - cold.ranks).abs().max())
+    log(f"reliability (e) rank checkpoint of a cold pcpm_pallas solve "
+        f"({cold.iterations} iterations, plan from the cache: "
+        f"{sess.plan is plan0}; B1 launches by path {cold_counts}): "
+        f"{os.path.getsize(ck)} B saved in {t_save!r} s, loaded into a "
+        f"fresh session in {t_load!r} s ({card}); pagerank(warm=True) "
+        f"{warm.iterations} iterations, {len(warm.residuals)} residuals "
+        f"(cold {len(cold.residuals)}), L-inf to the cold ranks "
+        f"{warm_gap!r} (<= 1e-6); B1 launches by path {warm_counts}")
+    if not (cold_counts == {"tile": cold.iterations, "warp": 0}
+            and warm.iterations < cold.iterations
+            and len(warm.residuals) < len(cold.residuals)
+            and warm_gap <= 1e-6):
+        fail("reliability (e): the restarted session is not warm")
+    restarted = open_session(g, cfg, device=dev)
+    t0 = time.perf_counter()
+    restarted.apply_delta(d1)
+    t_delta = time.perf_counter() - t0
+    restarted.load_checkpoint(ck, g_old=g, delta=d1)
+    reset_b1_counts()
+    t0 = time.perf_counter()
+    chain = restarted.pagerank(warm=True, num_iterations=budget, tol=tol)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    chain_counts = dict(b1.launch_counts)
+    at1, inv1 = card_transpose64(restarted.graph, dev)
+    fixed1 = uniform_fixed_point(at1, inv1, damping)
+    del at1, inv1
+    chain_l1 = float(np.abs(chain.ranks.cpu().numpy().astype(np.float64)
+                            - fixed1).sum())
+    bound = warm_bound(tol, damping)
+    refusals = []
+    for kwargs, match in ((dict(), "different graph"),
+                          (dict(g_old=g, delta=GraphDelta.insert(
+                              np.array([[0, 1]], np.int32))), "delta chain")):
+        try:
+            restarted.load_checkpoint(ck, **kwargs)
+            refusals.append(False)
+        except ValueError as exc:
+            refusals.append(match in str(exc))
+    log(f"reliability (e) restart across D1: apply_delta {t_delta!r} s (the "
+        f"patched plan from the plan cache), load_checkpoint(g_old, delta) "
+        f"and pagerank(warm=True) {t_chain!r} s: {chain.iterations} sweeps "
+        f"(cold {cold.iterations}), L1 vs the float64 fixed point of g + D1 "
+        f"{chain_l1!r} (<= {bound!r}); B1 launches by path {chain_counts}; "
+        f"wrong lineage refused (no delta, a delta off the chain): "
+        f"{refusals} ({card})")
+    if not (chain_counts == {"tile": chain.iterations, "warp": 0}
+            and 0 < chain.iterations < cold.iterations
+            and chain_l1 <= bound and all(refusals)):
+        fail("reliability (e): the restart across the delta chain is not a "
+             "warm update within its bound")
+    tmp.cleanup()
+    torch.cuda.synchronize()
+    log(f"phase 6b (reliability): {time.perf_counter() - t_phase:.1f} s")
+    warp_entry["reliability"] = {
+        "chaos_launches": chaos_counts, "snapshot_bytes": snap_bytes,
+        "snapshot_s": t_snap, "restore_s": t_restore,
+        "reupload_s": t_upload, "plan_fault_s": [t for t, _ in tries]}
+    tile_entry["reliability"] = {
+        "checkpoint_s": t_save, "load_checkpoint_s": t_load,
+        "cold_iterations": cold.iterations,
+        "warm_iterations": warm.iterations, "chain_sweeps": chain.iterations,
+        "chain_launches": chain_counts, "chain_s": t_chain,
+        "chain_l1": chain_l1}
+
+
+# --------------------------------------------------------------- phase 6c
+INGEST_SCALE = 18
+# external ids: internal id i -> i * EXT_MULT mod 2**61, sparse 64-bit
+# labels (an odd multiplier is a bijection modulo a power of two)
+EXT_MULT, EXT_BITS = ID_HASH, 61
+OFFSITE_ONE_IN = 20                   # the filter drops dst % 20 == 0
+
+
+def external_ids(n: int) -> np.ndarray:
+    ids = np.arange(n, dtype=np.uint64) * np.uint64(EXT_MULT)
+    return (ids & np.uint64((1 << EXT_BITS) - 1)).astype(np.int64)
+
+
+def write_edge_list(path, g, ext, header, block=1 << 20) -> None:
+    """``g``'s edges in external ids, one tab-separated line each."""
+    with open(path, "w") as f:
+        f.write(header)
+        for a in range(0, g.num_edges, block):
+            f.write("".join(map("{}\t{}\n".format,
+                                ext[g.src[a:a + block]].tolist(),
+                                ext[g.dst[a:a + block]].tolist())))
+
+
+class IngestTimer:
+    """Seconds spent parsing (inside ``iter_edge_chunks``), mapping ids
+    (``NodeIdMapping.map_chunk``) and deduplicating (``dedup_edges``)
+    during one ``ingest_edge_list`` call, by wrapping the three while
+    installed."""
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(("parse", "id mapping", "dedup"), 0.0)
+
+    def __enter__(self):
+        from repro_torch.ingest import NodeIdMapping
+        from repro_torch.ingest import pipeline
+        sec = self.seconds
+        chunks, map_chunk = pipeline.iter_edge_chunks, NodeIdMapping.map_chunk
+        dedup = pipeline.dedup_edges
+
+        def timed_chunks(*a, **kw):
+            it = chunks(*a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                chunk = next(it, None)
+                sec["parse"] += time.perf_counter() - t0
+                if chunk is None:
+                    return
+                yield chunk
+
+        def timed_map(m, ext):
+            t0 = time.perf_counter()
+            out = map_chunk(m, ext)
+            sec["id mapping"] += time.perf_counter() - t0
+            return out
+
+        def timed_dedup(s, d):
+            t0 = time.perf_counter()
+            out = dedup(s, d)
+            sec["dedup"] += time.perf_counter() - t0
+            return out
+
+        self.saved = [(pipeline, "iter_edge_chunks", chunks),
+                      (NodeIdMapping, "map_chunk", map_chunk),
+                      (pipeline, "dedup_edges", dedup)]
+        pipeline.iter_edge_chunks = timed_chunks
+        NodeIdMapping.map_chunk = timed_map
+        pipeline.dedup_edges = timed_dedup
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+def ingest_phase(dev, card, tile_entry, warp_entry) -> None:
+    """Phase 6c: ingest of an edge list with external ids. A kron graph
+    (phase 3's generator, a/b/c and seed) at scale 18 — cut from the
+    config's 25, past phase 3's 21, because the parser is a per-line
+    Python loop — is written as a tab-separated file of ~8.1M lines in
+    sparse 64-bit ids under a comment header, then ``ingest_edge_list``
+    with an offsite filter (~5% of the edges), self-loops dropped and
+    duplicates removed. Its ``IngestStats`` balance, its ``NodeIdMapping``
+    survives a save/load, and ``res.open(method="pcpm_pallas")`` solves
+    it (B1 "tile" once an iteration) to phase 3's gate against a float64
+    scipy oracle of the ingested graph, with top-10 and serving results
+    in the file's own ids. Adds the counts and times to B1's entries."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.graphs import generators
+    from repro_torch.ingest import LinkFilter, NodeIdMapping, ingest_edge_list
+    from repro_torch.kernels.pcpm_spmv import kernel as b1
+    cfg = kron()
+    damping = cfg.damping
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+
+    g = generators.rmat(INGEST_SCALE, cfg.edge_factor, seed=0)
+    ext = external_ids(g.num_nodes)
+    path = os.path.join(tmp.name, f"kron{INGEST_SCALE}.tsv")
+    header = (f"# kron graph, R-MAT a/b/c 0.57/0.19/0.19, seed 0, scale "
+              f"{INGEST_SCALE}, edge factor {cfg.edge_factor}\n"
+              f"# node ids: dense id * {EXT_MULT:#x} mod 2**{EXT_BITS}\n"
+              "# src\tdst\n")
+    t0 = time.perf_counter()
+    write_edge_list(path, g, ext, header)
+    t_write = time.perf_counter() - t0
+    file_bytes = os.path.getsize(path)
+    offsite = LinkFilter("offsite", lambda s, d: d % OFFSITE_ONE_IN != 0)
+    with IngestTimer() as timer:
+        t0 = time.perf_counter()
+        res = ingest_edge_list(path, filters=[offsite], self_loops="drop",
+                               dedup=True)
+        t_ingest = time.perf_counter() - t0
+    st, sec = res.stats, timer.seconds
+    balance = st.edges_read == (st.edges_kept + sum(st.filtered.values())
+                                + st.self_loops_removed
+                                + st.duplicates_removed)
+    log(f"ingest: {g.num_edges} edges of rmat({INGEST_SCALE}, "
+        f"{cfg.edge_factor}) written as {file_bytes} B of text (numpy "
+        f"{np.__version__}) in "
+        f"{t_write!r} s; ingest_edge_list {t_ingest!r} s "
+        f"({st.edges_read / t_ingest:.0f} edges/s): parse {sec['parse']!r} "
+        f"s, id mapping {sec['id mapping']!r} s, dedup {sec['dedup']!r} s, "
+        f"the rest (filter, self-loops, joins) "
+        f"{t_ingest - sum(sec.values())!r} s ({card}); {st.summary()}; "
+        f"offsite share {st.filtered['offsite'] / st.edges_read:.4f}; "
+        f"read = kept + filtered + self-loops + duplicates: {balance}")
+    if not (balance and st.edges_read == g.num_edges
+            and st.num_nodes == res.graph.num_nodes == res.idmap.num_nodes):
+        fail("ingest: the IngestStats do not balance")
+    idpath = os.path.join(tmp.name, "idmap.npz")
+    t0 = time.perf_counter()
+    res.idmap.save(idpath)
+    loaded = NodeIdMapping.load(idpath)
+    t_idmap = time.perf_counter() - t0
+    same_map = np.array_equal(loaded.external_ids, res.idmap.external_ids)
+    log(f"ingest: NodeIdMapping of {res.idmap.num_nodes} ids saved "
+        f"({os.path.getsize(idpath)} B) and loaded in {t_idmap!r} s: equal "
+        f"{same_map}")
+    if not same_map:
+        fail("ingest: the NodeIdMapping did not survive save/load")
+    del g, ext, loaded
+
+    gi = res.graph
+    t0 = time.perf_counter()
+    sess = res.open(method="pcpm_pallas", part_size=cfg.part_size,
+                    device=dev)
+    t_plan = time.perf_counter() - t0
+    reset_b1_counts()
+    t0 = time.perf_counter()
+    out = sess.pagerank()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    solve_counts = dict(b1.launch_counts)
+    at = transpose_adjacency(gi)
+    oracle = oracle_pagerank(at, gi.out_degree)
+    ranks = out.ranks.cpu().numpy()
+    ext10, _ = sess.top_ranked(10)
+    top = np.lexsort((np.arange(gi.num_nodes), -oracle))[:10]
+    want10 = res.idmap.to_external(top)
+    log(f"ingest: graph n={gi.num_nodes} m={gi.num_edges}; pcpm_pallas plan "
+        f"{t_plan!r} s, solve {out.iterations} iterations {t_solve!r} s "
+        f"({card}); B1 launches by path {solve_counts}; top_ranked(10) in "
+        f"external ids {ext10.tolist()}, the oracle's: "
+        f"{np.array_equal(ext10, want10)}")
+    if solve_counts != {"tile": out.iterations, "warp": 0} or \
+            out.iterations != cfg.num_iterations:
+        fail("ingest: B1 'tile' not launched once per iteration")
+    check_against_oracle("ingested pcpm_pallas", ranks,
+                         res.idmap.to_internal(ext10), oracle)
+    if not np.array_equal(ext10, want10):
+        fail("ingest: top_ranked is not the oracle's top 10 in external ids")
+
+    # serving in external ids: a stepper top-k, a push seeded at one id
+    sch = sess.serve(slots=SERVE_SLOTS, chunk=SERVE_CHUNK)
+    seed_ext = int(res.idmap.external_ids[0])
+    seed_int = int(res.idmap.to_internal(np.int64(seed_ext)))
+    torch.cuda.synchronize()
+    reset_b1_counts()
+    with ChunkCounter() as chunks:
+        u_step = sch.submit(top_k=10, tol=0.0, max_iters=cfg.num_iterations,
+                            route="stepper")
+        u_push = sch.submit(seed_vector(gi.num_nodes, [seed_int]), top_k=10,
+                            tol=PUSH_TOL, route="push")
+        sch.run_until_drained()
+        torch.cuda.synchronize()
+    chunk_iters = chunks.iterations
+    serve_counts = dict(b1.launch_counts)
+    done = {r.uid: r for r in sch.completed}
+    rs, rp = done[u_step], done[u_push]
+    at64 = torch.sparse_csr_tensor(
+        torch.from_numpy(at.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(at.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(at.data).to(dev), size=at.shape)
+    deg = np.asarray(gi.out_degree)
+    inv64 = torch.from_numpy(np.where(deg == 0, 0.0, 1.0 / np.maximum(
+        deg, 1))).to(dev)
+    fixed = personalized_oracle(at64, inv64, [[seed_int]],
+                                [FIXED_POINT_ITERATIONS],
+                                damping)[:, 0].cpu().numpy()
+    del at64, inv64
+    push_l1 = float(np.abs(rp.top_scores - fixed[rp.top_ids]).sum())
+    push_bound = PUSH_TOL * damping / (1.0 - damping)
+    want_tile = rp.iterations + 1
+    log(f"ingest serving: stepper top 10 in external ids "
+        f"{rs.top_external.tolist()}, the same set as top_ranked: "
+        f"{set(rs.top_external.tolist()) == set(want10.tolist())}; push "
+        f"seeded at external id {seed_ext}: {rp.iterations} sweeps, top 10 "
+        f"{rp.top_external.tolist()}, scores L1 vs the float64 fixed point "
+        f"{push_l1!r} (<= {push_bound!r}); B1 launches by path "
+        f"{serve_counts} ('warp' = chunk iterations {sum(chunk_iters)}, "
+        f"'tile' = push sweeps + seeding {want_tile})")
+    ok = (rs.error is None and rp.error is None
+          and rs.top_external is not None and rp.top_external is not None
+          and set(rs.top_external.tolist()) == set(want10.tolist())
+          and np.array_equal(rs.top_external,
+                             res.idmap.to_external(rs.top_ids))
+          and np.array_equal(rp.top_external,
+                             res.idmap.to_external(rp.top_ids))
+          and sch.metrics.traces[u_push].route == "push"
+          and push_l1 <= push_bound
+          and serve_counts == {"warp": sum(chunk_iters), "tile": want_tile})
+    if not ok:
+        fail("ingest: serving results are not the oracle's in external ids")
+    mass = res.virtual_mass(ranks, damping=damping)
+    log(f"ingest: virtual mass per category (rank that would leave through "
+        f"the filtered links) {mass}")
+    if not all(np.isfinite(v) and v > 0 for v in mass.values()):
+        fail("ingest: the virtual mass is not finite and positive")
+    del sess, sch
+    tmp.cleanup()
+    torch.cuda.synchronize()
+    log(f"phase 6c (ingest): {time.perf_counter() - t_phase:.1f} s")
+    tile_entry["ingest"] = {
+        "solve_launches": solve_counts, "serve_launches": serve_counts,
+        "write_s": t_write, "ingest_s": t_ingest, "stages_s": sec,
+        "edges_per_s": st.edges_read / t_ingest, "plan_s": t_plan}
+    warp_entry["ingest"] = {"serve_launches": serve_counts}
 
 
 # --------------------------------------------------------------- phase 7
@@ -2035,7 +2680,18 @@ def main() -> None:
     kernels = [tile_entry, serving_phase(dev, card, reuse, warp_timed)]
     torch.cuda.empty_cache()
     # ---------------------------------------------------- 6. streaming
-    streaming_phase(dev, card, reuse, *kernels)
+    streamed = streaming_phase(dev, card, reuse, *kernels)
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 6b. reliability
+    reliability_phase(dev, card, reuse, streamed, *kernels)
+    # the version chain's cached plans (host arrays, and the first graph's
+    # plans of the four engines with their uploads) go with phases 6-6b
+    from repro_torch.core.plan import evict_plans
+    evict_plans(reuse["g"])
+    del streamed
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 6c. ingest
+    ingest_phase(dev, card, *kernels)
     del reuse
     torch.cuda.empty_cache()
     # ---------------------------------------------------- 7. B3 checks

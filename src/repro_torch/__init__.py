@@ -11,7 +11,10 @@ config), process-cached) and ``repro_torch.core.backends`` (the engine
 registry). The PCPM gather phase of the ``pcpm_pallas`` engine is a
 CUDA kernel (``repro_torch/csrc/pcpm_gather.cu``). Streaming edge deltas
 (``GraphDelta``, ``Session.apply_delta``, ``pagerank(warm=True)``) live
-in ``repro_torch.stream``.
+in ``repro_torch.stream``; fault injection, scheduler snapshots and rank
+checkpoints in ``repro_torch.reliability``; edge-list ingest with
+external ids (``ingest_edge_list``, ``NodeIdMapping``) in
+``repro_torch.ingest``.
 
 LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
 (``transformer``: ``init_lm``, ``forward``, ``prefill``,
@@ -29,6 +32,8 @@ from .core.plan import (GraphPlan, PlanConfig, build_plan,
                         clear_plan_cache, install_plan, plan_cache_stats,
                         plan_from_arrays)
 from .device import resolve_device
+from .ingest import (LinkFilter, NodeIdMapping, VirtualLinks,
+                     ingest_edge_list)
 from .reliability import ResilienceConfig, check_plan_integrity
 from .stream import DynamicGraph, GraphDelta
 
@@ -39,4 +44,5 @@ __all__ = [
     "install_plan", "plan_cache_stats", "plan_from_arrays",
     "resolve_device", "ResilienceConfig", "check_plan_integrity",
     "DynamicGraph", "GraphDelta",
+    "LinkFilter", "NodeIdMapping", "VirtualLinks", "ingest_edge_list",
 ]

@@ -14,13 +14,16 @@ workload from it, on one device:
     sess.apply_delta(GraphDelta.insert(e))  # patch the plan (stream/)
     res  = sess.pagerank(warm=True)         # residual push from the old ranks
     sess.plan.save("web.plan.npz")          # persist the preprocessing
+    sess.save_checkpoint("ranks.npz")       # a restart warm-starts from it
 
 ``device`` defaults to ``"cuda"`` and raises on a machine without CUDA;
-``device="cpu"`` runs on the CPU when asked for.
+``device="cpu"`` runs on the CPU when asked for. ``idmap=`` (an
+``ingest.NodeIdMapping``) makes ``top_ranked`` and serving results speak
+the external ids of an ingested edge list.
 
-Checkpoints, the gateway, observability and the sharded path are later
-slices of the port: those methods and knobs raise
-``NotImplementedError`` naming the slice.
+The gateway, observability and the sharded path are later slices of the
+port: those methods and knobs raise ``NotImplementedError`` naming the
+slice.
 """
 from __future__ import annotations
 
@@ -86,8 +89,7 @@ def _later(what: str, slice_name: str):
 
 # the knobs of later slices that the serving front-ends and EngineConfig
 # accept: each raises naming its slice unless it is at its default
-_LATER_KNOBS = {"fault_injector": "reliability (A6)",
-                "idmap": "ingest (A7)", "obs": "observability (A9)",
+_LATER_KNOBS = {"obs": "observability (A9)",
                 "observe": "observability (A9)",
                 "sharded": "sharded-path (A10)",
                 "num_shards": "sharded-path (A10)"}
@@ -116,7 +118,7 @@ class Session:
     """
 
     def __init__(self, g: Graph, config: EngineConfig | None = None,
-                 *, device=None, **overrides):
+                 *, idmap=None, device=None, **overrides):
         from .device import resolve_device
         cfg = config or EngineConfig()
         if overrides:
@@ -132,6 +134,10 @@ class Session:
         self.device = resolve_device(device)
         self.graph = g
         self.config = cfg
+        # external-id mapping of an ingested graph (ingest/idmap.py),
+        # passed on to serving results and ``top_ranked``; None for
+        # graphs whose ids are already dense
+        self.idmap = idmap
         # build_plan validates the graph at entry (crisp ValueError on
         # out-of-range ids / bad dtypes)
         self.plan: GraphPlan = build_plan(g, cfg.plan_config())
@@ -234,21 +240,83 @@ class Session:
 
     def top_ranked(self, k: int = 10):
         """``(ids, scores)`` of the ``k`` highest-ranked nodes from the
-        last ``pagerank()`` solve, score descending, then lowest id."""
+        last ``pagerank()`` solve, score descending, then lowest id; the
+        ids are external labels when the session carries a
+        ``NodeIdMapping``, the graph's dense ids otherwise."""
         if self._solved_ranks is None:
             raise ValueError("no solve yet: run pagerank() first")
         ranks = self._solved_ranks.cpu().numpy()
         k = min(int(k), ranks.shape[0])
         part = np.argpartition(-ranks, k - 1)[:k]
         ids = part[np.lexsort((part, -ranks[part]))]   # score desc, id asc
+        if self.idmap is not None:
+            return self.idmap.to_external(ids), ranks[ids]
         return ids.astype(np.int64), ranks[ids]
 
-    # ---------------------------------------------- later slices
-    def save_checkpoint(self, path):
-        _later("Session.save_checkpoint", "reliability")
+    # ----------------------------------------------------- checkpoints
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the last solve as a fingerprint-stamped rank
+        checkpoint (reliability/snapshot.py; ranks as float32 on the
+        host), which a restarted process hands to ``load_checkpoint`` to
+        warm-start instead of recomputing. Requires a prior
+        ``pagerank()`` on this session."""
+        if self._solved_ranks is None:
+            raise ValueError("nothing to checkpoint: run pagerank() "
+                             "first")
+        from .reliability.snapshot import save_rank_checkpoint
+        save_rank_checkpoint(
+            path, self._solved_graph,
+            self._solved_ranks.to("cpu", torch.float32).numpy(),
+            residual=self._solved_res, damping=self._solved_key[0],
+            dangling=self._solved_key[1])
 
-    def load_checkpoint(self, path, **kw):
-        _later("Session.load_checkpoint", "reliability")
+    def load_checkpoint(self, path: str, *, g_old: Graph | None = None,
+                        delta=None) -> "Session":
+        """Warm-start this session from a rank checkpoint (its ranks
+        are uploaded to the session's device).
+
+        - The checkpoint's fingerprint is this session's graph's: the
+          ranks become the warm state directly, and the next
+          ``pagerank(warm=True)`` is (nearly) free.
+        - The checkpoint was taken on ``g_old`` and ``delta`` was applied
+          since: pass both. The lineage is proven by fingerprints —
+          ``g_old`` must hash to the checkpoint's and ``g_old + delta`` to
+          this session's graph — and ``pagerank(warm=True)`` then runs
+          the residual push (stream/incremental.py) instead of a cold
+          solve.
+        - Anything else raises ``ValueError``: a checkpoint of another
+          graph must never seed answers."""
+        from .core.plan import graph_fingerprint
+        from .reliability.snapshot import load_rank_checkpoint
+        ckpt = load_rank_checkpoint(path)
+        fp_here = graph_fingerprint(self.graph)
+        if ckpt.graph_fp == fp_here:
+            self._solved_graph = self.graph
+            self._delta_acc = None
+        elif g_old is not None and delta is not None:
+            from .stream.delta import shifted_fingerprint
+            if graph_fingerprint(g_old) != ckpt.graph_fp:
+                raise ValueError(
+                    "checkpoint mismatch: g_old does not hash to the "
+                    "checkpoint's graph fingerprint "
+                    f"({ckpt.graph_fp[:12]}…)")
+            if shifted_fingerprint(ckpt.graph_fp, delta) != fp_here:
+                raise ValueError(
+                    "checkpoint mismatch: g_old + delta is not this "
+                    "session's graph (shifted fingerprint differs) — "
+                    "the delta chain does not connect the checkpoint "
+                    "to the current graph")
+            self._solved_graph = g_old
+            self._delta_acc = delta
+        else:
+            raise ValueError(
+                "checkpoint is for a different graph (fingerprint "
+                f"{ckpt.graph_fp[:12]}… != {fp_here[:12]}…); pass "
+                "g_old= and delta= to warm-start across a delta chain")
+        self._solved_ranks = torch.from_numpy(ckpt.ranks).to(self.device)
+        self._solved_key = (ckpt.damping, ckpt.dangling)
+        self._solved_res = float(ckpt.residual)
+        return self
 
     def serve(self, *, route: str = "auto", **overrides):
         """A continuous-batching ``SlotScheduler`` sharing this
@@ -259,7 +327,7 @@ class Session:
         from .serve.scheduler import SlotScheduler
         cfg = self.config
         kw = dict(slots=cfg.slots, damping=cfg.damping, chunk=cfg.chunk,
-                  dangling=cfg.dangling, route=route)
+                  dangling=cfg.dangling, route=route, idmap=self.idmap)
         kw.update(overrides)
         return SlotScheduler(self.graph, engine=self.engine, **kw)
 
@@ -282,10 +350,12 @@ class Session:
         _later("Session.observe", "observability")
 
 
-def open(g: Graph, config: EngineConfig | None = None, *, device=None,
-         **overrides) -> Session:
+def open(g: Graph, config: EngineConfig | None = None, *, idmap=None,
+         device=None, **overrides) -> Session:
     """Open a :class:`Session` on ``g`` — the public front door.
     ``overrides`` are ``EngineConfig`` fields applied on top of
     ``config`` (or the defaults): ``repro_torch.open(g, method="pdpr")``.
+    ``idmap`` attaches a ``NodeIdMapping`` (ingest/idmap.py) so serving
+    and ``top_ranked`` results carry the graph's external ids.
     ``device`` defaults to ``"cuda"``."""
-    return Session(g, config, device=device, **overrides)
+    return Session(g, config, idmap=idmap, device=device, **overrides)

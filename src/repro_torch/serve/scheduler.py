@@ -39,18 +39,22 @@ degradation under measured SLO pressure, per-slot NaN/Inf quarantine
 (the stepper's freeze rule is finiteness-aware, so a poisoned column
 freezes on the device and is re-admitted from a clean seed or failed
 explicitly) and stepper-failure recovery. All of it is host-side policy
-over the one stepper.
+over the one stepper. A ``reliability.FaultInjector`` (``fault_injector=``)
+poisons columns, fails stepper calls and rebinds on a deterministic plan;
+``reliability.snapshot`` saves and restores the serving state.
 
 Streaming (``apply_delta``): an edge delta patches the plan and rebinds
 the stepper atomically, under both locks, while in-flight columns carry
 over as warm starts.
 
+External ids (``idmap=``, an ``ingest.NodeIdMapping``): top-k results
+also carry ``QueryResult.top_external``, the ids' labels in the file the
+graph was ingested from.
+
 A port of the JAX package's ``serve/scheduler.py``. What depends on
 later slices raises ``NotImplementedError`` naming the slice:
-``fault_injector`` (reliability, A6),
-``idmap`` (ingest, A7), ``gateway()`` and the registry's weighted drain
-(gateway, A8), ``obs`` (observability, A9) and ``sharded=True``
-(sharded path, A10).
+``gateway()`` and the registry's weighted drain (gateway, A8), ``obs``
+(observability, A9) and ``sharded=True`` (sharded path, A10).
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from ..core.spmv import SpMVEngine
 from ..graphs import io as graph_io
 from ..graphs.formats import Graph, validate_graph
 from ..reliability.admission import ResilienceConfig
+from ..reliability.faults import InjectedFault
 from .engine import _normalize_teleport
 from .metrics import ServeMetrics
 from .topk import make_slot_topk
@@ -147,6 +152,10 @@ class QueryResult:
     ranks: Optional[np.ndarray] = None        # (n,) unless top_k set
     top_ids: Optional[np.ndarray] = None      # (k,) int32
     top_scores: Optional[np.ndarray] = None   # (k,) float32
+    # external labels of top_ids when the scheduler carries a
+    # NodeIdMapping (ingest/idmap.py); ranks and top_ids are always the
+    # graph's original ids
+    top_external: Optional[np.ndarray] = None
     error: Optional[str] = None               # explicit terminal failure
     degraded: bool = False                    # approximate-answer mode
 
@@ -170,7 +179,7 @@ class SlotScheduler:
                  resilience: ResilienceConfig | None = None,
                  route: str = "auto", push_tol: float = 1e-4,
                  push_mode: str = "auto", push_max_sweeps: int = 64,
-                 device=None, **later):
+                 fault_injector=None, idmap=None, device=None, **later):
         reject_later_knobs("SlotScheduler", **later)
         if slots < 1:
             raise ValueError(f"need at least one slot; got {slots}")
@@ -196,12 +205,16 @@ class SlotScheduler:
         self._inv = (reorder_inverse(self.engine.plan)
                      if self._perm is not None else None)
         self._g_int = internal_graph(g, self.engine.plan)
+        # ingest/idmap.py: top-k ids are also reported as external labels
+        self.idmap = idmap
         self.metrics = metrics or ServeMetrics()
         self.clock = self.metrics.clock
         self.resilience = resilience or ResilienceConfig()
         self.trace_count = 0          # stepper builds — must stay 1
         self.admit_trace_count = 0    # column-admit builds — must stay 1
         self.rebind_count = 0         # plan swaps (the streaming slice)
+        self._injector = fault_injector       # chaos hook (reliability)
+        self._delta_idx = 0           # apply_delta calls: fault time base
         # forward-push query routing (serve/push.py): route="auto"
         # sends loose-tolerance top-k personalized queries to push,
         # everything else to the stepper; push_tol is the loose/tight
@@ -253,7 +266,7 @@ class SlotScheduler:
         # uses to predict whether a query can make its deadline
         self._iter_s: Optional[float] = None
         self._query_iters: Optional[float] = None
-        self._step_idx = 0
+        self._step_idx = 0            # monotone; fault-plan time base
         self._step_retries = 0
 
     def _init_pool_state(self) -> None:
@@ -318,14 +331,19 @@ class SlotScheduler:
                 "internal id space under the in-flight columns — "
                 "drain and construct a fresh scheduler for the updated "
                 "graph instead")
-        # the JAX package's fault-injector hooks (check_delta,
-        # wants_corrupt) come with the reliability slice (A6)
+        self._delta_idx += 1
+        old_plan = self.engine.plan
         try:
+            if self._injector is not None:
+                self._injector.check_delta(self._delta_idx)
             delta.validate(self.g)
             if g_new is None:
                 g_new = apply_edges(self.g, delta)
-            old_plan = self.engine.plan
             new_plan = patch_plan(old_plan, delta, g_new)
+            if self._injector is not None and \
+                    self._injector.wants_corrupt(self._delta_idx):
+                from ..reliability.faults import corrupt_plan_arrays
+                new_plan = corrupt_plan_arrays(new_plan)
             if self.resilience.verify_plans:
                 from ..reliability.guardrails import check_plan_integrity
                 check_plan_integrity(new_plan)
@@ -495,6 +513,11 @@ class SlotScheduler:
         """Internal-space node ids -> original node ids."""
         return self._inv[ids] if self._perm is not None else ids
 
+    def _externalize(self, ids_orig) -> Optional[np.ndarray]:
+        """Original ids -> external labels, when an idmap is attached."""
+        return (self.idmap.to_external(ids_orig)
+                if self.idmap is not None else None)
+
     def _serve_push(self, q: Query) -> bool:
         """Answer ``q`` inline through the push backend. Returns True
         when a terminal result was produced; False falls through to the
@@ -520,11 +543,12 @@ class SlotScheduler:
                                converged=True, degraded=q.degraded,
                                route="push")
         if q.top_k is not None:
+            ids = self._ids_to_original(np.asarray(res.top_ids))
             result = QueryResult(
                 q.uid, res.sweeps, True, res.residual,
                 self.metrics.traces[q.uid].latency_s,
-                top_ids=self._ids_to_original(np.asarray(res.top_ids)),
-                top_scores=res.top_scores, degraded=q.degraded)
+                top_ids=ids, top_scores=res.top_scores,
+                top_external=self._externalize(ids), degraded=q.degraded)
         else:
             result = QueryResult(
                 q.uid, res.sweeps, True, res.residual,
@@ -661,10 +685,19 @@ class SlotScheduler:
             self._admit_from_queue()
             if not self._active.any():
                 return len(self.completed) - before
+            if self._injector is not None:
+                self._inject_poisons()
             budget = np.minimum(self._max_iters - self._iters,
                                 np.iinfo(np.int32).max).astype(np.int32)
         t0 = time.perf_counter()
         try:
+            if self._injector is not None:
+                try:
+                    self._injector.check_step(self._step_idx)
+                except InjectedFault as exc:
+                    # raised in place of the stepper call: the pool is
+                    # unwritten, so the call may be retried
+                    raise StepperFailure(exc, pool_written=False) from exc
             self._pr, active, took, res = self._step_c(
                 self._pr, self._base, self._put_small(self._active),
                 self._put_small(self._tol),
@@ -727,6 +760,15 @@ class SlotScheduler:
             self._sweep_deadlines()
             return len(self.completed) - before
 
+    def _inject_poisons(self) -> None:
+        """Chaos hook: overwrite scheduled slot columns with NaN/Inf
+        before the next stepper call (in place; nothing is rebuilt)."""
+        live = [s for s in range(self.slots) if self._active[s]]
+        for slot, kind in self._injector.poisons(self._step_idx, live):
+            if self._active[slot]:
+                self._pr[:, slot].fill_(np.nan if kind == "nan_slot"
+                                        else np.inf)
+
     def _update_pressure(self, dt: float, max_took: int) -> None:
         if max_took <= 0:
             return
@@ -736,8 +778,10 @@ class SlotScheduler:
 
     def _recover_step_failure(self, exc: Exception) -> None:
         """A stepper call raised. A transient failure (within
-        ``max_step_retries``) that left the pool unwritten is retried on
-        the next ``step()``. Otherwise the in-flight pool is declared
+        ``max_step_retries``) that left the pool unwritten — the stepper
+        failed before its first write, or an injected ``step_error`` was
+        raised in place of the call — is retried on the next ``step()``.
+        Otherwise the in-flight pool is declared
         lost: the stepper updates ``pr`` in place, so a call that failed
         after its first iteration leaves columns advanced by iterations
         the host never counted. Every active query then fails explicitly
@@ -803,11 +847,12 @@ class SlotScheduler:
                                  else 0.7 * self._query_iters + 0.3 * it)
         if q.top_k is not None:
             ids, scores = self._topk_fn(self._pr, slot, q.top_k)
+            ids = self._ids_to_original(ids.cpu().numpy())
             result = QueryResult(
                 q.uid, it, converged, residual,
                 self.metrics.traces[q.uid].latency_s,
-                top_ids=self._ids_to_original(ids.cpu().numpy()),
-                top_scores=scores.cpu().numpy(), degraded=q.degraded)
+                top_ids=ids, top_scores=scores.cpu().numpy(),
+                top_external=self._externalize(ids), degraded=q.degraded)
         else:
             # a copy even on the CPU: the pool's column is reused
             ranks = self._pr[:, slot].to("cpu", copy=True).numpy()

@@ -117,10 +117,10 @@ def test_later_slices_raise(graphs):
     plan = sess.plan
     assert sess.apply_delta(repro_torch.GraphDelta()) is sess
     assert sess.plan is plan
-    with pytest.raises(NotImplementedError, match="reliability"):
-        sess.save_checkpoint("x")
-    with pytest.raises(NotImplementedError, match="reliability"):
-        sess.load_checkpoint("x")
+    # the reliability slice is in: a checkpoint needs a solve first
+    fresh = repro_torch.open(g, method="pcpm", part_size=256, device="cpu")
+    with pytest.raises(ValueError, match="nothing to checkpoint"):
+        fresh.save_checkpoint("x")
 
 
 def test_bad_config_rejected(graphs):

@@ -6,7 +6,8 @@ on the CPU and the dense oracle; PageRank serving (``SlotScheduler``,
 streaming deltas (patched plans of each method against the CPU, B1 on a
 patched plan against its plain version, ``Session.apply_delta`` with a
 warm update and ``SlotScheduler.apply_delta`` with launches counted by
-path); kernel B3 against its plain version
+path); reliability (a poisoned column quarantined on the card, scheduler
+snapshot/restore, a rank checkpoint round trip); kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), and the smoke LM's
 ``ServeEngine`` on the card against the same run on the CPU; kernel B2
 against its plain version, and the smoke MIND's
@@ -638,6 +639,122 @@ def test_slot_scheduler_apply_delta_on_the_card(cuda_device):
         else:
             np.testing.assert_allclose(ra.top_scores, rb.top_scores,
                                        atol=1e-6)
+
+
+# ------------------------------------------------------------ reliability
+def _stepper_drain(sch, seeds, iters=None):
+    """Submit ``seeds`` (tol 1e-6), drain, and return the results in
+    submit order; ``iters`` collects each chunk's iterations."""
+    if iters is not None:
+        real = sch._step_c
+
+        def step(*a):
+            out = real(*a)
+            iters.append(int(out[2].max()))
+            return out
+
+        sch._step_c = step
+    uids = [sch.submit(s, tol=1e-6, max_iters=300) for s in seeds]
+    sch.run_until_drained()
+    torch.cuda.synchronize()
+    done = {r.uid: r for r in sch.completed}
+    return [done[u] for u in uids]
+
+
+def _seeds(g, k, seed=0):
+    """``k`` teleport vectors of two seed nodes each, drawn among the
+    nodes with out-edges (a seed without them converges at once)."""
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(np.asarray(g.out_degree) > 0)
+    out = []
+    for _ in range(k):
+        s = np.zeros(g.num_nodes, np.float32)
+        s[rng.choice(ids, size=2)] = 1.0
+        out.append(s)
+    return out
+
+
+def test_poisoned_column_quarantined_on_the_card(cuda_device):
+    """A NaN written into a slot column of the pool on the card freezes
+    that column at once; the query is re-admitted from its clean seed and
+    every query ends at the fault-free answers. B1 "warp" runs once per
+    chunk iteration, poisoned chunk included."""
+    from repro_torch.reliability import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.serve import SlotScheduler
+    g = generators.rmat(10, 8, seed=0)
+    kw = dict(method="pcpm_pallas", part_size=256, slots=4, chunk=4,
+              route="stepper", device=cuda_device)
+    seeds = _seeds(g, 8)
+    clean = _stepper_drain(SlotScheduler(g, **kw), seeds)
+    inj = FaultInjector(FaultPlan.of([FaultSpec("nan_slot", step=2,
+                                                slot=1)]))
+    sch = SlotScheduler(g, fault_injector=inj, **kw)
+    iters = []
+    before = dict(kernel.launch_counts)
+    out = _stepper_drain(sch, seeds, iters)
+    counts = {p: kernel.launch_counts[p] - before[p] for p in before}
+    assert inj.exhausted and sch.trace_count == 1
+    assert sch.metrics.counters["quarantined"] == 1
+    assert sch.metrics.counters["requeued"] == 1
+    assert counts == {"warp": sum(iters), "tile": 0}
+    for a, b in zip(out, clean):
+        assert a.converged and a.error is None
+        assert np.abs(a.ranks - b.ranks).max() <= 1e-6
+
+
+def test_snapshot_restore_on_the_card(cuda_device, tmp_path):
+    """Snapshot an rmat(12) pcpm_pallas scheduler on the card three
+    chunks in, restore it into a fresh one and drain: the iteration
+    counts and ranks of the uninterrupted drain."""
+    from repro_torch.reliability import restore_scheduler, snapshot_scheduler
+    from repro_torch.serve import SlotScheduler
+    g = generators.rmat(12, 8, seed=0)
+    kw = dict(method="pcpm_pallas", part_size=512, slots=4, chunk=4,
+              route="stepper", device=cuda_device)
+    seeds = _seeds(g, 8, seed=1)
+    clean = _stepper_drain(SlotScheduler(g, **kw), seeds)
+    sch = SlotScheduler(g, **kw)
+    uids = [sch.submit(s, tol=1e-6, max_iters=300) for s in seeds]
+    for _ in range(3):
+        sch.step()
+    assert sch.active_slots == 4 and sch.queued == 4
+    path = str(tmp_path / "sched.npz")
+    snapshot_scheduler(sch, path)
+    restored = restore_scheduler(path, g, **kw)
+    assert restored.trace_count == 1
+    assert restored._pr.device.type == "cuda"
+    restored.run_until_drained()
+    torch.cuda.synchronize()
+    done = {r.uid: r for r in restored.completed}
+    for u, want in zip(uids, clean):
+        assert done[u].iterations == want.iterations
+        assert np.abs(done[u].ranks - want.ranks).max() <= 1e-6
+
+
+def test_rank_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """``save_checkpoint`` after a pcpm_pallas solve on the card, then a
+    fresh session's ``load_checkpoint`` (ranks uploaded to the card) and
+    ``pagerank(warm=True)``: fewer iterations than cold, within 1e-6."""
+    g = generators.rmat(11, 8, seed=2)
+    kw = dict(method="pcpm_pallas", part_size=256, tol=1e-6,
+              num_iterations=300, device=cuda_device)
+    sess = repro_torch.open(g, **kw)
+    cold = sess.pagerank()
+    path = str(tmp_path / "ck.npz")
+    sess.save_checkpoint(path)
+    fresh = repro_torch.open(g, **kw).load_checkpoint(path)
+    assert fresh._solved_ranks.device.type == "cuda"
+    before = dict(kernel.launch_counts)
+    warm = fresh.pagerank(warm=True)
+    torch.cuda.synchronize()
+    counts = {p: kernel.launch_counts[p] - before[p] for p in before}
+    assert len(warm.residuals) < len(cold.residuals)
+    assert counts["warp"] == 0
+    assert np.abs(warm.ranks.cpu().numpy()
+                  - cold.ranks.cpu().numpy()).max() <= 1e-6
+    cpu = repro_torch.open(g, method="pcpm_pallas", part_size=256,
+                           device="cpu").load_checkpoint(path)
+    assert torch.equal(cpu._solved_ranks, cold.ranks.cpu())
 
 
 # ------------------------------------------------------------- kernel B3

@@ -40,6 +40,11 @@ def test_source_scan_finds_no_jax_or_reference_import():
         r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 16
+    # the reliability and ingest slices are in the scan
+    scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"reliability/faults.py", "reliability/snapshot.py",
+            "ingest/parse.py", "ingest/idmap.py",
+            "ingest/pipeline.py"} <= scanned
     hits = [(str(f.relative_to(REPO)), m.group(0).strip())
             for f in files for m in pattern.finditer(f.read_text())]
     assert not hits, hits

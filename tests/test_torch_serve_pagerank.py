@@ -858,9 +858,7 @@ def test_session_serve_and_server_share_the_plan(graphs):
 def test_later_slices_raise_naming_them(graphs):
     g, _ = graphs
     kw = dict(part_size=PART, device="cpu")
-    for extra, slice_id in ((dict(fault_injector=object()), "A6"),
-                            (dict(idmap=object()), "A7"),
-                            (dict(obs=object()), "A9"),
+    for extra, slice_id in ((dict(obs=object()), "A9"),
                             (dict(sharded=True), "A10"),
                             (dict(num_shards=4), "A10")):
         with pytest.raises(NotImplementedError, match=slice_id):
@@ -872,6 +870,12 @@ def test_later_slices_raise_naming_them(graphs):
         SlotScheduler(g, **kw, no_such_knob=1)
     # the default values of the later knobs pass
     SlotScheduler(g, **kw, sharded=False, num_shards=1, obs=None)
+    # the reliability (A6) and ingest (A7) slices are in
+    from repro_torch.ingest import NodeIdMapping
+    from repro_torch.reliability import FaultInjector, FaultPlan
+    sch = SlotScheduler(g, **kw, fault_injector=FaultInjector(FaultPlan()),
+                        idmap=NodeIdMapping.identity(g.num_nodes))
+    assert sch.idmap.num_nodes == g.num_nodes
     # the streaming slice (A5) is in: an empty delta rebinds in place
     sch = SlotScheduler(g, **kw)
     plan = sch.engine.plan
