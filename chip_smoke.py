@@ -96,7 +96,24 @@ Phases, each of which exits non-zero when it fails:
    and serving (a stepper top 10, a push seeded at one external id)
    answer in external ids. Times: writing, parsing, id mapping, dedup,
    edges/s;
-7. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
+7. the gateway and observability on phase 3's graph and pcpm_pallas
+   plan: an observed session's ``gateway()`` autotunes the slot pool
+   (B in 2-64 under a 25 ms chunk of 8; its probe times the stepper's own
+   SpMV, B1 "warp" fused) with 2 push workers and 1,024 cached results;
+   B1 "warp" at the chosen width against its plain version; 4 submitter
+   threads x 32 queries in phase 5's mix then 32 repeats: every future
+   once with a distinct uid, phase 5's accuracy gates, repeats
+   bit-identical cache hits, B1 "warp" once per chunk iteration and
+   "tile" once per push sweep and seeding, one stepper build; a NaN
+   through phase 6b's fault plan leaves a ``flight-*.jsonl`` dump;
+   queries/s without the cache, observability off and on in alternating
+   rounds (on >= 0.95 x off); inline push latency with the stepper idle
+   and loaded; phase 6's D2 through ``gateway.apply_delta`` under a second
+   storm: the cache invalidated at the commit, repeats re-solved on the
+   new graph within the gates of its float64 oracles; a complete span
+   tree per query, the metrics endpoint as Prometheus text, and
+   ``measure_plan`` of the pcpm plan within 2x of eq. 5;
+8. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
    against its plain version on the same inputs upcast to float32, on
    the card, each call through the path ``b3_path`` names ("tc" for
    bfloat16 with Sq > 1, "split" for Sq = 1, "simt" for float32): the
@@ -106,7 +123,7 @@ Phases, each of which exits non-zero when it fails:
    mixed per-slot lengths) and its prefill shape (4, 2048, causal);
    bfloat16 outputs within rtol 1.6e-2, atol 2e-3 (their rounding; inside
    TestFlashAttention's 5e-2);
-8. the LM serving path: TinyLlama-1.1B at its configured widths
+9. the LM serving path: TinyLlama-1.1B at its configured widths
    (``configs/tinyllama_1_1b.py``: 22 layers, d_model 2048, 32/4 heads,
    d_ff 5632, vocab 32000), random bfloat16 weights from a seeded
    generator; a ``ServeEngine`` with 8 slots and max_len 1024 drains 16
@@ -114,18 +131,18 @@ Phases, each of which exits non-zero when it fails:
    launched once per layer per decode step; then ``prefill`` at
    (4, 2048), and ``decode_step`` over 256 tokens against ``forward`` on
    the same tokens;
-9. times with CUDA events: ms per decode step and tokens/s, prefill ms,
+10. times with CUDA events: ms per decode step and tokens/s, prefill ms,
    B3 beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
    port never calls); the device idle share and top kernels of profiled
    decode steps and prefills, with B3's share of each;
-10. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
+11. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
    against its plain version on the card: the shapes of the JAX
    package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
    in float32 and with a bfloat16 table, pad ids and a negative id (row
    0); then MIND's lookups (one-id bags) on its 10M-row table at the
-   shapes of phase 11, which must give the plain version's rows exactly;
-11. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
+   shapes of phase 12, which must give the plain version's rows exactly;
+12. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
    embed_dim 64, 4 interests, 3 routing iterations, hist_len 50),
    float32 parameters from a seeded generator; ``serve_step`` at
    serve_p99 (B 512) and serve_bulk (B 262,144), ``retrieval_step`` for
@@ -705,7 +722,7 @@ def pagerank_phases(dev, card):
     return entry, timed[16], reuse
 
 
-# ------------------------------------------------- shared by phases 5-6c
+# ------------------------------------------------- shared by phases 5-7
 def reset_b1_counts() -> None:
     """Kernel B1's launch counts, in all and by path, set to 0."""
     from repro_torch.kernels.pcpm_spmv import kernel as b1
@@ -1117,8 +1134,9 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     under in-flight queries (B1 "warp" on the new plan), and the device
     memory across a stream of four more deltas. Adds the launch counts
     and times to B1's two entries of the kernels line. Returns what phase
-    6b reuses: the first delta (D1) and the graph of the rebind (g3); the
-    version chain's plans stay in the plan cache until phase 6b ends."""
+    6b and 7 reuse: the first two deltas (D1, D2) and the graph of the
+    rebind (g3); the version chain's plans stay in the plan cache until
+    phase 7 ends."""
     import torch
     import repro_torch.kernels.pcpm_spmv as b1_pkg
     from repro_torch.core import Partitioning, block_png, build_png
@@ -1350,7 +1368,7 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     # graph, plan and ranks; the dropped scheduler's last plan keeps its
     # uploads in the plan cache and counts as part of the start)
     sweeps0 = prior.iterations
-    streamed = {"d1": d1, "g3": g3}
+    streamed = {"d1": d1, "d2": d2, "g3": g3}
     del sch, patched, g2, g3, warm, cold, prior
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2043,6 +2061,485 @@ def ingest_phase(dev, card, tile_entry, warp_entry) -> None:
 
 
 # --------------------------------------------------------------- phase 7
+GATEWAY_SUBMITTERS, GATEWAY_PER_THREAD = 4, 32
+GATEWAY_REPEATS, DELTA_STORM, LATENCY_PUSHES = 32, 32, 8
+GATEWAY_CANDIDATES = (2, 4, 8, 16, 32, 64)
+GATEWAY_TARGET_S, GATEWAY_PUSH_WORKERS, GATEWAY_CACHE = 0.025, 2, 1024
+QPS_ROUNDS = 4                        # (off, on) pairs, order alternating
+
+
+def prometheus_families(text: str) -> dict:
+    """Parse Prometheus text exposition: {family: type}, failing on a line
+    that is neither a ``# HELP``/``# TYPE`` comment nor a sample
+    ``name{label="value",...} number`` of a family with a ``# TYPE``."""
+    types = {}
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+                        r'(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})?'
+                        r' (\S+)$')
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if kind not in ("counter", "gauge", "histogram"):
+                fail(f"metrics endpoint: unknown type in {line!r}")
+            types[name] = kind
+            continue
+        found = sample.match(line)
+        if not found:
+            fail(f"metrics endpoint: not Prometheus text: {line!r}")
+        float(found.group(5))
+        name = found.group(1)
+        family = next((f for f in (name, name.rsplit("_", 1)[0])
+                       if f in types), None)
+        if family is None:
+            fail(f"metrics endpoint: sample {name!r} without a # TYPE")
+    return types
+
+
+def span_trees(obs, uids) -> int:
+    """Check one complete, well-nested span tree per uid in the flight
+    recorder: one ``query`` root, exactly one ``terminal`` and one
+    ``resolve`` event, every other record a child inside the root's
+    interval. Returns the records checked."""
+    by = {}
+    for r in obs.recorder.snapshot():
+        by.setdefault(r.trace, []).append(r)
+    checked = 0
+    for uid in uids:
+        recs = by.get(uid, [])
+        names = [r.name for r in recs]
+        if not (names.count("query") == names.count("terminal")
+                == names.count("resolve") == 1):
+            fail(f"span tree of uid {uid}: {names}")
+        root = next(r for r in recs if r.name == "query")
+        for r in recs:
+            if r is not root and not (
+                    r.parent_id is not None
+                    and root.t_start <= r.t_start <= r.t_end <= root.t_end):
+                fail(f"span tree of uid {uid}: {r!r} not inside {root!r}")
+        checked += len(recs)
+    return checked
+
+
+def gateway_storm(gw, work, n, *, threads=GATEWAY_SUBMITTERS, **kw):
+    """``work`` (phase 5's mix, ``serving_mix``) submitted to ``gw`` from
+    ``threads`` threads, thread t taking every ``threads``-th request;
+    waits for every future. Returns (results in work order, seconds)."""
+    import threading
+    results = [None] * len(work)
+    errors = []
+
+    def submitter(t):
+        try:
+            futs = [(i, gw.submit(None if work[i][1] is None
+                                  else seed_vector(n, work[i][1]),
+                                  **work[i][2], **kw))
+                    for i in range(t, len(work), threads)]
+            for i, f in futs:
+                results[i] = f.result(timeout=600)
+        except Exception as exc:      # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=submitter, args=(t,))
+          for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in ts):
+        fail(f"gateway storm: a submitter failed or hung: {errors}")
+    return results, seconds
+
+
+def audit(sch, results) -> None:
+    """Every future resolved exactly once to a distinct uid whose trace
+    is terminal and agrees with the result, error-free."""
+    uids = [r.uid for r in results]
+    if len(set(uids)) != len(uids):
+        fail("gateway: a uid was delivered twice")
+    for r in results:
+        tr = sch.metrics.traces[r.uid]
+        if (tr.t_done is None or tr.converged != r.converged
+                or tr.error != r.error or r.error is not None
+                or not r.converged):
+            fail(f"gateway: uid {r.uid} ended as {r.error!r}, converged "
+                 f"{r.converged}, trace {tr}")
+
+
+def mix_gaps(work, results, at64, inv64, damping) -> dict:
+    """Phase 5's gates for converged results of ``serving_mix``: stepper
+    answers against a float64 power iteration from the same seed at their
+    own iteration counts (ranks L1; uniform top 10: the same ids and
+    scores L1), push answers' top-10 scores against the float64 fixed
+    point. Returns the largest gap per kind."""
+    n = at64.shape[0]
+    gaps = dict.fromkeys(range(4), 0.0)
+    # one oracle column per distinct (seed, iterations): the uniform
+    # requests repeat; batches of 32 (n, 32) float64 columns sorted by
+    # their iteration counts
+    columns = {}
+    for i, ((kind, ids, _), r) in enumerate(zip(work, results)):
+        count = FIXED_POINT_ITERATIONS if kind == 1 else r.iterations
+        key = (None if ids is None else tuple(ids), count)
+        columns.setdefault(key, []).append(i)
+    keys = sorted(columns, key=lambda c: c[1])
+    for lo in range(0, len(keys), 32):
+        batch = keys[lo:lo + 32]
+        want = personalized_oracle(
+            at64, inv64, [np.arange(n) if ids is None else list(ids)
+                          for ids, _ in batch],
+            [count for _, count in batch], damping).cpu().numpy()
+        for j, key in enumerate(batch):
+            for i in columns[key]:
+                (kind, _, _), r = work[i], results[i]
+                col = want[:, j]
+                if r.ranks is not None:
+                    gap = float(np.abs(r.ranks.astype(np.float64)
+                                       - col).sum())
+                else:
+                    top = np.lexsort((np.arange(n), -col))[:10]
+                    if kind == 3 and not np.array_equal(r.top_ids, top):
+                        fail(f"gateway uid {r.uid}: top-10 ids differ from "
+                             "the float64 oracle's")
+                    gap = float(np.abs(r.top_scores
+                                       - col[r.top_ids]).sum())
+                gaps[kind] = max(gaps[kind], gap)
+        del want
+    return gaps
+
+
+def check_mix_gaps(label, work, gaps, damping) -> None:
+    bound = PUSH_TOL * damping / (1.0 - damping)
+    kinds = {kind for kind, _, _ in work}
+    said = [f"{what} {gaps[kind]!r}" for kind, what in (
+        (0, "uniform L1"), (3, "uniform top-10 scores L1"),
+        (2, "seeded L1")) if kind in kinds]
+    log(f"{label} vs float64: {', '.join(said)} (each at its own "
+        f"iterations, <= 1e-5); push top-10 scores L1 {gaps[1]!r} vs the "
+        f"fixed point (<= tol*d/(1-d) = {bound!r})")
+    if max(gaps[0], gaps[2], gaps[3]) > 1e-5 or gaps[1] > bound:
+        fail(f"{label} disagrees with the float64 oracle")
+
+
+def route_latencies(obs, sch, results) -> dict:
+    """Client-side latency (the gateway-owned root span: intake to the
+    future's resolution) in ms, p50 and p99 by route."""
+    roots = {r.trace: r.duration_s for r in obs.recorder.snapshot()
+             if r.name == "query"}
+    out = {}
+    for route in ("stepper", "push"):
+        ms = [roots[r.uid] * 1e3 for r in results
+              if (sch.metrics.traces[r.uid].route or "stepper") == route]
+        out[route] = (float(np.percentile(ms, 50)),
+                      float(np.percentile(ms, 99)), len(ms))
+    return out
+
+
+def gateway_phase(dev, card, reuse, streamed, tile_entry,
+                  warp_entry) -> None:
+    """Phase 7: the async front door and observability at kron-21, on
+    phase 3's graph and pcpm_pallas plan. An observed session's
+    ``gateway()`` (autotune to a 25 ms chunk over B in 2-64, chunks of 8,
+    2 push workers, 1,024 cached results); B1 "warp" at the chosen width
+    against its plain version on the plan's tensors; a storm of 4
+    submitter threads x 32 queries in phase 5's mix, then 32 repeats
+    (every future once, phase 5's accuracy gates, bit-identical hits, B1
+    "warp" once per chunk iteration and "tile" once per push sweep and
+    seeding); a NaN injected through phase 6b's fault plan (a crash dump);
+    queries/s with observability off and on; inline push latency with
+    the stepper idle and loaded; phase 6's D2 applied through the gateway
+    under a second storm (the cache invalidated at the commit); span
+    trees, the metrics endpoint and measured comm. Adds a ``gateway``
+    dict to B1's two entries of the kernels line."""
+    import tempfile
+    import threading
+    import torch
+    from repro_torch import EngineConfig, open as open_session
+    from repro_torch.core.plan import PlanConfig, build_plan
+    from repro_torch.gateway import Gateway, GatewayConfig
+    from repro_torch.kernels.pcpm_spmv import (kernel as b1, pcpm_spmv_cuda,
+                                               pcpm_spmv_ref)
+    from repro_torch.obs import vs_model
+    from repro_torch.reliability import (FaultInjector, FaultPlan, FaultSpec,
+                                         ResilienceConfig)
+    g, plan0, at_dev = reuse["g"], reuse["plan"], reuse["at_dev"]
+    d2 = streamed["d2"]
+    n, damping, psz = g.num_nodes, kron().damping, kron().part_size
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+
+    # ------------------------------------------------- 1. the front door
+    sess = open_session(g, EngineConfig(method="pcpm_pallas", part_size=psz,
+                                        chunk=SERVE_CHUNK), device=dev)
+    if sess.plan is not plan0:
+        fail("gateway: phase 3's pcpm_pallas plan is not in the plan cache")
+    obs = sess.observe(capacity=1 << 17, dump_dir=tmp.name)
+    cfg = GatewayConfig(push_workers=GATEWAY_PUSH_WORKERS,
+                        cache_entries=GATEWAY_CACHE,
+                        target_chunk_s=GATEWAY_TARGET_S,
+                        autotune_candidates=GATEWAY_CANDIDATES)
+    t0 = time.perf_counter()
+    gw = sess.gateway(config=cfg)
+    t_tune = time.perf_counter() - t0
+    rep = gw.autotune_report
+    sch = gw._schedulers["default"]
+    width = rep.chosen
+    log(f"gateway autotune (target {GATEWAY_TARGET_S * 1e3:g} ms a chunk of "
+        f"{SERVE_CHUNK}, B in {GATEWAY_CANDIDATES}): chunk ms by B "
+        f"{ {b: t * 1e3 for b, t in rep.probes.items()} }; chosen B "
+        f"{width}; {t_tune:.2f} s with the scheduler's build ({card})")
+    if width not in GATEWAY_CANDIDATES or sch.slots != width or \
+            sch.trace_count != 1:
+        fail("gateway: the autotuned width is not the scheduler's")
+
+    # B1 "warp" at the chosen width, fused, on the plan's own tensors
+    packed = plan0._device[("packed", str(dev))]
+    k, u = packed.update_src.shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xb = torch.randint(0, 16, (n, width), generator=gen,
+                       device=dev).float() / 16
+    err = check_b1(xb, packed.edge_upd, packed.edge_dst, psz,
+                   f"gateway width d={width}", exact=True,
+                   update_src=packed.update_src)
+    args = (xb, packed.update_src, packed.edge_upd, packed.edge_dst)
+    ms = time_ms(lambda: pcpm_spmv_cuda(*args, part_size=psz), reps=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: pcpm_spmv_ref(*args, part_size=psz), reps=2,
+                       warmup=1)
+    library_ms = time_ms(lambda: at_dev @ xb, reps=3, warmup=1)
+    edges = int(((packed.edge_upd < u) & (packed.edge_dst < psz)).sum())
+    bytes_moved = (8 * edges + 4 * plan0.png.num_updates + 4 * width * n
+                   + 4 * width * k * psz)
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = width * edges / PEAK_F32_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"B1 'warp' fused at the gateway's width (d={width}): {ms!r} ms; "
+        f"bound {bound_ms!r} ms ({bytes_moved} B: x and update_src read "
+        f"once); plain version {plain_ms!r} ms; torch.sparse CSR product "
+        f"with A^T (n, {width}) {library_ms!r} ms ({card})")
+    del xb, args
+
+    # ------------------------------------------------- 2. the storm
+    work = serving_mix(np.random.default_rng(3), n,
+                       GATEWAY_SUBMITTERS * GATEWAY_PER_THREAD)
+    torch.cuda.synchronize()
+    reset_b1_counts()
+    with ChunkCounter() as chunks:
+        results, storm_s = gateway_storm(gw, work, n)
+        # 32 exact repeats of requests answered once in the storm (the
+        # seeded ones: a uniform request repeats within the mix itself)
+        again = [i for i, (kind, _, _) in enumerate(work)
+                 if kind in (1, 2)][:GATEWAY_REPEATS]
+        rep_results, rep_s = gateway_storm(gw, [work[i] for i in again], n)
+        torch.cuda.synchronize()
+    storm_counts = dict(b1.launch_counts)
+    audit(sch, results + rep_results)
+    sch.metrics.reconcile()
+    routes = [sch.metrics.traces[r.uid].route for r in results]
+    pushed = [r for r, route in zip(results, routes) if route == "push"]
+    fallbacks = sch.metrics.counters["push_fallbacks"]
+    want_tile = (sum(r.iterations + 1 for r in pushed)
+                 + fallbacks * (sch.push_max_sweeps + 1))
+    hits = [r for r in results if r.cached]
+    identical = all(
+        r.cached and (r.ranks is results[i].ranks if r.ranks is not None
+                      else r.top_scores is results[i].top_scores
+                      and r.top_ids is results[i].top_ids)
+        for r, i in zip(rep_results, again))
+    lat = route_latencies(obs, sch, results)
+    log(f"gateway storm: {len(work)} queries from {GATEWAY_SUBMITTERS} "
+        f"threads in {storm_s:.3f} s, {len(work) / storm_s!r} queries/s; "
+        f"client latency p50/p99 ms: stepper {lat['stepper'][0]!r}/"
+        f"{lat['stepper'][1]!r} ({lat['stepper'][2]} queries), push "
+        f"{lat['push'][0]!r}/{lat['push'][1]!r} ({lat['push'][2]}); "
+        f"{len(hits)} served from the cache within the storm ({card})")
+    log(f"gateway repeats: {len(rep_results)} in {rep_s * 1e3:.2f} ms, all "
+        f"cache hits bit-identical to their first answers: {identical}; "
+        f"trace_count {sch.trace_count}; every future once with a distinct "
+        f"uid: True; B1 launches by path {storm_counts} ('warp' = chunk "
+        f"iterations {sum(chunks.iterations)}: "
+        f"{storm_counts['warp'] == sum(chunks.iterations)}; 'tile' = push "
+        f"sweeps + seedings {want_tile}: {storm_counts['tile'] == want_tile})")
+    if not identical or sch.trace_count != 1:
+        fail("gateway: a repeat was not a bit-identical cache hit, or the "
+             "stepper was built again")
+    if storm_counts != {"warp": sum(chunks.iterations), "tile": want_tile} \
+            or not chunks.iterations:
+        fail("gateway: B1 launches differ from the chunks' iterations and "
+             "the push sweeps")
+    if [route == "push" for route in routes] != [k == 1 for k, _, _
+                                                  in work]:
+        fail("gateway: the single-seed top-k queries were not all pushed")
+    at64, inv64 = card_transpose64(g, dev)
+    check_mix_gaps("gateway storm", work, mix_gaps(work, results, at64,
+                                                   inv64, damping), damping)
+    del at64, inv64
+
+    # ------------------------------------------------- 3. a crash dump
+    inj = FaultInjector(FaultPlan.of([FaultSpec("nan_slot", step=2)]))
+    faulty = sess.serve(slots=2, route="stepper", fault_injector=inj,
+                        resilience=ResilienceConfig(max_retries=0))
+    with Gateway(faulty, config=GatewayConfig(cache_entries=0)) as fgw:
+        # a fixed budget: the query is still in its slot at step 2
+        lost = fgw.submit(None, tol=0.0,
+                          max_iters=STREAM_ITERATIONS).result(timeout=600)
+    dumps = sorted(Path(tmp.name).glob("flight-*.jsonl"))
+    rows = [json.loads(ln) for ln in dumps[0].read_text().splitlines()] \
+        if dumps else [{}]
+    log(f"gateway crash dump: a NaN at step 2 through phase 6b's fault plan "
+        f"(max_retries 0): the future resolved with {lost.error!r}; "
+        f"{[p.name for p in dumps]} holding {len(rows) - 1} records (schema "
+        f"{rows[0].get('schema')}, crash_dump event "
+        f"{any(r.get('name') == 'crash_dump' for r in rows[1:])}); "
+        f"crash_dumps_total "
+        f"{obs.registry.counter_value('crash_dumps_total')}")
+    if not (inj.exhausted and lost.error and "quarantined" in lost.error
+            and len(dumps) == 1 and rows[0].get("schema") == 1
+            and any(r.get("name") == "crash_dump" for r in rows[1:])):
+        fail("gateway: the injected NaN did not leave a flight-recorder dump")
+    del faulty
+
+    # ------------------------------------------------- 4. observability cost
+    nocache = GatewayConfig(push_workers=GATEWAY_PUSH_WORKERS,
+                            cache_entries=0)
+    gws = {"off": Gateway(sess.serve(slots=width, obs=None), config=nocache),
+           "on": Gateway(sess.serve(slots=width), config=nocache)}
+    for key in gws:         # the push workers' engines, the pools' pages
+        gateway_storm(gws[key], work, n)
+    best = {"off": 0.0, "on": 0.0}
+    runs = []
+    for i in range(QPS_ROUNDS):
+        for key in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            _, sec = gateway_storm(gws[key], work, n)
+            runs.append((key, len(work) / sec))
+            best[key] = max(best[key], len(work) / sec)
+    for key in gws:
+        gws[key].close()
+    log(f"gateway observability cost: queries/s of the storm without the "
+        f"cache, best of {QPS_ROUNDS} after a warm-up storm each, in the "
+        f"order off on on off ...: off {best['off']!r}, on "
+        f"{best['on']!r} (ratio {best['on'] / best['off']!r}, >= 0.95); "
+        f"runs in order {runs} ({card})")
+    if best["on"] < 0.95 * best["off"]:
+        fail("gateway: observability costs more than 5% of queries/s")
+    del gws
+
+    # ------------------------------------------------- 5. push latency
+    pushes = [seed_vector(n, [int(i)]) for i in
+              np.random.default_rng(11).integers(0, n, LATENCY_PUSHES)]
+
+    def push_ms():
+        out = []
+        for s in pushes:
+            t0 = time.perf_counter()
+            r = gw.submit(s, top_k=10, tol=PUSH_TOL,
+                          use_cache=False).result(timeout=600)
+            out.append((time.perf_counter() - t0) * 1e3)
+            if r.error or not r.converged:
+                fail(f"gateway push latency: {r.error!r}")
+        return out
+
+    idle = push_ms()
+    load = [gw.submit(None, tol=0.0, max_iters=STREAM_ITERATIONS,
+                      use_cache=False) for _ in range(2 * width)]
+    time.sleep(0.5)                           # the stepper is under way
+    busy = sch.active_slots
+    loaded = push_ms()
+    for f in load:
+        if f.result(timeout=600).error:
+            fail("gateway push latency: the stepper load failed")
+    log(f"gateway inline push latency ({LATENCY_PUSHES} pushes one at a "
+        f"time, top 10 at tol {PUSH_TOL}): stepper idle p50 "
+        f"{float(np.median(idle))!r} ms, max {max(idle)!r} ms; stepper "
+        f"loaded ({busy} of {width} slots busy, {2 * width} fixed-budget "
+        f"queries) p50 {float(np.median(loaded))!r} ms, max "
+        f"{max(loaded)!r} ms ({card})")
+
+    # ------------------------------------------------- 6. a delta, live
+    old_fp = sch.engine.plan.graph_fp
+    storm2 = serving_mix(np.random.default_rng(4), n, DELTA_STORM)
+    out2 = {}
+    t0 = time.perf_counter()
+    storm_thread = threading.Thread(target=lambda: out2.update(zip(
+        ("results", "s"), gateway_storm(gw, storm2, n, threads=2))))
+    storm_thread.start()
+    time.sleep(0.05)                          # the storm is in flight
+    dropped = gw.apply_delta(d2).result(timeout=900)
+    t_delta = time.perf_counter() - t0
+    storm_thread.join(timeout=900)
+    if storm_thread.is_alive() or "results" not in out2:
+        fail("gateway: the storm across the delta did not finish")
+    after = [gw.submit(None if work[i][1] is None
+                       else seed_vector(n, work[i][1]),
+                       **work[i][2]).result(timeout=600) for i in again]
+    audit(sch, out2["results"] + after)
+    new_fp = sch.engine.plan.graph_fp
+    log(f"gateway apply_delta(D2: {d2.num_added} + {d2.num_removed} edges) "
+        f"under a storm of {DELTA_STORM}: committed after {t_delta:.2f} s; "
+        f"rebind_count {sch.rebind_count}, trace_count {sch.trace_count}; "
+        f"the cache dropped {dropped} entries at the commit; "
+        f"the {len(after)} repeats after it: cache hits "
+        f"{sum(r.cached for r in after)} (0: solved on the new "
+        f"fingerprint ...{new_fp[-12:]}, not served from "
+        f"...{old_fp[-12:]}) ({card})")
+    if not (sch.rebind_count == 1 and sch.trace_count == 2
+            and dropped >= len(again) and new_fp != old_fp
+            and not any(r.cached for r in after)):
+        fail("gateway: the delta's commit did not invalidate the cache")
+    g2 = sch.g
+    at2, inv2 = card_transpose64(g2, dev)
+    repeated = [work[i] for i in again]
+    check_mix_gaps("gateway repeats after D2 (g + D2)", repeated,
+                   mix_gaps(repeated, after, at2, inv2, damping), damping)
+    del at2, inv2
+
+    # ------------------------------------------------- 7. observability
+    every = results + rep_results + out2["results"] + after
+    records = span_trees(obs, [r.uid for r in every])
+    text = gw.metrics_endpoint()
+    families = prometheus_families(text)
+    gw.close()
+    pcpm_plan = build_plan(g, PlanConfig(method="pcpm", part_size=psz))
+    cmp_ = vs_model(pcpm_plan)
+    log(f"gateway span trees: {len(every)} queries, {records} records, one "
+        f"root, terminal and resolve each, well nested: True; flight "
+        f"recorder held {len(obs.recorder)} of {obs.recorder.recorded} "
+        f"(dropped {obs.recorder.dropped}); metrics endpoint "
+        f"{len(text)} B, {len(families)} families, Prometheus text: True; "
+        f"comm of the gateway's pcpm_pallas plan: "
+        f"{obs.comm.summary() or 'not accounted (as in the JAX package)'}")
+    log(f"measure_plan of the kron-{SCALE} pcpm plan: "
+        f"{cmp_['measured_bytes_per_iter']} B/iteration against eq. 5's "
+        f"{cmp_['model_bytes_per_iter']!r} B: ratio {cmp_['ratio']!r} "
+        f"(within 2x: {0.5 <= cmp_['ratio'] <= 2.0})")
+    if obs.recorder.dropped or not 0.5 <= cmp_["ratio"] <= 2.0:
+        fail("gateway: the flight recorder dropped records, or measure_plan "
+             "is not within 2x of eq. 5")
+    phase_counts = dict(b1.launch_counts)
+    obs.close()
+    tmp.cleanup()
+    torch.cuda.synchronize()
+    log(f"gateway B1 launches by path in the phase after the storm's "
+        f"counters were reset: {phase_counts}; phase 7 (gateway): "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    shared = {"width": width, "probes_ms": rep.summary()["probes_ms"],
+              "storm_launches": storm_counts,
+              "queries_per_s": len(work) / storm_s,
+              "latency_ms": lat, "qps_off_on": best,
+              "push_latency_ms": {"idle": idle, "loaded": loaded},
+              "delta_s": t_delta}
+    tile_entry["gateway"] = shared
+    warp_entry["gateway"] = {**shared, "ms_at_width": ms,
+                             "plain_ms_at_width": plain_ms,
+                             "bound_ms_at_width": bound_ms,
+                             "library_ms_at_width": library_ms,
+                             "max_abs_err_at_width": err}
+
+
+# --------------------------------------------------------------- phase 8
 def b3_inputs(dev, gen, b, hq, hkv, sq, skv, d, dtype):
     """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), standard normal."""
     import torch
@@ -2124,7 +2621,7 @@ def check_b3_shapes(dev) -> dict:
     return cases
 
 
-# --------------------------------------------------------------- phase 8
+# --------------------------------------------------------------- phase 9
 def sdpa_call(q, k, v, *, causal, kv_len=None):
     """``scaled_dot_product_attention`` on the same inputs, the
     yardstick: heads-major views of the (B, S, H, D) tensors, GQA by
@@ -2357,7 +2854,7 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
             b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
 
 
-# --------------------------------------------------------------- phase 10
+# --------------------------------------------------------------- phase 11
 def check_b2(table, idx, w, label, tol) -> float:
     """Launch B2 once, hold it against the plain version; max abs err."""
     import torch
@@ -2408,7 +2905,7 @@ def check_b2_shapes(dev) -> None:
         fail("B2 negative id: not row 0 (the reference's clip)")
 
 
-# --------------------------------------------------------------- phase 11
+# --------------------------------------------------------------- phase 12
 def zipf_ids(rng, shape, vocab) -> np.ndarray:
     """int32 item ids in [0, vocab) whose popularity follows Zipf(ZIPF_A)."""
     ranks = rng.zipf(ZIPF_A, size=shape).astype(np.uint64)
@@ -2684,27 +3181,29 @@ def main() -> None:
     torch.cuda.empty_cache()
     # ---------------------------------------------------- 6b. reliability
     reliability_phase(dev, card, reuse, streamed, *kernels)
-    # the version chain's cached plans (host arrays, and the first graph's
-    # plans of the four engines with their uploads) go with phases 6-6b
-    from repro_torch.core.plan import evict_plans
-    evict_plans(reuse["g"])
-    del streamed
     torch.cuda.empty_cache()
     # ---------------------------------------------------- 6c. ingest
     ingest_phase(dev, card, *kernels)
-    del reuse
     torch.cuda.empty_cache()
-    # ---------------------------------------------------- 7. B3 checks
+    # ---------------------------------------------------- 7. the gateway
+    gateway_phase(dev, card, reuse, streamed, *kernels)
+    # the version chain's cached plans (host arrays, and the first graph's
+    # plans of the four engines with their uploads) go with phases 6-7
+    from repro_torch.core.plan import evict_plans
+    evict_plans(reuse["g"])
+    del streamed, reuse
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 8. B3 checks
     b3_cases = check_b3_shapes(dev)
-    # ---------------------------------------------------- 8-9. LM serving
+    # ---------------------------------------------------- 9-10. LM serving
     kernels += lm_phases(dev, card, b3_cases)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # ---------------------------------------------------- 10. B2 checks
+    # ---------------------------------------------------- 11. B2 checks
     check_b2_shapes(dev)
-    # ---------------------------------------------------- 10-11. MIND serving
+    # ---------------------------------------------------- 11-12. MIND serving
     kernels += mind_phases(dev, card)
-    log(f"phases 10-11 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
+    log(f"phases 11-12 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -14,7 +14,11 @@ CUDA kernel (``repro_torch/csrc/pcpm_gather.cu``). Streaming edge deltas
 in ``repro_torch.stream``; fault injection, scheduler snapshots and rank
 checkpoints in ``repro_torch.reliability``; edge-list ingest with
 external ids (``ingest_edge_list``, ``NodeIdMapping``) in
-``repro_torch.ingest``.
+``repro_torch.ingest``; the async front door (``Gateway``,
+``Session.gateway()``: futures, a warm-result cache, slot autotune,
+weighted-fair QoS) in ``repro_torch.gateway``; span tracing, the flight
+recorder, metrics and measured comm (``Observability``,
+``Session.observe()``) in ``repro_torch.obs``.
 
 LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
 (``transformer``: ``init_lm``, ``forward``, ``prefill``,
@@ -32,8 +36,11 @@ from .core.plan import (GraphPlan, PlanConfig, build_plan,
                         clear_plan_cache, install_plan, plan_cache_stats,
                         plan_from_arrays)
 from .device import resolve_device
+from .gateway import Gateway, GatewayConfig
 from .ingest import (LinkFilter, NodeIdMapping, VirtualLinks,
                      ingest_edge_list)
+from .obs import (FlightRecorder, MetricsRegistry, Observability,
+                  Tracer)
 from .reliability import ResilienceConfig, check_plan_integrity
 from .stream import DynamicGraph, GraphDelta
 
@@ -45,4 +52,6 @@ __all__ = [
     "resolve_device", "ResilienceConfig", "check_plan_integrity",
     "DynamicGraph", "GraphDelta",
     "LinkFilter", "NodeIdMapping", "VirtualLinks", "ingest_edge_list",
+    "Gateway", "GatewayConfig",
+    "FlightRecorder", "MetricsRegistry", "Observability", "Tracer",
 ]

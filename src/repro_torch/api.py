@@ -11,6 +11,8 @@ workload from it, on one device:
     ids, scores = sess.top_ranked(10)
     sch  = sess.serve()                     # continuous-batching pool
     srv  = sess.server(batch=8)             # lockstep batch server
+    gw   = sess.gateway()                   # async front door (futures)
+    obs  = sess.observe()                   # spans, metrics, comm
     sess.apply_delta(GraphDelta.insert(e))  # patch the plan (stream/)
     res  = sess.pagerank(warm=True)         # residual push from the old ranks
     sess.plan.save("web.plan.npz")          # persist the preprocessing
@@ -21,9 +23,8 @@ workload from it, on one device:
 ``ingest.NodeIdMapping``) makes ``top_ranked`` and serving results speak
 the external ids of an ingested edge list.
 
-The gateway, observability and the sharded path are later slices of the
-port: those methods and knobs raise ``NotImplementedError`` naming the
-slice.
+The sharded path is a later slice of the port: its knobs raise
+``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ class EngineConfig:
     # run layer: serving
     slots: int = 4
     chunk: int = 8
-    # observability (the observability slice): False here
+    # observability: attach an ``obs.Observability`` bundle at open
     observe: bool = False
 
     def plan_config(self) -> PlanConfig:
@@ -89,9 +90,7 @@ def _later(what: str, slice_name: str):
 
 # the knobs of later slices that the serving front-ends and EngineConfig
 # accept: each raises naming its slice unless it is at its default
-_LATER_KNOBS = {"obs": "observability (A9)",
-                "observe": "observability (A9)",
-                "sharded": "sharded-path (A10)",
+_LATER_KNOBS = {"sharded": "sharded-path (A10)",
                 "num_shards": "sharded-path (A10)"}
 
 
@@ -129,8 +128,7 @@ class Session:
                 "fused consumers (pagerank/serve run one device loop, "
                 "where the host-side phase barrier does not exist); "
                 "build a two-phase SpMVEngine directly for phase timing.")
-        reject_later_knobs("EngineConfig", num_shards=cfg.num_shards,
-                           observe=cfg.observe)
+        reject_later_knobs("EngineConfig", num_shards=cfg.num_shards)
         self.device = resolve_device(device)
         self.graph = g
         self.config = cfg
@@ -138,6 +136,12 @@ class Session:
         # passed on to serving results and ``top_ranked``; None for
         # graphs whose ids are already dense
         self.idmap = idmap
+        # observability bundle — None until ``observe()`` is called or
+        # ``cfg.observe`` asks for it (before the plan builds, so the
+        # session's own preprocessing is on the record)
+        self._obs = None
+        if cfg.observe:
+            self.observe()
         # build_plan validates the graph at entry (crisp ValueError on
         # out-of-range ids / bad dtypes)
         self.plan: GraphPlan = build_plan(g, cfg.plan_config())
@@ -151,12 +155,37 @@ class Session:
         self._solved_res = np.inf
         self._delta_acc = None
 
+    # --------------------------------------------------- observability
+    def observe(self, *, capacity: int = 8192, dump_dir=None):
+        """Attach (or return) this session's ``Observability`` bundle.
+        Idempotent: the first call creates it — span tracer over a
+        bounded flight recorder, metrics registry, measured-comm
+        accountant — and later calls return the same one (their
+        arguments are then ignored). Handles created after it exists
+        (``serve()``/``gateway()``) report through it, and so do this
+        session's ``pagerank`` and ``apply_delta``."""
+        if self._obs is None:
+            from .obs import Observability
+            self._obs = Observability(capacity=capacity,
+                                      dump_dir=dump_dir)
+        return self._obs
+
+    @property
+    def obs(self):
+        """The session's ``Observability`` bundle, or None."""
+        return self._obs
+
     def stats(self) -> dict:
-        """Process-level plan-cache counters and the session's shape."""
+        """Process-level plan-cache counters and the session's shape,
+        and — when observing — the metrics registry, comm summary and
+        flight-recorder occupancy."""
         from .core.plan import plan_cache_stats
-        return {"plan_cache": dataclasses.asdict(plan_cache_stats()),
-                "method": self.config.method, "device": str(self.device),
-                "n": self.plan.num_nodes, "m": self.plan.num_edges}
+        out = {"plan_cache": dataclasses.asdict(plan_cache_stats()),
+               "method": self.config.method, "device": str(self.device),
+               "n": self.plan.num_nodes, "m": self.plan.num_edges}
+        if self._obs is not None:
+            out["obs"] = self._obs.stats()
+        return out
 
     # ---------------------------------------------------------- deltas
     def apply_delta(self, delta) -> "Session":
@@ -174,13 +203,24 @@ class Session:
         from .core.plan import release_device
         from .stream.delta import apply_delta as apply_edges
         from .stream.patch import patch_plan
-        g_new = apply_edges(self.graph, delta)
+        sp = (self._obs.tracer.start("session_delta", trace="plan",
+                                     adds=len(delta.add_src),
+                                     removes=len(delta.rem_src))
+              if self._obs is not None else None)
         old_plan = self.plan
-        self.plan = patch_plan(old_plan, delta, g_new)
+        try:
+            g_new = apply_edges(self.graph, delta)
+            self.plan = patch_plan(old_plan, delta, g_new)
+        except Exception as e:
+            if sp is not None:
+                sp.end(status="error", error=repr(e))
+            raise
         self.graph = g_new
         self.engine = SpMVEngine(g_new, plan=self.plan, device=self.device)
         if self.plan is not old_plan:
             release_device(old_plan)
+        if sp is not None:
+            sp.end(n=g_new.num_nodes, m=int(g_new.src.shape[0]))
         if self._solved_graph is not None:
             self._delta_acc = (delta if self._delta_acc is None
                                else self._delta_acc + delta)
@@ -220,17 +260,34 @@ class Session:
         warm_hit = (warm and self._solved_ranks is not None
                     and self._solved_key == key
                     and 0.0 < tol and self._solved_res <= tol)
-        if warm_hit:
-            from .stream.delta import GraphDelta
-            from .stream.incremental import update_ranks
-            res = update_ranks(
-                self.plan, self._delta_acc or GraphDelta.of(),
-                self._solved_ranks, g_old=self._solved_graph,
-                g_new=self.graph, damping=kw["damping"],
-                dangling=kw["dangling"], tol=tol, max_push=budget,
-                device=self.device)
-        else:
-            res = pagerank(self.graph, engine=self.engine, **kw)
+        sp = (self._obs.tracer.start(
+                  "solve", trace="plan", method=self.config.method,
+                  warm=bool(warm_hit), n=self.plan.num_nodes)
+              if self._obs is not None else None)
+        try:
+            if warm_hit:
+                from .stream.delta import GraphDelta
+                from .stream.incremental import update_ranks
+                res = update_ranks(
+                    self.plan, self._delta_acc or GraphDelta.of(),
+                    self._solved_ranks, g_old=self._solved_graph,
+                    g_new=self.graph, damping=kw["damping"],
+                    dangling=kw["dangling"], tol=tol, max_push=budget,
+                    device=self.device)
+            else:
+                res = pagerank(self.graph, engine=self.engine, **kw)
+        except Exception as e:
+            if sp is not None:
+                sp.end(status="error", error=repr(e))
+            raise
+        if sp is not None:
+            if not warm_hit:
+                # measured comm: one full pass per executed iteration
+                # (warm pushes are sparse and don't stream the whole
+                # edge structure)
+                self._obs.comm.record_solve(self.plan, res.iterations)
+            sp.end(iterations=res.iterations,
+                   residual=float((res.residuals or [np.inf])[-1]))
         self._solved_graph = self.graph
         self._solved_ranks = res.ranks
         self._solved_key = key
@@ -327,9 +384,40 @@ class Session:
         from .serve.scheduler import SlotScheduler
         cfg = self.config
         kw = dict(slots=cfg.slots, damping=cfg.damping, chunk=cfg.chunk,
-                  dangling=cfg.dangling, route=route, idmap=self.idmap)
+                  dangling=cfg.dangling, route=route, idmap=self.idmap,
+                  obs=self._obs)
         kw.update(overrides)
         return SlotScheduler(self.graph, engine=self.engine, **kw)
+
+    def gateway(self, *, config=None, autotune: bool = True,
+                **overrides):
+        """An async serving front door over this session's plan
+        (``repro_torch.gateway``): one device thread steps the slot pool,
+        a worker pool answers push-eligible queries inline, and
+        ``submit()`` returns a future at once, with a warm-result LRU
+        serving repeats in O(k).
+
+        ``autotune=True`` probes the engine's measured multi-vector SpMV
+        (the call the stepper makes at width B) and sizes the slot pool
+        against ``config.target_chunk_s`` instead of the session's
+        static ``slots``; an explicit ``slots=`` override wins. The
+        chosen size and the probe curve are ``gateway.autotune_report``.
+        """
+        from .gateway import Gateway, GatewayConfig, autotune_slots
+        cfg = config or GatewayConfig()
+        report = None
+        if autotune and "slots" not in overrides:
+            report = autotune_slots(
+                self.engine, chunk=overrides.get("chunk",
+                                                 self.config.chunk),
+                target_chunk_s=cfg.target_chunk_s,
+                candidates=cfg.autotune_candidates,
+                default=self.config.slots)
+            overrides["slots"] = report.chosen
+        sch = self.serve(**overrides)
+        gw = Gateway(sch, config=cfg)
+        gw.autotune_report = report
+        return gw
 
     def server(self, *, batch: int = 1, **overrides):
         """A lockstep ``PageRankServer`` sharing this session's plan
@@ -342,12 +430,6 @@ class Session:
         kw.update(overrides)
         return PageRankServer(self.graph, engine=self.engine,
                               batch=batch, **kw)
-
-    def gateway(self, **kw):
-        _later("Session.gateway", "gateway")
-
-    def observe(self, **kw):
-        _later("Session.observe", "observability")
 
 
 def open(g: Graph, config: EngineConfig | None = None, *, idmap=None,

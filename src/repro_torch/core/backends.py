@@ -126,12 +126,17 @@ def normalize_config(cfg: PlanConfig) -> PlanConfig:
 
 
 def _cached(plan: GraphPlan, name: str, device: torch.device, make):
-    """``plan._device[(name, device)]``, made on first use."""
+    """``plan._device[(name, device)]``, made on first use, once: threads
+    that reach a plan's first use together (the gateway's device thread
+    and push workers) wait on the plan's lock for the one upload."""
     key = (name, str(device))
     val = plan._device.get(key)
     if val is None:
-        val = make()
-        plan._device[key] = val
+        with plan._lock:
+            val = plan._device.get(key)
+            if val is None:
+                val = make()
+                plan._device[key] = val
     return val
 
 

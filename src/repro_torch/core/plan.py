@@ -30,6 +30,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import threading
+import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -73,7 +76,11 @@ class GraphPlan:
 
     ``_device`` is a runtime-only cache (device uploads per device,
     packed kernel layouts, closures, the fused-loop cache) — it never
-    participates in plan identity.
+    participates in plan identity. ``_lock`` guards its lazy fills
+    (``backends._cached``) and ``release_device``: under the gateway a
+    device thread and push workers can reach a plan's first use
+    together, and each fill (the packed streams, B1's "tile" gather
+    order) must run once. A ``dataclasses.replace`` copy shares both.
     """
     config: PlanConfig
     num_nodes: int
@@ -103,6 +110,8 @@ class GraphPlan:
     # (``internal_graph`` / ``reorder_inverse`` below)
     reorder_perm: Optional[np.ndarray] = None    # (n,) int32, old -> new
     _device: dict = dataclasses.field(default_factory=dict, repr=False)
+    _lock: Any = dataclasses.field(default_factory=threading.RLock,
+                                   repr=False)
 
     # ------------------------------------------------------------- views
     @property
@@ -307,11 +316,32 @@ def clear_plan_cache() -> None:
     _STATS.plan_patches = 0
 
 
+# Observability taps (obs/__init__.py ``Observability`` registers
+# itself). WeakSet: a dropped bundle stops receiving events without an
+# unregister call; emission with no observers is one falsy check.
+_PLAN_OBSERVERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
 def add_plan_observer(obs) -> None:
-    """Plan build/hit/patch notifications come with the observability
-    slice of the port."""
-    from ..api import _later
-    _later("add_plan_observer", "observability (A9)")
+    """Register an object with a ``plan_event(name, **attrs)`` method to
+    receive plan build/hit/patch notifications (held weakly)."""
+    _PLAN_OBSERVERS.add(obs)
+
+
+def remove_plan_observer(obs) -> None:
+    _PLAN_OBSERVERS.discard(obs)
+
+
+def notify_plan_event(name: str, **attrs) -> None:
+    """Fan an event out to the registered observers. An observer's error
+    is swallowed (telemetry must never fail a build); nothing else is."""
+    if not _PLAN_OBSERVERS:
+        return
+    for obs in list(_PLAN_OBSERVERS):
+        try:
+            obs.plan_event(name, **attrs)
+        except Exception:
+            pass
 
 
 def peek_plan(fp: str, config: PlanConfig) -> Optional[GraphPlan]:
@@ -403,8 +433,12 @@ def shared_png(g: Graph, part_size: int) -> PNGLayout:
         _touch(_PNG_CACHE, key)
         return png
     _STATS.png_builds += 1
+    t0 = time.perf_counter()
     png = build_png(g, Partitioning(g.num_nodes, part_size))
     _bounded_insert(_PNG_CACHE, MAX_CACHED_PNGS, key, png)
+    notify_plan_event("png_build", part_size=part_size,
+                      n=g.num_nodes, m=g.num_edges,
+                      duration_s=time.perf_counter() - t0)
     return png
 
 
@@ -422,8 +456,11 @@ def build_plan(g: Graph, config: PlanConfig | None = None) -> GraphPlan:
     if plan is not None:
         _STATS.plan_hits += 1
         _touch(_PLAN_CACHE, key)
+        notify_plan_event("plan_cache_hit", method=cfg.method,
+                          fp=fp[:12])
         return plan
     _STATS.plan_builds += 1
+    t0 = time.perf_counter()
     if cfg.reorder != "none":
         # build every layout on the RELABELED graph (contiguous hub
         # labels raise PNG compression), but stamp the ORIGINAL graph's
@@ -438,6 +475,10 @@ def build_plan(g: Graph, config: PlanConfig | None = None) -> GraphPlan:
     if plan.graph_fp is None:
         plan = dataclasses.replace(plan, graph_fp=fp)
     _bounded_insert(_PLAN_CACHE, MAX_CACHED_PLANS, key, plan)
+    notify_plan_event("plan_build", method=cfg.method,
+                      n=g.num_nodes, m=g.num_edges,
+                      reorder=cfg.reorder, fp=fp[:12],
+                      duration_s=time.perf_counter() - t0)
     return plan
 
 
@@ -498,8 +539,11 @@ def release_device(plan: GraphPlan) -> None:
     leave, which the plan cache keeps for its host arrays: at kron-21
     each version would otherwise pin ≈1.15 GB of the card. A closure a
     live consumer still holds keeps its own tensors, so an older handle
-    keeps working; a later use of the plan uploads again."""
-    plan._device.clear()
+    keeps working; a later use of the plan uploads again. Under the
+    plan's lock, so an upload in progress on another thread finishes
+    first."""
+    with plan._lock:
+        plan._device.clear()
 
 
 def plan_nbytes(plan: GraphPlan) -> int:

@@ -41,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -60,9 +61,12 @@ WARP_THREADS = 256
 # Calls of ``pcpm_gather_cuda`` and ``pcpm_spmv_cuda`` that launched on
 # the card in this process (CPU calls of the plain version do not count),
 # in all and per path; both forms of "warp" count as "warp". Reset by
-# assigning 0 and ``dict.fromkeys(PATHS, 0)``.
+# assigning 0 and ``dict.fromkeys(PATHS, 0)``. The gateway's device
+# thread and push workers launch concurrently: ``_count_lock`` keeps
+# their increments from losing one another.
 launch_count = 0
 launch_counts = dict.fromkeys(PATHS, 0)
+_count_lock = threading.Lock()
 # What the last build did: seconds spent in nvcc (0.0 when the library
 # was already built) and the compiler's report (registers, spills).
 build_seconds = 0.0
@@ -285,8 +289,9 @@ def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"pcpm_gather kernel launch failed (path "
                            f"{path!r}): CUDA error {err}")
-    launch_count += 1
-    launch_counts[path] += 1
+    with _count_lock:
+        launch_count += 1
+        launch_counts[path] += 1
     return out
 
 

@@ -18,10 +18,11 @@ versions — so a file written by either package loads in the other:
   shifted fingerprint proves the lineage) by warm-starting the
   residual-push update (stream/incremental.py) from it.
 
-The JAX package's snapshot also dumps the flight recorder of an attached
-observability bundle (the observability slice, A9) and places restored
-columns on a sharded pool (the sharded-path slice, A10); a port
-scheduler has neither, so neither is reached here.
+A scheduler with an observability bundle (``obs``) records a
+``snapshot`` event and parks its flight recorder beside the state as
+``<path>.trace.jsonl``, as the JAX package does. The JAX package also
+places restored columns on a sharded pool (the sharded-path slice, A10);
+a port scheduler has none, so that is not reached here.
 """
 from __future__ import annotations
 
@@ -137,6 +138,14 @@ def snapshot_scheduler(sch, path: str) -> None:
                             bool),
         seeds=(np.stack(seeds) if k else np.zeros((0, n), np.float32)),
         cols=(np.stack(cols) if k else np.zeros((0, n), np.float32)))
+    obs = sch.obs
+    if obs is not None:
+        # the snapshot is a forensics moment: park the flight recorder
+        # next to the state
+        obs.tracer.event("snapshot", trace="plan", path=str(path),
+                         in_flight=int(sum(1 for _, _, fl in specs
+                                           if fl)), queued=len(sch._queue))
+        obs.recorder.dump(f"{path}.trace.jsonl")
 
 
 def restore_scheduler(path: str, g, **scheduler_kwargs):

@@ -51,10 +51,20 @@ External ids (``idmap=``, an ``ingest.NodeIdMapping``): top-k results
 also carry ``QueryResult.top_external``, the ids' labels in the file the
 graph was ingested from.
 
-A port of the JAX package's ``serve/scheduler.py``. What depends on
-later slices raises ``NotImplementedError`` naming the slice:
-``gateway()`` and the registry's weighted drain (gateway, A8), ``obs``
-(observability, A9) and ``sharded=True`` (sharded path, A10).
+Observability (``obs=``, an ``obs.Observability``): each query carries a
+``QuerySpans`` tree (``queue``/``slot``/``push`` children, ``topk``/
+``readback``/``terminal`` events), each stepper call a ``chunk`` span
+with its measured comm, each rebind a ``rebind`` span; a query lost to
+quarantine or a stepper failure dumps the flight recorder. With
+``obs=None`` every hook is one ``is None`` branch.
+
+Threading: ``submit`` is safe from any thread and ``step`` has one
+caller, which is what the async front door (``repro_torch.gateway``)
+builds on; ``GraphRegistry.run_until_drained`` interleaves graphs
+weighted-fair (``gateway.qos.WeightedFair``).
+
+A port of the JAX package's ``serve/scheduler.py``. ``sharded=True``
+(the sharded path, A10) raises ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
@@ -67,7 +77,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..api import _later, reject_later_knobs
+from ..api import reject_later_knobs
 from ..core.backends import resolve_engine
 from ..core.pagerank import (StepperFailure, _inv_degree,
                              masked_chunk_stepper)
@@ -137,6 +147,10 @@ class Query:
     # admitted column then cleared (a later quarantine retry re-admits
     # the clean seed, not the possibly-poisoned estimate)
     warm_start: Optional[np.ndarray] = None
+    # per-query span bundle (obs/trace.py QuerySpans) when the owning
+    # scheduler/gateway observes; None otherwise — every span hook is
+    # one ``q.obs is not None`` branch
+    obs: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -158,6 +172,9 @@ class QueryResult:
     top_external: Optional[np.ndarray] = None
     error: Optional[str] = None               # explicit terminal failure
     degraded: bool = False                    # approximate-answer mode
+    # served from the gateway's warm-result cache: the arrays are the
+    # cached solve's, bit-identical, O(k) to serve
+    cached: bool = False
 
 
 class SlotScheduler:
@@ -179,7 +196,8 @@ class SlotScheduler:
                  resilience: ResilienceConfig | None = None,
                  route: str = "auto", push_tol: float = 1e-4,
                  push_mode: str = "auto", push_max_sweeps: int = 64,
-                 fault_injector=None, idmap=None, device=None, **later):
+                 fault_injector=None, idmap=None, obs=None, device=None,
+                 **later):
         reject_later_knobs("SlotScheduler", **later)
         if slots < 1:
             raise ValueError(f"need at least one slot; got {slots}")
@@ -209,6 +227,10 @@ class SlotScheduler:
         self.idmap = idmap
         self.metrics = metrics or ServeMetrics()
         self.clock = self.metrics.clock
+        # observability bundle (obs/__init__.py) — None keeps every
+        # hot-path hook to one falsy branch. Set before _build_stepper
+        # so the construction's build is recorded.
+        self.obs = obs
         self.resilience = resilience or ResilienceConfig()
         self.trace_count = 0          # stepper builds — must stay 1
         self.admit_trace_count = 0    # column-admit builds — must stay 1
@@ -294,13 +316,26 @@ class SlotScheduler:
         validate and build a rebind before committing anything. Called
         once at construction and once per ``apply_delta``; the admit,
         extract and top-k paths depend only on shapes and are not
-        rebuilt."""
+        rebuilt.
+
+        With ``obs`` each build is recorded as an ``xla_compile`` event
+        (``kind="stepper"``), the JAX package's name for its stepper
+        compile: here it marks the one build of the stepper (and of the
+        plan's device uploads, when this is their first use)."""
+        t0 = time.perf_counter()
         gi = internal_graph(g, engine.plan)
         step = masked_chunk_stepper(engine, damping=self.damping,
                                     chunk=self.chunk,
                                     dangling=self.dangling)
+        inv_deg = _inv_degree(gi, engine.device)
         self.trace_count += 1
-        return step, _inv_degree(gi, engine.device)
+        if self.obs is not None:
+            self.obs.tracer.event(
+                "xla_compile", trace="plan", kind="stepper",
+                method=engine.method, slots=self.slots,
+                trace_count=self.trace_count,
+                duration_s=time.perf_counter() - t0)
+        return step, inv_deg
 
     def apply_delta(self, delta, *, g_new: Graph | None = None) -> None:
         """Swap the scheduler onto the delta-updated graph WITHOUT
@@ -333,6 +368,9 @@ class SlotScheduler:
                 "graph instead")
         self._delta_idx += 1
         old_plan = self.engine.plan
+        rsp = (self.obs.tracer.start("rebind", trace="plan",
+                                     delta_idx=self._delta_idx)
+               if self.obs is not None else None)
         try:
             if self._injector is not None:
                 self._injector.check_delta(self._delta_idx)
@@ -350,8 +388,11 @@ class SlotScheduler:
             new_engine = SpMVEngine(g_new, plan=new_plan,
                                     device=self.device)
             step, inv_deg = self._build_stepper(new_engine, g_new)
-        except Exception:
+        except Exception as exc:
             self.metrics.incr("delta_failures")
+            if rsp is not None:
+                rsp.end(status="error",
+                        error=f"{type(exc).__name__}: {exc}")
             raise
         # commit under both locks: the step thread must not dispatch
         # against a half-swapped (plan, stepper, inv_deg) triple, and
@@ -369,12 +410,16 @@ class SlotScheduler:
             self.rebind_count += 1
         if new_plan is not old_plan:
             release_device(old_plan)
+        if rsp is not None:
+            rsp.end(rebind_count=self.rebind_count,
+                    n=g_new.num_nodes, m=g_new.num_edges)
 
     # ------------------------------------------------------------ intake
     def submit(self, seeds: np.ndarray | None = None, *,
                top_k: int | None = None, tol: float = 1e-6,
                max_iters: int = 100, deadline_s: float | None = None,
-               priority: int = 0, route: str | None = None) -> int:
+               priority: int = 0, route: str | None = None,
+               _spans=None) -> int:
         """Enqueue one query; returns its uid. ``seeds`` is an (n,)
         teleport distribution (need not be normalized — it is; float64
         is taken as float32, as the JAX package takes it), or None for
@@ -400,7 +445,9 @@ class SlotScheduler:
         uid is still returned.
 
         Thread-safe: intake state commits under the scheduler's lock;
-        push compute runs outside it on a per-thread engine."""
+        push compute runs outside it on a per-thread engine.
+        ``_spans`` is the gateway's ``QuerySpans`` root, opened at its
+        intake; without it an observing scheduler opens its own."""
         route, use_push = self.validate_request(
             seeds is not None, top_k=top_k, tol=tol,
             max_iters=max_iters, route=route)
@@ -412,12 +459,20 @@ class SlotScheduler:
                 seed = seed[self._inv]        # into internal space
         if deadline_s is None:
             deadline_s = self.resilience.default_deadline_s
+        spans = _spans
+        if spans is None and self.obs is not None:
+            from ..obs.trace import QuerySpans
+            spans = QuerySpans(self.obs.tracer,
+                               self.obs.tracer.start("query",
+                                                     route=route))
         with self._lock:
             deadline = (self.clock() + deadline_s
                         if deadline_s is not None else None)
             uid = next_uid()
             q = Query(uid, seed, top_k, float(tol), int(max_iters),
-                      deadline, int(priority))
+                      deadline, int(priority), obs=spans)
+            if spans is not None:
+                spans.bind(uid)
             self.metrics.submitted(uid)
         if use_push and self._serve_push(q):
             return uid                # answered inline, never queued
@@ -428,6 +483,8 @@ class SlotScheduler:
                 self._terminal(q, error=f"rejected: admission queue "
                                         f"full ({cap})")
                 return uid
+            if q.obs is not None:
+                q.obs.start_child("queue")
             self._queue.append(q)
         return uid
 
@@ -525,6 +582,8 @@ class SlotScheduler:
         consumed sweeps charged against the budget when the push ran
         but stopped above its bound (honest fallback, counted)."""
         self.metrics.admitted(q.uid)   # service starts now, no queue
+        if q.obs is not None:
+            q.obs.start_child("push")
         try:
             res = self._push_engine().query(
                 q.seed, tol=q.tol,
@@ -532,11 +591,16 @@ class SlotScheduler:
                 top_k=q.top_k)
         except Exception:             # noqa: BLE001 — fall back, count
             self.metrics.incr("push_failures")
+            if q.obs is not None:
+                q.obs.end_child("push", status="error")
             return False
         if not res.converged:
             self.metrics.incr("push_fallbacks")
             q.iters_done = res.sweeps
             q.warm_start = res.estimate
+            if q.obs is not None:
+                q.obs.end_child("push", status="fallback",
+                                sweeps=res.sweeps)
             return False
         self.metrics.incr("push_served")
         self.metrics.completed(q.uid, iterations=res.sweeps,
@@ -555,6 +619,9 @@ class SlotScheduler:
                 self.metrics.traces[q.uid].latency_s,
                 ranks=self._vec_to_original(res.estimate),
                 degraded=q.degraded)
+        if q.obs is not None:
+            q.obs.end_child("push", sweeps=res.sweeps)
+            q.obs.finish(served="push", iterations=res.sweeps)
         with self._lock:
             self.completed.append(result)
         return True
@@ -577,6 +644,8 @@ class SlotScheduler:
         expiry) — explicit terminal state, never a silent drop."""
         self.metrics.completed(q.uid, iterations=0, converged=False,
                                error=error, degraded=q.degraded)
+        if q.obs is not None:
+            q.obs.finish(status="error", error=error)
         self.completed.append(QueryResult(
             q.uid, 0, False, None,
             self.metrics.traces[q.uid].latency_s, error=error,
@@ -620,6 +689,7 @@ class SlotScheduler:
             self.metrics.incr("degraded")
 
     def _admit(self, slot: int, q: Query) -> None:
+        was_warm = q.warm_start is not None   # cleared below, one-shot
         seed = (self._uniform_seed if q.seed is None
                 else torch.from_numpy(q.seed).to(self.device))
         # the column admit: the seed as the column's start and its
@@ -640,6 +710,13 @@ class SlotScheduler:
         self._max_iters[slot] = q.max_iters
         self._slot_res[slot] = -1.0
         self.metrics.admitted(q.uid)
+        if q.obs is not None:
+            # a quarantine re-admission closes the previous slot span
+            # with status="retry" (QuerySpans.start_child): the span tree
+            # shows each occupancy as its own interval
+            q.obs.end_child("queue")
+            q.obs.start_child("slot", slot=slot, retries=q.retries,
+                              warm=was_warm)
         if q.max_iters <= q.iters_done:
             # degenerate: no budget left — serve the column as-is
             self._finish(slot, q, residual=None)
@@ -689,6 +766,10 @@ class SlotScheduler:
                 self._inject_poisons()
             budget = np.minimum(self._max_iters - self._iters,
                                 np.iinfo(np.int32).max).astype(np.int32)
+        csp = (self.obs.tracer.start(
+                   "chunk", trace="device", step=self._step_idx,
+                   active=int(self._active.sum()))
+               if self.obs is not None else None)
         t0 = time.perf_counter()
         try:
             if self._injector is not None:
@@ -706,11 +787,22 @@ class SlotScheduler:
             # iteration active.any() reads)
             active, took, res = _read_chunk(active, took, res)
         except Exception as exc:      # noqa: BLE001 — resilience layer
+            if csp is not None:
+                csp.end(status="error",
+                        error=f"{type(exc).__name__}: {exc}")
             with self._lock:
                 self._recover_step_failure(exc)
                 return len(self.completed) - before
         self._step_retries = 0
         ran = self._active.copy()
+        if csp is not None:
+            iters = int(took.max()) if took.size else 0
+            csp.end(iters=iters)
+            # measured bytes: the stepper computes the full (n, B) state
+            # per pass whatever the freeze mask, so B columns is the
+            # honest ncols (obs/comm.py)
+            self.obs.comm.record_pass(self.engine.plan, iters=iters,
+                                      ncols=self.slots)
         with self._lock:
             self._iters += took
             self._update_pressure(time.perf_counter() - t0,
@@ -828,6 +920,12 @@ class SlotScheduler:
         it = int(self._iters[slot])
         self.metrics.completed(q.uid, iterations=it, converged=False,
                                error=error, degraded=q.degraded)
+        if q.obs is not None:
+            q.obs.finish(status="error", error=error, iterations=it)
+        if self.obs is not None:
+            # the forensics moment: the in-flight query was lost to
+            # quarantine or a stepper failure — preserve the ring
+            self.obs.crash_dump(f"uid {q.uid}: {error}")
         self.completed.append(QueryResult(
             q.uid, it, False, None,
             self.metrics.traces[q.uid].latency_s, error=error,
@@ -842,10 +940,15 @@ class SlotScheduler:
         converged = residual is not None and 0.0 <= residual < q.tol
         self.metrics.completed(q.uid, iterations=it, converged=converged,
                                degraded=q.degraded)
+        if q.obs is not None:
+            q.obs.end_child("slot", iterations=it, converged=converged,
+                            residual=residual)
         if converged:
             self._query_iters = (float(it) if self._query_iters is None
                                  else 0.7 * self._query_iters + 0.3 * it)
         if q.top_k is not None:
+            if q.obs is not None:
+                q.obs.event("topk", k=q.top_k)
             ids, scores = self._topk_fn(self._pr, slot, q.top_k)
             ids = self._ids_to_original(ids.cpu().numpy())
             result = QueryResult(
@@ -854,6 +957,8 @@ class SlotScheduler:
                 top_ids=ids, top_scores=scores.cpu().numpy(),
                 top_external=self._externalize(ids), degraded=q.degraded)
         else:
+            if q.obs is not None:
+                q.obs.event("readback", n=self.n)
             # a copy even on the CPU: the pool's column is reused
             ranks = self._pr[:, slot].to("cpu", copy=True).numpy()
             result = QueryResult(
@@ -861,6 +966,9 @@ class SlotScheduler:
                 self.metrics.traces[q.uid].latency_s,
                 ranks=self._vec_to_original(ranks),
                 degraded=q.degraded)
+        if q.obs is not None:
+            q.obs.finish(iterations=it, converged=converged,
+                         degraded=q.degraded)
         self.completed.append(result)
         self._slot_query[slot] = None
         self._active[slot] = False
@@ -895,9 +1003,12 @@ class GraphRegistry:
     An optional ``memory_budget_bytes`` bounds the summed plan footprint
     (``core.plan.plan_nbytes``): adding a graph past the budget evicts
     least-recently-used idle graphs — never one with queued or in-flight
-    queries — releasing their plan-cache chains (``evict_plans``). The
-    weighted-fair drain across graphs (``run_until_drained``) and
-    ``gateway()`` come with the gateway slice.
+    queries — releasing their plan-cache chains (``evict_plans``).
+
+    Multi-graph QoS: each graph carries a weighted-fair ``share``;
+    ``run_until_drained`` and the gateway's device loop interleave
+    stepper chunks in share proportion, so one hot graph cannot starve
+    the others.
     """
 
     def __init__(self, *, memory_budget_bytes: int | None = None,
@@ -996,15 +1107,33 @@ class GraphRegistry:
                 return                # all busy — defer, stay over
             self.evict(min(victims, key=lambda n: self._last_used[n]))
 
-    # ------------------------------------------------ later slices
-    def run_until_drained(self, *, max_chunks: int = 100_000):
-        """The weighted-fair drain across graphs comes with the gateway
-        slice; drain one graph with ``get(name).run_until_drained()``."""
-        _later("GraphRegistry.run_until_drained (WeightedFair)",
-               "gateway (A8)")
+    # ------------------------------------------------ weighted drain
+    def run_until_drained(self, *, max_chunks: int = 100_000
+                          ) -> dict[str, list[QueryResult]]:
+        """Serve every registered graph to empty, interleaving stepper
+        chunks weighted-fair by share (stride scheduling) instead of
+        draining graphs one after another — what the gateway's device
+        loop does under live traffic."""
+        from ..gateway.qos import WeightedFair
+        start = {n: len(s.completed)
+                 for n, s in self._schedulers.items()}
+        fair = WeightedFair(self._shares)
+        for _ in range(max_chunks):
+            busy = [n for n in self._schedulers if self._busy(n)]
+            if not busy:
+                break
+            self._schedulers[fair.pick(busy)].step()
+        else:
+            raise RuntimeError(f"not drained after {max_chunks} chunks")
+        return {n: s.completed[start[n]:]
+                for n, s in self._schedulers.items()}
 
     def gateway(self, config=None):
-        _later("GraphRegistry.gateway", "gateway (A8)")
+        """Async front door over every registered graph — one device
+        thread interleaving schedulers by share (repro_torch.gateway)."""
+        from ..gateway import Gateway
+        return Gateway(dict(self._schedulers),
+                       shares=dict(self._shares), config=config)
 
     def names(self) -> list[str]:
         return sorted(self._schedulers)

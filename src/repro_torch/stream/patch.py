@@ -360,6 +360,8 @@ def patch_plan(plan: GraphPlan, delta: GraphDelta, g_new: Graph, *,
     else:
         plan_mod.plan_cache_stats().plan_patches += 1
         new_plan = backend.patch_plan(plan, g_new, delta)
-    # the JAX package notifies its plan observers here ("plan_patch");
-    # they come with the observability slice (A9)
+    plan_mod.notify_plan_event(
+        "plan_patch", method=cfg.method, rebuilt=rebuilt,
+        adds=len(delta.add_src), removes=len(delta.rem_src),
+        dirty_frac=dirty_frac)
     return install_plan(g_new, new_plan)

@@ -104,13 +104,20 @@ def test_cuda_is_the_default_and_raises_without_it(graphs):
 def test_later_slices_raise(graphs):
     g, _ = graphs
     sess = repro_torch.open(g, method="pcpm", part_size=256, device="cpu")
-    for name in ("gateway", "observe"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            getattr(sess, name)()
-    for kw in (dict(num_shards=2), dict(observe=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            repro_torch.open(g, method="pcpm", part_size=256, device="cpu",
-                             **kw)
+    with pytest.raises(NotImplementedError, match="slice"):
+        repro_torch.open(g, method="pcpm", part_size=256, device="cpu",
+                         num_shards=2)
+    # the gateway (A8) and observability (A9) slices are in
+    obs = sess.observe()
+    assert sess.observe() is obs and sess.obs is obs
+    with sess.gateway(autotune=False, slots=2) as gw:
+        assert gw.obs is obs
+        assert gw.submit(None, tol=1e-6).result(timeout=60).converged
+    observed = repro_torch.open(g, method="pcpm", part_size=256,
+                                device="cpu", observe=True)
+    assert observed.obs is not None and "obs" in observed.stats()
+    obs.close()
+    observed.obs.close()
     # the streaming slice is in: a warm call with no prior solve is a
     # cold one, and an empty delta keeps the plan
     assert sess.pagerank(warm=True).iterations == sess.config.num_iterations

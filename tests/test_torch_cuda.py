@@ -7,7 +7,9 @@ streaming deltas (patched plans of each method against the CPU, B1 on a
 patched plan against its plain version, ``Session.apply_delta`` with a
 warm update and ``SlotScheduler.apply_delta`` with launches counted by
 path); reliability (a poisoned column quarantined on the card, scheduler
-snapshot/restore, a rank checkpoint round trip); kernel B3 against its plain version
+snapshot/restore, a rank checkpoint round trip); the observed gateway
+(autotuned width, launches by path, one upload per plan under racing
+threads, observability's cost in queries/s); kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), and the smoke LM's
 ``ServeEngine`` on the card against the same run on the CPU; kernel B2
 against its plain version, and the smoke MIND's
@@ -755,6 +757,219 @@ def test_rank_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     cpu = repro_torch.open(g, method="pcpm_pallas", part_size=256,
                            device="cpu").load_checkpoint(path)
     assert torch.equal(cpu._solved_ranks, cold.ranks.cpu())
+
+
+# ------------------------------------------------- gateway, observability
+def _gateway_mix(n, count, seed=3):
+    """(seeds, kwargs) in the chip smoke's serving mix by ``i % 4``:
+    uniform, one seed top-k (pushed), four seeds, uniform top-k, each at
+    a tolerance it reaches."""
+    rng = np.random.default_rng(seed)
+    work = []
+    for i in range(count):
+        kind = i % 4
+        s = None
+        if kind in (1, 2):
+            s = np.zeros(n, np.float32)
+            s[rng.integers(0, n, size=1 if kind == 1 else 4)] = 1.0
+        work.append((s, dict(top_k=10 if kind in (1, 3) else None,
+                             tol=1e-3 if kind == 1 else 1e-6,
+                             max_iters=200)))
+    return work
+
+
+def test_gateway_on_the_card_matches_cpu(cuda_device):
+    """The observed gateway over a pcpm_pallas plan on the card: the
+    autotuned width, every future once, B1 "warp" once per chunk
+    iteration and "tile" once per push sweep and seeding, one complete
+    span tree per query, a repeat served bit-identical from the cache,
+    answers within 1e-6 of the same requests on a CPU scheduler; B1
+    "warp" at the autotuned width against its plain version on the
+    plan's own tensors."""
+    import threading
+    from repro_torch.gateway import GatewayConfig
+    from repro_torch.serve import SlotScheduler
+    g = generators.rmat(11, 8, seed=4)
+    sess = repro_torch.open(g, method="pcpm_pallas", part_size=256,
+                            chunk=4, device=cuda_device)
+    obs = sess.observe()
+    cfg = GatewayConfig(target_chunk_s=10.0, autotune_candidates=(2, 4, 8),
+                        push_workers=2)
+    work = _gateway_mix(g.num_nodes, 24)
+    gw = sess.gateway(config=cfg)
+    sch = gw._schedulers["default"]
+    assert gw.autotune_report.chosen == sch.slots == 8
+    iters = []
+    real = sch._step_c
+
+    def step(*a):
+        out = real(*a)
+        iters.append(int(out[2].max()))
+        return out
+
+    sch._step_c = step
+    before = dict(kernel.launch_counts)
+    results = [None] * len(work)
+
+    def submitter(part):
+        futs = [(i, gw.submit(work[i][0], **work[i][1])) for i in part]
+        for i, f in futs:
+            results[i] = f.result(timeout=300)
+
+    ts = [threading.Thread(target=submitter, args=(range(k, 24, 2),))
+          for k in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in ts)
+    torch.cuda.synchronize()
+    counts = {p: kernel.launch_counts[p] - before[p] for p in before}
+    repeat = gw.submit(work[2][0], **work[2][1]).result(timeout=300)
+    gw.close()
+    assert len({r.uid for r in results}) == 24
+    assert all(r.error is None and r.converged for r in results)
+    routes = [sch.metrics.traces[r.uid].route for r in results]
+    # a uniform request may be served from the cache by the time its
+    # twin is submitted
+    assert [route == "push" for route in routes] == [
+        i % 4 == 1 for i in range(24)]
+    pushed = [r for r, route in zip(results, routes) if route == "push"]
+    assert counts == {"warp": sum(iters),
+                      "tile": sum(r.iterations + 1 for r in pushed)}
+    assert sch.trace_count == 1
+    assert repeat.cached and repeat.ranks is results[2].ranks
+    sch.metrics.reconcile()
+    by = {}
+    for rec in obs.recorder.snapshot():
+        by.setdefault(rec.trace, []).append(rec)
+    for r in results:
+        names = [rec.name for rec in by[r.uid]]
+        assert names.count("query") == names.count("terminal") == 1
+    # the card's push runs the device loop; so does this CPU scheduler's
+    cpu = SlotScheduler(g, method="pcpm_pallas", part_size=256, chunk=4,
+                        slots=8, push_mode="device", device="cpu")
+    uids = [cpu.submit(s, **kw) for s, kw in work]
+    cpu.run_until_drained()
+    done = {r.uid: r for r in cpu.completed}
+    for r, u in zip(results, uids):
+        assert abs(r.iterations - done[u].iterations) <= 1
+        if r.ranks is not None:
+            assert np.abs(r.ranks - done[u].ranks).max() <= 1e-6
+        else:
+            np.testing.assert_allclose(r.top_scores, done[u].top_scores,
+                                       atol=1e-6)
+    packed = sess.plan._device[("packed", str(cuda_device))]
+    x = torch.randint(0, 16, (g.num_nodes, sch.slots),
+                      generator=torch.Generator().manual_seed(5)).float()
+    x = (x / 16).to(cuda_device)
+    got = pcpm_spmv_cuda(x, packed.update_src, packed.edge_upd,
+                         packed.edge_dst, part_size=packed.part_size)
+    want = pcpm_spmv_ref(x, packed.update_src, packed.edge_upd,
+                         packed.edge_dst, part_size=packed.part_size)
+    assert torch.equal(got, want)
+    obs.close()
+
+
+def test_one_upload_per_plan_on_the_card(cuda_device, monkeypatch):
+    """Two push workers and the stepper reach a released pcpm_pallas
+    plan's first use together on the card: its packed streams and "tile"
+    gather order are made once."""
+    import collections
+    import time
+    import repro_torch.kernels.pcpm_spmv as b1_pkg
+    from repro_torch.core.plan import release_device
+    from repro_torch.gateway import Gateway, GatewayConfig
+    from repro_torch.serve import SlotScheduler
+    g = generators.rmat(11, 8, seed=6)
+    sch = SlotScheduler(g, method="pcpm_pallas", part_size=256, chunk=4,
+                        slots=4, device=cuda_device)
+    release_device(sch.engine.plan)
+    counts = collections.Counter()
+    for name in ("pack_blocked", "tile_schedule"):
+        real = getattr(b1_pkg, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            counts[_name] += 1
+            time.sleep(0.05)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(b1_pkg, name, counted)
+    work = _gateway_mix(g.num_nodes, 8, seed=7)
+    with Gateway(sch, config=GatewayConfig(push_workers=2,
+                                           cache_entries=0)) as gw:
+        futs = [gw.submit(s, **kw) for s, kw in work]
+        res = [f.result(timeout=300) for f in futs]
+    assert all(r.error is None and r.converged for r in res)
+    assert sch.metrics.counters["push_served"] == 2
+    assert counts == {"pack_blocked": 1, "tile_schedule": 1}
+
+
+def _direct_storm(sch, work, *, threads=6):
+    """``work`` submitted from ``threads`` threads straight into ``sch``
+    against a free-running device thread (the shape of the reference's
+    observed-storm test); returns queries/s."""
+    import threading
+    import time
+    done, errors = threading.Event(), []
+
+    def submitter(part):
+        for s, kw in part:
+            sch.submit(s, **kw)
+
+    def device_loop():
+        try:
+            while not done.is_set() or sch.queued or sch.active_slots:
+                sch.step()
+        except Exception as exc:   # noqa: BLE001
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    dev = threading.Thread(target=device_loop)
+    dev.start()
+    ts = [threading.Thread(target=submitter, args=(work[k::threads],))
+          for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    done.set()
+    dev.join(timeout=300)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    assert not dev.is_alive() and not errors
+    return len(work) / elapsed
+
+
+def test_observed_storm_qps_within_5pct_on_the_card(cuda_device):
+    """Observability on costs < 5% queries/s (the JAX package's bound,
+    a timing test held on the card): best of four storms each, on
+    schedulers built beforehand, in alternating order. The JAX package
+    holds it where chunk compute dominates; on the card that takes a
+    graph of 2**20 nodes (at 2**12 a storm is bound by the host's
+    Python, whose run-to-run spread exceeds 5%)."""
+    import gc
+    from repro_torch.obs import Observability
+    from repro_torch.serve import SlotScheduler
+    g = generators.rmat(20, 16, seed=1)
+    obs = Observability(capacity=8192)
+    kw = dict(method="pcpm_pallas", part_size=65536, chunk=4, slots=4,
+              device=cuda_device)
+    sch_off = SlotScheduler(g, **kw)
+    sch_on = SlotScheduler(g, obs=obs, **kw)
+    work = _gateway_mix(g.num_nodes, 120, seed=8)
+    _direct_storm(sch_off, work[:10], threads=2)      # warm both
+    _direct_storm(sch_on, work[:10], threads=2)
+    best = {"off": 0.0, "on": 0.0}
+    for i in range(4):
+        pairs = [("off", sch_off), ("on", sch_on)]
+        for key, sch in (pairs if i % 2 == 0 else reversed(pairs)):
+            gc.collect()
+            best[key] = max(best[key], _direct_storm(sch, work))
+    assert sch_on.trace_count == sch_off.trace_count == 1
+    assert obs.recorder.recorded > 0
+    assert best["on"] >= 0.95 * best["off"], best
+    obs.close()
 
 
 # ------------------------------------------------------------- kernel B3

@@ -16,6 +16,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.gateway", "repro_torch.obs"} <= set(names), names
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "repro_ref")
@@ -40,11 +41,15 @@ def test_source_scan_finds_no_jax_or_reference_import():
         r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 16
-    # the reliability and ingest slices are in the scan
+    # the reliability, ingest, gateway and observability slices are in
+    # the scan
     scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"reliability/faults.py", "reliability/snapshot.py",
             "ingest/parse.py", "ingest/idmap.py",
-            "ingest/pipeline.py"} <= scanned
+            "ingest/pipeline.py", "gateway/__init__.py",
+            "gateway/frontdoor.py", "gateway/autotune.py",
+            "gateway/cache.py", "gateway/qos.py", "obs/__init__.py",
+            "obs/trace.py", "obs/comm.py", "obs/metrics.py"} <= scanned
     hits = [(str(f.relative_to(REPO)), m.group(0).strip())
             for f in files for m in pattern.finditer(f.read_text())]
     assert not hits, hits

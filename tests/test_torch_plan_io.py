@@ -134,8 +134,22 @@ def test_plan_file_errors(graphs, tmp_path):
     graph_io.save(str(tmp_path / "graph.npz"), g)
     with pytest.raises(ValueError, match="not a GraphPlan"):
         plan_mod.GraphPlan.load(str(tmp_path / "graph.npz"))
-    with pytest.raises(NotImplementedError, match="observability"):
-        plan_mod.add_plan_observer(object())
+    # the observability slice is in: an observer hears the plan events
+    seen = []
+
+    class Observer:
+        def plan_event(self, name, **attrs):
+            seen.append(name)
+
+    obs = Observer()
+    plan_mod.add_plan_observer(obs)
+    try:
+        plan_mod.build_plan(g, plan_mod.PlanConfig(method="pcpm",
+                                                   part_size=PART))
+    finally:
+        plan_mod.remove_plan_observer(obs)
+    assert seen and set(seen) <= {"png_build", "plan_build",
+                                  "plan_cache_hit"}
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -245,8 +259,10 @@ def test_engine_config_has_the_reference_fields(graphs):
         repro_torch.open(g, method="pcpm", two_phase=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         repro_torch.open(g, method="pcpm", num_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        repro_torch.open(g, method="pcpm", observe=True, device="cpu")
+    observed = repro_torch.open(g, method="pcpm", observe=True,
+                                device="cpu")
+    assert observed.obs is not None
+    observed.obs.close()
 
 
 # ------------------------------------------------ Queue C1: float64 input
