@@ -113,6 +113,20 @@ Phases, each of which exits non-zero when it fails:
    new graph within the gates of its float64 oracles; a complete span
    tree per query, the metrics endpoint as Prometheus text, and
    ``measure_plan`` of the pcpm plan within 2x of eq. 5;
+7b. the sharded path at world size 1 on phase 3's graph, through a
+   one-rank NCCL process group: ``open(g, EngineConfig(method=
+   "pcpm_sharded", num_shards=1)).pagerank()`` held to phase 3's oracle
+   gate and within 1e-6 of phase 3's pcpm and pcpm_pallas ranks, with
+   exactly one NCCL ``all_to_all_single`` an iteration by the mesh's
+   counter; a tol=1e-6 run stopping where pcpm's does; ms per iteration
+   beside pcpm's (CUDA events), the host seconds of ``build_sharded_png``
+   and the bytes it uploads; ``SlotScheduler(sharded=True, slots=16,
+   chunk=8)`` draining 16 queries of phase 5's mix on the stepper, within
+   1e-6 of an unsharded pcpm scheduler and stopping where it stops (or
+   one iteration apart at a rounding stop, named); one sharded
+   ``PageRankServer`` query; the wire accounting of the JAX package's
+   8-shard layout of the same graph (``benchmarks/dist_wire.py``'s
+   numbers), on the host;
 8. kernel B3 (flash attention, ``repro_torch/csrc/flash_attention.cu``)
    against its plain version on the same inputs upcast to float32, on
    the card, each call through the path ``b3_path`` names ("tc" for
@@ -718,7 +732,9 @@ def pagerank_phases(dev, card):
     entry = {**B1_ENTRY, "launches": main_launches,
              "launches_by_path": main_by_path, **timed[1]}
     reuse = {"g": g, "sess": sessions["pcpm_pallas"], "oracle": oracle,
-             "at_dev": at_dev, "plan": plan}
+             "at_dev": at_dev, "plan": plan, "pcpm_sess": sessions["pcpm"],
+             "ranks": {m: results[m].ranks.cpu().numpy()
+                       for m in ("pcpm", "pcpm_pallas")}}
     return entry, timed[16], reuse
 
 
@@ -2539,6 +2555,206 @@ def gateway_phase(dev, card, reuse, streamed, tile_entry,
                              "max_abs_err_at_width": err}
 
 
+# -------------------------------------------------------------- phase 7b
+WIRE_SHARDS = 8                       # the JAX package's dist_wire layout
+# a stop one iteration apart between two engines is a rounding stop when
+# the earlier one's last L1 residual lies this close under tol: the L1
+# sum of rank differences near convergence cancels, and two summation
+# orders read it a few parts in a thousand apart
+ROUNDING_BAND = 0.02
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def same_stop(it_a, res_a, it_b, res_b, tol) -> bool:
+    """Equal iteration counts, or one apart where the earlier stop's
+    residual is a rounding stop (within ``ROUNDING_BAND`` under tol)."""
+    if it_a == it_b:
+        return True
+    early = res_a if it_a < it_b else res_b
+    return (abs(it_a - it_b) == 1 and early is not None
+            and (1 - ROUNDING_BAND) * tol <= early < tol)
+
+
+class OneRankGroup:
+    """A one-rank NCCL process group on ``dev`` (``tcp://127.0.0.1`` on a
+    free port, rank 0, world 1), torn down on exit."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import datetime
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(self.dev.index or 0)
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        return dist
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def sharded_phase(dev, card, reuse) -> None:
+    """Phase 7b: the sharded path at world size 1 on phase 3's graph,
+    through a one-rank NCCL group: ``open(g, EngineConfig(method=
+    "pcpm_sharded", num_shards=1))`` against phase 3's oracle gate and
+    its pcpm and pcpm_pallas ranks, one ``all_to_all_single`` per
+    iteration by the mesh's counter, the tol run's iterations against
+    pcpm's; ms per iteration beside pcpm's, the host seconds of
+    ``build_sharded_png`` and the bytes it uploads; a sharded
+    ``SlotScheduler`` draining 16 queries of phase 5's mix against an
+    unsharded pcpm one; a sharded ``PageRankServer`` query; the wire
+    accounting of the JAX package's 8-shard layout of the same graph."""
+    import torch
+    from repro_torch import EngineConfig, open as open_session
+    from repro_torch.core import distributed as shd
+    from repro_torch.core.plan import PlanConfig, build_plan, release_device
+    from repro_torch.serve import PageRankServer, SlotScheduler
+    t_phase = time.perf_counter()
+    cfg = kron()
+    g, oracle, ranks = reuse["g"], reuse["oracle"], reuse["ranks"]
+    pcpm_sess = reuse["pcpm_sess"]
+    psz, iterations = cfg.part_size, cfg.num_iterations
+    with OneRankGroup(dev) as dist:
+        backend = dist.get_backend()
+        log(f"sharded: process group {backend!r}, world size "
+            f"{dist.get_world_size()}, rank {dist.get_rank()}, {dev}")
+        if backend != "nccl":
+            fail(f"sharded: the group's backend is {backend!r}, not nccl")
+        t0 = time.perf_counter()
+        plan = build_plan(g, PlanConfig(method="pcpm_sharded",
+                                        part_size=psz, num_shards=1))
+        t_build = time.perf_counter() - t0
+        lay = plan.sharded
+        sess = open_session(g, EngineConfig(
+            method="pcpm_sharded", part_size=psz, num_shards=1,
+            num_iterations=iterations), device=dev)
+        mesh = sess.engine.mesh
+        if sess.plan is not plan or mesh.group is None:
+            fail("sharded: the session has another plan, or no group")
+        before = dict(mesh.counts)
+        res = sess.pagerank()
+        torch.cuda.synchronize()
+        calls = {k: v - before.get(k, 0) for k, v in mesh.counts.items()}
+        log(f"sharded layout: num_shards 1, shard_size {lay.shard_size}, U "
+            f"{lay.send_ids.shape[2]}, E {lay.edge_upd.shape[1]}, gather "
+            f"pieces {lay.piece_start.shape[1]}; host build_sharded_png "
+            f"(through build_plan) {t_build:.1f} s; device bytes of its "
+            f"uploads {shd._shard_streams(lay, mesh).nbytes} (send ids, "
+            f"the blocked schedule and the row mask)")
+        log(f"sharded main path: {res.iterations} iterations, collectives "
+            f"{calls}")
+        if not calls.get("all_to_all_single") == res.iterations \
+                == iterations:
+            fail("sharded: not one NCCL all_to_all_single per iteration")
+        got = res.ranks.cpu().numpy()
+        check_against_oracle("pcpm_sharded", got,
+                             sess.top_ranked(10)[0], oracle)
+        gaps = {m: float(np.abs(got - r).max()) for m, r in ranks.items()}
+        log(f"sharded vs phase 3: L-inf {gaps} (<= 1e-6)")
+        if max(gaps.values()) > 1e-6:
+            fail("sharded ranks differ from pcpm / pcpm_pallas")
+        tol_kw = dict(tol=1e-6, check_every=1, num_iterations=200)
+        res_t = sess.pagerank(**tol_kw)
+        ref_t = pcpm_sess.pagerank(**tol_kw)
+        ok = same_stop(res_t.iterations, res_t.residuals[-1],
+                       ref_t.iterations, ref_t.residuals[-1], 1e-6)
+        log(f"sharded tol=1e-6 check_every=1: {res_t.iterations} "
+            f"iterations (last residual {res_t.residuals[-1]!r}), pcpm "
+            f"{ref_t.iterations} ({ref_t.residuals[-1]!r}): same stop {ok}")
+        if not ok:
+            fail("sharded: the tol run stopped apart from pcpm")
+        # ms per iteration by CUDA events, beside pcpm's (as the JAX
+        # package's benchmarks/sharded_loop.py compares them)
+        ms = time_ms(sess.pagerank, reps=3, warmup=1) / iterations
+        pcpm_ms = time_ms(pcpm_sess.pagerank, reps=3, warmup=1) / iterations
+        log(f"time pcpm_sharded (1 shard, NCCL): {ms!r} ms/iteration; "
+            f"pcpm {pcpm_ms!r} ms/iteration; ratio {ms / pcpm_ms!r} "
+            f"({card})")
+        sharded_serving(dev, g, oracle, ranks, psz, iterations,
+                        PageRankServer, SlotScheduler)
+        # the plan's uploads and its mesh go with the group
+        release_device(plan)
+    t0 = time.perf_counter()
+    lay8 = shd.build_sharded_png(g, WIRE_SHARDS)
+    t_wire = time.perf_counter() - t0
+    u8 = lay8.send_ids.shape[2]
+    log(f"sharded wire ({WIRE_SHARDS}-shard layout of the kron-{SCALE} "
+        f"graph, host only, as benchmarks/dist_wire.py): build "
+        f"{t_wire:.1f} s; wire_updates {lay8.wire_updates}, wire_edges "
+        f"{lay8.wire_edges}, r_wire {lay8.wire_compression!r}; PCPM wire "
+        f"bytes {4 * lay8.wire_updates} (4 B an update) against edge-cut "
+        f"{8 * lay8.wire_edges} (a value and a destination id an edge); "
+        f"padded all-to-all {4 * WIRE_SHARDS ** 2 * u8} B (4 x S^2 x U, "
+        f"U = {u8})")
+    if not lay8.wire_updates <= lay8.wire_edges:
+        fail("sharded wire: more updates than cross-shard edges")
+    log(f"phase 7b (sharded): {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+
+
+def sharded_serving(dev, g, oracle, ranks, psz, iterations,
+                    PageRankServer, SlotScheduler) -> None:
+    """Phase 7b's serving: a sharded ``SlotScheduler(slots=16, chunk=8)``
+    drains 16 queries of phase 5's mix (none pushed: a sharded pool has
+    no push route) against an unsharded pcpm scheduler on the stepper
+    route — ranks within 1e-6, the same stops; then one sharded
+    ``PageRankServer`` query."""
+    import torch
+    work = serving_mix(np.random.default_rng(3), g.num_nodes, 16)
+    out = {}
+    for name, kw in (("sharded", dict(sharded=True)),
+                     ("pcpm", dict(method="pcpm", route="stepper"))):
+        sch = SlotScheduler(g, slots=16, chunk=8, part_size=psz, device=dev,
+                            **kw)
+        uids = [sch.submit(None if ids is None
+                           else seed_vector(g.num_nodes, ids), **q)
+                for _, ids, q in work]
+        t0 = time.perf_counter()
+        by = {r.uid: r for r in sch.run_until_drained()}
+        torch.cuda.synchronize()
+        out[name] = ([by[u] for u in uids], time.perf_counter() - t0,
+                     dict(sch.metrics.counters))
+    (mine, t_s, c_s), (theirs, t_p, _) = out["sharded"], out["pcpm"]
+    pushed = c_s.get("push_served", 0) + c_s.get("push_fallbacks", 0)
+    gaps = [result_gap(a, b) for a, b in zip(mine, theirs)]
+    stops = [same_stop(a.iterations, a.residual, b.iterations, b.residual,
+                       q["tol"]) for a, b, (_, _, q) in
+             zip(mine, theirs, work)]
+    apart = [i for i, (a, b) in enumerate(zip(mine, theirs))
+             if a.iterations != b.iterations]
+    log(f"sharded serving drain: 16 queries in {t_s:.2f} s (pcpm "
+        f"{t_p:.2f} s); pushed {pushed} (every query on the stepper: "
+        f"{pushed == 0}); max gap {max(gaps)!r} (<= 1e-6); iterations "
+        f"apart in queries {apart} (each a rounding stop: {all(stops)})")
+    for i in apart:
+        a, b = mine[i], theirs[i]
+        log(f"  query {i}: sharded {a.iterations} ({a.residual!r}), pcpm "
+            f"{b.iterations} ({b.residual!r})")
+    if pushed or max(gaps) > 1e-6 or not all(stops) or not all(
+            r.converged for r in mine):
+        fail("sharded serving differs from the pcpm scheduler")
+    srv = PageRankServer(g, sharded=True, num_iterations=iterations,
+                         part_size=psz, device=dev)
+    pr, it, _ = srv.query()
+    pr = pr.cpu().numpy()
+    gap = float(np.abs(pr - ranks["pcpm"]).max())
+    l1 = float(np.abs(pr.astype(np.float64) - oracle).sum())
+    log(f"sharded PageRankServer: {it} iterations, L-inf vs pcpm {gap!r}, "
+        f"L1 vs float64 oracle {l1!r}")
+    if it != iterations or gap > 1e-6 or l1 > 1e-5:
+        fail("sharded PageRankServer disagrees")
+
+
 # --------------------------------------------------------------- phase 8
 def b3_inputs(dev, gen, b, hq, hkv, sq, skv, d, dtype):
     """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), standard normal."""
@@ -3187,6 +3403,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # ---------------------------------------------------- 7. the gateway
     gateway_phase(dev, card, reuse, streamed, *kernels)
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 7b. sharded
+    sharded_phase(dev, card, reuse)
     # the version chain's cached plans (host arrays, and the first graph's
     # plans of the four engines with their uploads) go with phases 6-7
     from repro_torch.core.plan import evict_plans

@@ -18,7 +18,9 @@ external ids (``ingest_edge_list``, ``NodeIdMapping``) in
 ``Session.gateway()``: futures, a warm-result cache, slot autotune,
 weighted-fair QoS) in ``repro_torch.gateway``; span tracing, the flight
 recorder, metrics and measured comm (``Observability``,
-``Session.observe()``) in ``repro_torch.obs``.
+``Session.observe()``) in ``repro_torch.obs``; the sharded path
+(``EngineConfig(method="pcpm_sharded")``, one process per card over the
+caller's ``torch.distributed`` group) in ``repro_torch.core.distributed``.
 
 LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
 (``transformer``: ``init_lm``, ``forward``, ``prefill``,
@@ -33,8 +35,8 @@ from .api import EngineConfig, Session, open
 from .core.backends import (Backend, available_backends, get_backend,
                             register_backend)
 from .core.plan import (GraphPlan, PlanConfig, build_plan,
-                        clear_plan_cache, install_plan, plan_cache_stats,
-                        plan_from_arrays)
+                        clear_plan_cache, evict_plans, install_plan,
+                        plan_cache_stats, plan_from_arrays)
 from .device import resolve_device
 from .gateway import Gateway, GatewayConfig
 from .ingest import (LinkFilter, NodeIdMapping, VirtualLinks,
@@ -48,7 +50,7 @@ __all__ = [
     "EngineConfig", "Session", "open",
     "Backend", "available_backends", "get_backend", "register_backend",
     "GraphPlan", "PlanConfig", "build_plan", "clear_plan_cache",
-    "install_plan", "plan_cache_stats", "plan_from_arrays",
+    "evict_plans", "install_plan", "plan_cache_stats", "plan_from_arrays",
     "resolve_device", "ResilienceConfig", "check_plan_integrity",
     "DynamicGraph", "GraphDelta",
     "LinkFilter", "NodeIdMapping", "VirtualLinks", "ingest_edge_list",

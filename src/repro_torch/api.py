@@ -1,9 +1,9 @@
 """The front door: ``repro_torch.open(g, EngineConfig(...))``.
 
-One ``EngineConfig`` holds the method / part_size / damping / tol /
-iters / dangling knobs. A ``Session`` resolves the graph's
-``GraphPlan`` ONCE through the process-level plan cache and runs every
-workload from it, on one device:
+One ``EngineConfig`` holds the method / part_size / num_shards /
+damping / tol / iters / dangling / slots knobs. A ``Session`` resolves
+the graph's ``GraphPlan`` ONCE through the process-level plan cache and
+runs every workload from it, on one device:
 
     sess = repro_torch.open(g, repro_torch.EngineConfig(method="pcpm"))
     res  = sess.pagerank()                  # fused power iteration
@@ -23,8 +23,12 @@ workload from it, on one device:
 ``ingest.NodeIdMapping``) makes ``top_ranked`` and serving results speak
 the external ids of an ingested edge list.
 
-The sharded path is a later slice of the port: its knobs raise
-``NotImplementedError`` naming the slice.
+``EngineConfig(method="pcpm_sharded")`` vertex-shards the graph over the
+ranks of the caller's ``torch.distributed`` default group (one process
+per card; ``num_shards=None`` means all of them) and follows the SPMD
+contract of ``core/distributed.py``: every rank makes the same calls in
+the same order and gets the same results. Without a process group it
+runs as one shard.
 """
 from __future__ import annotations
 
@@ -45,9 +49,9 @@ class EngineConfig:
     """Every knob of the plan AND run layers in one hashable value.
 
     Plan-layer fields (select the ``GraphPlan``): ``method``,
-    ``part_size``, ``gather_block``, ``reorder``. Run-layer fields are
-    the iteration defaults a ``Session`` applies; ``pagerank`` accepts
-    per-call overrides.
+    ``part_size``, ``num_shards``, ``gather_block``, ``reorder``.
+    Run-layer fields are the iteration and serving defaults a
+    ``Session`` applies; each method accepts per-call overrides.
     """
     # plan layer
     method: str = "pcpm"
@@ -58,7 +62,7 @@ class EngineConfig:
     # relabeled graph; every Session result is mapped back to the
     # original ids
     reorder: str = "none"
-    # sharding backends (the sharded-path slice): None or 1 here
+    # sharding backends: None = every rank of the default group
     num_shards: Optional[int] = None
     two_phase: bool = False               # rejected by Session (fused)
     # run layer: iteration
@@ -75,37 +79,12 @@ class EngineConfig:
 
     def plan_config(self) -> PlanConfig:
         return PlanConfig(method=self.method, part_size=self.part_size,
+                          num_shards=self.num_shards,
                           gather_block=self.gather_block,
                           reorder=self.reorder)
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
-
-
-def _later(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet: it comes with the "
-        f"{slice_name} slice of the port (ROADMAP.md, Queue A)")
-
-
-# the knobs of later slices that the serving front-ends and EngineConfig
-# accept: each raises naming its slice unless it is at its default
-_LATER_KNOBS = {"sharded": "sharded-path (A10)",
-                "num_shards": "sharded-path (A10)"}
-
-
-def reject_later_knobs(owner: str, **knobs) -> None:
-    """Raise ``NotImplementedError`` naming the slice for any later-slice
-    knob set away from its default (None, False, or one shard), and
-    ``TypeError`` for a name that is no such knob."""
-    for name, value in knobs.items():
-        if name not in _LATER_KNOBS:
-            raise TypeError(f"{owner}() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value is None or value is False or (
-                name == "num_shards" and value == 1):
-            continue
-        _later(f"{owner}({name}={value!r})", _LATER_KNOBS[name])
 
 
 class Session:
@@ -128,7 +107,6 @@ class Session:
                 "fused consumers (pagerank/serve run one device loop, "
                 "where the host-side phase barrier does not exist); "
                 "build a two-phase SpMVEngine directly for phase timing.")
-        reject_later_knobs("EngineConfig", num_shards=cfg.num_shards)
         self.device = resolve_device(device)
         self.graph = g
         self.config = cfg
@@ -402,8 +380,13 @@ class Session:
         against ``config.target_chunk_s`` instead of the session's
         static ``slots``; an explicit ``slots=`` override wins. The
         chosen size and the probe curve are ``gateway.autotune_report``.
+
+        Over a sharded session it needs world size 1
+        (``gateway.frontdoor.check_one_controller``).
         """
         from .gateway import Gateway, GatewayConfig, autotune_slots
+        from .gateway.frontdoor import check_one_controller
+        check_one_controller(self.engine)
         cfg = config or GatewayConfig()
         report = None
         if autotune and "slots" not in overrides:

@@ -7,10 +7,11 @@ from .plan import (GraphPlan, PlanConfig, build_plan, clear_plan_cache,
                    plan_cache_stats, plan_from_arrays, plan_nbytes,
                    validate_plan)
 from .backends import (Backend, available_backends, get_backend,
-                       register_backend, resolve_engine)
+                       register_backend, resolve_engine, resolve_method)
 from .spmv import (SpMVEngine, pdpr_spmv, pcpm_spmv, pcpm_scatter,
                    pcpm_gather, pcpm_gather_blocked, bvgas_scatter,
-                   bvgas_gather, pcpm_spmv_weighted)
+                   bvgas_gather, pcpm_spmv_weighted, DevicePNG,
+                   DeviceCSC, DeviceBVGAS)
 from .pagerank import (pagerank, pagerank_reference, PageRankResult,
                        fused_power_iteration, masked_chunk_stepper)
 from . import comm_model
@@ -23,10 +24,11 @@ __all__ = [
     "evict_plans", "graph_fingerprint", "install_plan",
     "plan_cache_stats", "plan_from_arrays", "plan_nbytes", "validate_plan",
     "Backend", "available_backends", "get_backend", "register_backend",
-    "resolve_engine",
+    "resolve_engine", "resolve_method",
     "SpMVEngine", "pdpr_spmv", "pcpm_spmv", "pcpm_scatter",
     "pcpm_gather", "pcpm_gather_blocked", "bvgas_scatter",
-    "bvgas_gather", "pcpm_spmv_weighted", "pagerank",
+    "bvgas_gather", "pcpm_spmv_weighted", "DevicePNG", "DeviceCSC",
+    "DeviceBVGAS", "pagerank",
     "pagerank_reference", "PageRankResult", "fused_power_iteration",
     "masked_chunk_stepper", "comm_model",
 ]

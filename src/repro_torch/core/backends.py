@@ -8,8 +8,8 @@ Every SpMV engine registers ONE ``Backend`` entry:
   streams uploaded to ``device`` — what the fused driver and the engine
   call;
 - optional ``phase_fns`` (two-phase scatter/gather) and capability
-  flags (``multi_vector``, ``supports_push_query``,
-  ``supports_sharding``) that consumers branch on instead of comparing
+  flags (``supports_sharding``, ``multi_vector``,
+  ``supports_push_query``) that consumers branch on instead of comparing
   method strings.
 
 ``SpMVEngine``, ``pagerank()``, ``Session`` and the serving front-ends
@@ -47,9 +47,14 @@ class Backend:
     name: str
     build_plan: Callable[[Graph, PlanConfig], GraphPlan]
     spmv_fn: Callable[[GraphPlan, torch.device], Callable]
-    # runs vertex-sharded over several cards: the sharded-path slice;
-    # False for every backend until then
+    # runs vertex-sharded over the ranks of a torch.distributed group
+    # (core/distributed.py)
     supports_sharding: bool = False
+    # the JAX package's flag for closures it compiles ahead of time;
+    # the port compiles nothing ahead of time, so it is always True and
+    # nothing reads it (kept so a Backend written against the JAX
+    # package constructs here)
+    supports_aot: bool = True
     multi_vector: bool = True          # accepts (n, d) as well as (n,)
     uses_gather_block: bool = False    # plan depends on cfg.gather_block
     # the forward-push query backend (serve/push.py) can answer
@@ -95,22 +100,59 @@ def available_backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def resolve_method(method: str, *, sharded: bool = False) -> str:
+    """Map a requested method (+ the ``sharded=True`` convenience flag
+    of the serving front-ends) to a registered backend name: when the
+    named backend cannot shard, fall back to the registered
+    sharding-capable one."""
+    backend = get_backend(method)
+    if not sharded or backend.supports_sharding:
+        return method
+    for b in _REGISTRY.values():
+        if b.supports_sharding:
+            return b.name
+    raise ValueError("sharded=True but no registered backend supports "
+                     "sharding")
+
+
+def check_device_count(num_shards: int) -> None:
+    """The single home of the shards-vs-devices rule (config
+    normalization, the engine's loaded-plan path and mesh building). The
+    available devices are the world size of the initialized default
+    process group, or 1 without one."""
+    from .distributed import available_devices
+    avail = available_devices()
+    if num_shards > avail:
+        raise ValueError(f"num_shards={num_shards} exceeds the "
+                         f"{avail} available devices")
+
+
 def resolve_engine(g: Graph, *, method: str, part_size: int,
+                   sharded: bool = False, num_shards: Optional[int] = None,
                    engine=None, device=None):
-    """Engine resolution of the serving front-ends (``PageRankServer``,
-    ``SlotScheduler``): construct through the registry when no engine is
-    given, otherwise use the caller's engine."""
+    """Shared engine resolution of the serving front-ends
+    (``PageRankServer``, ``SlotScheduler``): construct through the
+    registry when no engine is given, otherwise validate the caller's
+    engine against the ``sharded=True`` request."""
     from .spmv import SpMVEngine
     if engine is None:
-        return SpMVEngine(g, method=method, part_size=part_size,
+        return SpMVEngine(g, part_size=part_size, num_shards=num_shards,
+                          method=resolve_method(method, sharded=sharded),
                           device=device)
+    if sharded and not engine.backend.supports_sharding:
+        raise ValueError(
+            "sharded=True requires a sharding-capable engine; got "
+            f"method={engine.method!r}")
     return engine
 
 
 def normalize_config(cfg: PlanConfig) -> PlanConfig:
-    """Canonical cache key: validate the method and the ordering, and
-    blank the knobs a backend ignores (gather_block) so configs
-    differing only in irrelevant knobs share one plan."""
+    """Canonical cache key: validate the method and the ordering,
+    resolve ``num_shards=None`` to the device count for sharding
+    backends (validating the bound), and blank the knobs a backend
+    ignores (sharding fields, gather_block) so configs differing only
+    in irrelevant knobs share one plan."""
+    from .distributed import available_devices
     from .plan import DEFAULT_GATHER_BLOCK
     backend = get_backend(cfg.method)
     if cfg.reorder != "none":
@@ -119,10 +161,22 @@ def normalize_config(cfg: PlanConfig) -> PlanConfig:
             raise ValueError(
                 f"unknown reorder {cfg.reorder!r}; valid: "
                 f"{available_orderings()}")
+    kw = {}
+    if backend.supports_sharding:
+        shards = cfg.num_shards or available_devices()
+        check_device_count(shards)
+        if shards != cfg.num_shards:
+            kw["num_shards"] = shards
+    elif cfg.num_shards is not None:
+        kw["num_shards"] = None
+    # the mesh axis NAME never affects host preprocessing (meshes are
+    # cached per axis on plan._device) — keep it out of the cache key
+    if cfg.shard_axis != "shards":
+        kw["shard_axis"] = "shards"
     if (not backend.uses_gather_block
             and cfg.gather_block != DEFAULT_GATHER_BLOCK):
-        return cfg.replace(gather_block=DEFAULT_GATHER_BLOCK)
-    return cfg
+        kw["gather_block"] = DEFAULT_GATHER_BLOCK
+    return cfg.replace(**kw) if kw else cfg
 
 
 def _cached(plan: GraphPlan, name: str, device: torch.device, make):
@@ -194,6 +248,33 @@ def fused_loop_cache(plan: GraphPlan) -> dict:
     hyper-parameters and device) — shared across every engine wrapping
     the same plan."""
     return plan._device.setdefault("fused_cache", {})
+
+
+def sharded_mesh(plan: GraphPlan, axis: str | None = None, device=None):
+    """The mesh (``core.distributed.ShardMesh``) a sharded plan runs on,
+    built on first use and cached per axis name and device on the plan.
+    Raises when the plan wants more shards than this runtime has devices
+    (an 8-shard plan loaded at world size 1) instead of truncating the
+    mesh against the plan's fixed-shape shard arrays. A mesh built under
+    a default group that has since been destroyed is built again (with
+    its uploads). Every rank must reach a plan's first use in the same
+    order: a mesh smaller than the world is a ``dist.new_group`` that
+    every rank creates."""
+    from .distributed import build_mesh
+    axis = axis or plan.config.shard_axis
+    if plan.sharded is None:
+        raise ValueError(
+            f"backend {plan.method!r} has no sharded layout (mesh is "
+            "only meaningful for sharding backends)")
+    check_device_count(plan.sharded.num_shards)
+    device = torch.device("cuda" if device is None else device)
+    key = (("mesh", axis), str(device))
+    with plan._lock:
+        mesh = plan._device.get(key)
+        if mesh is None or not mesh.current:
+            mesh = plan._device[key] = build_mesh(
+                plan.sharded.num_shards, device=device, axis=axis)
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +406,34 @@ def _spmv_pcpm_pallas(plan: GraphPlan, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# pcpm_sharded — all-to-all PCPM over torch.distributed ranks
+# (core/distributed.py)
+# ---------------------------------------------------------------------------
+def _build_pcpm_sharded(g: Graph, cfg: PlanConfig) -> GraphPlan:
+    from .distributed import build_sharded_png
+    layout = build_sharded_png(g, cfg.num_shards,
+                               gather_block=cfg.gather_block)
+    return GraphPlan(sharded=layout, **_plan_fields(g, cfg))
+
+
+def _spmv_pcpm_sharded(plan: GraphPlan, device: torch.device):
+    """``x -> A^T x`` on (n,) or (n, d) x, the same on every rank: the
+    all-to-all SpMV over x padded to the shards, sliced back to n, on
+    the plan's current mesh (its uploads are cached on the mesh)."""
+    from .distributed import pcpm_all_to_all_spmv
+    n, n_pad = plan.num_nodes, plan.sharded.padded_nodes
+
+    def fn(x):
+        spmv = pcpm_all_to_all_spmv(plan.sharded,
+                                    sharded_mesh(plan, device=device))
+        xp = x.new_zeros((n_pad,) + tuple(x.shape[1:]))
+        xp[:n] = x
+        return spmv(xp)[:n]
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # Incremental patchers (stream/patch.py) — imported lazily: the stream
 # package imports this registry, so the hook bodies must not import it
 # at module load. A patched plan is a new GraphPlan: its device uploads
@@ -362,5 +471,12 @@ for _backend in (
             supports_push_query=True),
     Backend("pcpm_pallas", _build_pcpm_pallas, _spmv_pcpm_pallas,
             patch_plan=_patch_pcpm_pallas, supports_push_query=True),
+    # pcpm_sharded has no patcher: the shard-local receive buffers and
+    # the all-to-all send schedule are global layouts (a delta anywhere
+    # can grow any shard's wire stream), so deltas take a full rebuild —
+    # the residual-push warm start still applies. No push queries
+    # either: the (n,) query state is one device's.
+    Backend("pcpm_sharded", _build_pcpm_sharded, _spmv_pcpm_sharded,
+            supports_sharding=True, uses_gather_block=True),
 ):
     register_backend(_backend)

@@ -220,6 +220,14 @@ def masked_chunk_stepper(engine: SpMVEngine, *, damping: float = 0.85,
 def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
                damping: float, tol: float, check_every: int,
                dangling: str) -> PageRankResult:
+    if eng.backend.supports_sharding:
+        # a sharding backend owns its own loop (all-to-all + blocked
+        # gather + all-reduced residual, core/distributed.py)
+        from .distributed import distributed_pagerank
+        return distributed_pagerank(
+            g, eng.mesh, num_iterations=num_iterations, damping=damping,
+            tol=tol, check_every=check_every, dangling=dangling,
+            layout=eng.sharded_layout, fused_cache=eng._fused_cache)
     n = g.num_nodes
     run = fused_power_iteration(eng, damping=damping,
                                 num_iterations=num_iterations, tol=tol,

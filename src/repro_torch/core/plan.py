@@ -6,13 +6,13 @@ gather schedules are built once on the host and reused by every
 subsequent SpMV. This module makes that artifact a first-class value:
 
 - ``PlanConfig``: the hashable knob set that determines a plan
-  (method, part_size, gather_block, reorder).
+  (method, part_size, num_shards, gather_block, reorder).
 - ``GraphPlan``: everything host-side preprocessing produces for one
   ``(graph, PlanConfig)`` — ``Partitioning``, ``PNGLayout``, blocked /
-  gather-schedule variants. Immutable and hashable (identity), with a
-  non-serialized runtime cache (``_device``) where backends park
-  uploaded streams, packed kernel layouts and closures, keyed per
-  device.
+  gather-schedule variants, sharded layouts. Immutable and hashable
+  (identity), with a non-serialized runtime cache (``_device``) where
+  backends park uploaded streams, packed kernel layouts, meshes and
+  closures, keyed per device.
 - a process-level plan cache keyed on ``(graph fingerprint, config)``
   — every consumer (``SpMVEngine``, ``pagerank()``, ``Session``,
   ``PageRankServer``, ``SlotScheduler``) resolves plans through it, so
@@ -53,6 +53,8 @@ class PlanConfig:
     """Host-preprocessing knobs. Hashable — the cache key half."""
     method: str = "pcpm"
     part_size: int = 65536
+    num_shards: Optional[int] = None   # sharded backends; None = all ranks
+    shard_axis: str = "shards"
     gather_block: int = DEFAULT_GATHER_BLOCK
     # locality-enhancing node relabeling (paper §VI-D1, graphs/
     # reorder.py): the plan's layouts are built on the RELABELED graph
@@ -96,6 +98,9 @@ class GraphPlan:
     png: Optional[PNGLayout] = None
     schedule: Optional[GatherSchedule] = None
     blocked: Optional[BlockedPNG] = None
+    # pcpm_sharded (core/distributed.py ShardedPNG; typed loosely to
+    # keep this module importable without the distributed stack)
+    sharded: Optional[Any] = None
     # content hash of the graph this plan was built from — lets
     # install_plan refuse a plan/graph mismatch instead of silently
     # serving wrong preprocessing
@@ -123,8 +128,15 @@ class GraphPlan:
         return self.config.part_size
 
     @property
+    def num_shards(self) -> Optional[int]:
+        return self.config.num_shards
+
+    @property
     def compression_ratio(self) -> float:
-        """r = |E| / |E'| (paper table V)."""
+        """r = |E| / |E'| — on the wire for sharded plans (paper
+        table V / DESIGN.md §6), in DRAM traffic otherwise."""
+        if self.sharded is not None:
+            return self.sharded.wire_compression
         if self.png is not None:
             return self.png.compression_ratio
         return 1.0
@@ -138,14 +150,9 @@ class GraphPlan:
         arrays: dict[str, np.ndarray] = {}
         if self.reorder_perm is not None:
             arrays["reorder_perm"] = self.reorder_perm
-        c = self.config
         meta: dict[str, Any] = {
             "version": 3,
-            # the JAX package's PlanConfig fields, sharding ones unset
-            "config": {"method": c.method, "part_size": c.part_size,
-                       "num_shards": None, "shard_axis": "shards",
-                       "gather_block": c.gather_block,
-                       "reorder": c.reorder},
+            "config": dataclasses.asdict(self.config),
             "num_nodes": self.num_nodes,
             "num_edges": self.num_edges,
             "graph_fp": self.graph_fp,
@@ -177,14 +184,23 @@ class GraphPlan:
             arrays.update({"blk/update_src": b.update_src,
                            "blk/edge_update_local": b.edge_update_local,
                            "blk/edge_dst_local": b.edge_dst_local})
+        if self.sharded is not None:
+            h = self.sharded
+            meta["sharded"] = {"num_shards": h.num_shards,
+                               "shard_size": h.shard_size,
+                               "num_nodes": h.num_nodes,
+                               "gather_block": h.gather_block,
+                               "wire_updates": h.wire_updates,
+                               "wire_edges": h.wire_edges}
+            arrays.update({f"shd/{name}": getattr(h, name)
+                           for name in _SHARDED_ARRAYS})
         np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
 
     @staticmethod
     def load(path: str) -> "GraphPlan":
         """A plan saved by ``save`` here or by the JAX package's
         ``GraphPlan.save`` (format version 3, or 2, which lacks only the
-        ``reorder`` field). Sharded plans raise ``NotImplementedError``
-        (``plan_from_arrays``)."""
+        ``reorder`` field)."""
         with np.load(path, allow_pickle=False) as z:
             if "__meta__" not in z:
                 raise ValueError(
@@ -200,25 +216,26 @@ class GraphPlan:
         return plan_from_arrays(meta, arrays)
 
 
+# the array fields of a ShardedPNG, stored as ``shd/<name>``
+_SHARDED_ARRAYS = ("send_ids", "edge_upd", "edge_dst", "eui_padded",
+                   "piece_start", "piece_end", "piece_dst")
+
+
 def plan_from_arrays(fields: dict, arrays) -> GraphPlan:
     """A ``GraphPlan`` from host arrays and scalar fields.
 
     ``fields`` and ``arrays`` follow the JAX package's plan-file layout
     (format v3): ``fields`` holds ``config`` (the ``PlanConfig`` fields
     as a dict), ``num_nodes``, ``num_edges``, ``graph_fp`` and, where
-    present, ``schedule`` ({block, num_edges}) and ``blocked``
-    ({part_size, update_pad_frac, edge_pad_frac}); ``arrays`` maps
-    ``csc_src``/``csc_dst``/``bv_src``/``bv_dst``/``reorder_perm`` and
-    the ``png/*``, ``sched/*`` and ``blk/*`` names to numpy arrays.
-    A plan built by the JAX package thus runs in the port unchanged.
+    present, ``schedule`` ({block, num_edges}), ``blocked``
+    ({part_size, update_pad_frac, edge_pad_frac}) and ``sharded``
+    ({num_shards, shard_size, num_nodes, gather_block, wire_updates,
+    wire_edges}); ``arrays`` maps ``csc_src``/``csc_dst``/``bv_src``/
+    ``bv_dst``/``reorder_perm`` and the ``png/*``, ``sched/*``, ``blk/*``
+    and ``shd/*`` names to numpy arrays. A plan built by the JAX package
+    thus runs in the port unchanged.
     """
-    cfg = dict(fields["config"])
-    if cfg.pop("num_shards", None) is not None or "sharded" in fields:
-        raise NotImplementedError(
-            "sharded plans (pcpm_sharded) are not ported yet: they come "
-            "with the sharded-path slice")
-    cfg.pop("shard_axis", None)
-    cfg = PlanConfig(**cfg)
+    cfg = PlanConfig(**fields["config"])
     from .backends import get_backend
     get_backend(cfg.method)       # unknown method: crisp ValueError
     n, m = int(fields["num_nodes"]), int(fields["num_edges"])
@@ -249,8 +266,20 @@ def plan_from_arrays(fields: dict, arrays) -> GraphPlan:
             np.asarray(arrays["blk/edge_update_local"]),
             np.asarray(arrays["blk/edge_dst_local"]),
             float(b["update_pad_frac"]), float(b["edge_pad_frac"]))
+    if "sharded" in fields:
+        from .distributed import ShardedPNG
+        h = fields["sharded"]
+        shd = {name: np.asarray(arrays[f"shd/{name}"])
+               for name in _SHARDED_ARRAYS}
+        kw["sharded"] = ShardedPNG(
+            int(h["num_shards"]), int(h["shard_size"]), int(h["num_nodes"]),
+            shd["send_ids"], shd["edge_upd"], shd["edge_dst"],
+            int(h["gather_block"]), shd["eui_padded"], shd["piece_start"],
+            shd["piece_end"], shd["piece_dst"], int(h["wire_updates"]),
+            int(h["wire_edges"]))
     needs = {"pdpr": ("csc_src", "schedule"), "bvgas": ("bv_src", "schedule"),
-             "pcpm": ("png", "schedule"), "pcpm_pallas": ("png", "blocked")}
+             "pcpm": ("png", "schedule"), "pcpm_pallas": ("png", "blocked"),
+             "pcpm_sharded": ("sharded",)}
     missing = [f for f in needs.get(cfg.method, ()) if f not in kw]
     if missing:
         raise ValueError(f"a {cfg.method!r} plan needs {missing}; the "
@@ -569,6 +598,8 @@ def plan_nbytes(plan: GraphPlan) -> int:
     if plan.blocked is not None:
         b = plan.blocked
         arrays += [b.update_src, b.edge_update_local, b.edge_dst_local]
+    if plan.sharded is not None:
+        arrays += [getattr(plan.sharded, name) for name in _SHARDED_ARRAYS]
     return sum(int(np.asarray(a).nbytes) for a in arrays)
 
 

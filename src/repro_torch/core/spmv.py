@@ -21,10 +21,89 @@ between the two phases — the paper's bins round trip.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from ..device import as_device_tensor
+from ..device import as_device_tensor, resolve_device
 from ..graphs.formats import Graph
+from .partition import Partitioning
+from .png import PNGLayout, build_gather_schedule, build_png
+
+
+# ---------------------------------------------------------------------------
+# Device-resident layouts
+# ---------------------------------------------------------------------------
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCSC:
+    """Edges sorted by destination (pull order)."""
+    num_nodes: int
+    src: torch.Tensor   # (m,) int32, sorted by dst
+    dst: torch.Tensor   # (m,) int32, ascending
+
+    @staticmethod
+    def build(g: Graph, *, device=None) -> "DeviceCSC":
+        dev = resolve_device(device)
+        order = np.lexsort((g.src, g.dst))
+        return DeviceCSC(g.num_nodes, _upload(g.src[order], dev),
+                         _upload(g.dst[order], dev))
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceBVGAS:
+    """Edges sorted by destination partition (BVGAS deterministic layout:
+    dst ids are written once, then reused every iteration)."""
+    num_nodes: int
+    src: torch.Tensor   # (m,) int32, dst-partition-major
+    dst: torch.Tensor   # (m,) int32
+
+    @staticmethod
+    def build(g: Graph, part: Partitioning, *,
+              device=None) -> "DeviceBVGAS":
+        dev = resolve_device(device)
+        dstp = g.dst.astype(np.int64) // part.part_size
+        order = np.lexsort((g.dst, g.src, dstp))
+        return DeviceBVGAS(g.num_nodes, _upload(g.src[order], dev),
+                           _upload(g.dst[order], dev))
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePNG:
+    """Flat PNG streams on a device (see core/png.py), plus the blocked
+    gather schedule (piece bounds over the dst-sorted edge stream)."""
+    num_nodes: int
+    update_src: torch.Tensor       # (U,) int32
+    edge_update_idx: torch.Tensor  # (M,) int32
+    edge_dst: torch.Tensor         # (M,) int32, ascending
+    compression_ratio: float
+    # blocked-gather schedule (see png.build_gather_schedule)
+    gather_block: int
+    eui_padded: torch.Tensor       # (Mp,) int32
+    piece_start: torch.Tensor      # (P0,) int32
+    piece_end: torch.Tensor        # (P0,) int32
+    piece_dst: torch.Tensor        # (P0,) int32, pad = num_nodes
+
+    @staticmethod
+    def build(g: Graph, part: Partitioning,
+              layout: PNGLayout | None = None, *,
+              gather_block: int = 256, device=None) -> "DevicePNG":
+        dev = resolve_device(device)
+        layout = layout or build_png(g, part)
+        sched = build_gather_schedule(layout, block=gather_block)
+        return DevicePNG(layout.num_nodes,
+                         _upload(layout.update_src, dev),
+                         _upload(layout.edge_update_idx, dev),
+                         _upload(layout.edge_dst, dev),
+                         layout.compression_ratio, sched.block,
+                         *(_upload(a, dev) for a in (
+                             sched.edge_update_idx_padded,
+                             sched.piece_start, sched.piece_end,
+                             sched.piece_dst)))
 
 
 def _segment_sum(vals: torch.Tensor, segment_ids: torch.Tensor,
@@ -130,24 +209,29 @@ class SpMVEngine:
     the same ``(graph, config)`` share ONE ``GraphPlan``.
 
     ``method`` is any registered backend: the three paper engines
-    (pdpr, bvgas, pcpm) and the gather-kernel PCPM path (pcpm_pallas).
-    A prebuilt ``plan`` overrides the knob arguments. ``device``
-    defaults to ``"cuda"`` and raises without CUDA (``device.py``).
-    New code should prefer ``repro_torch.open`` (repro_torch/api.py).
+    (pdpr, bvgas, pcpm), the gather-kernel PCPM path (pcpm_pallas) and
+    the all-to-all PCPM path over ranks (pcpm_sharded; vertex-sharded
+    over ``num_shards`` ranks, default the world size — see
+    core/distributed.py). A prebuilt ``plan`` overrides the knob
+    arguments. ``device`` defaults to ``"cuda"`` and raises without CUDA
+    (``device.py``). New code should prefer ``repro_torch.open``
+    (repro_torch/api.py).
     """
 
     def __init__(self, g: Graph, *, method: str = "pcpm",
                  part_size: int = 65536, two_phase: bool = False,
-                 plan=None, device=None):
+                 num_shards: int | None = None, plan=None, device=None):
         from . import backends
         from .plan import PlanConfig, build_plan, validate_plan
-        from ..device import resolve_device
         self.device = resolve_device(device)
         if plan is None:
             plan = build_plan(g, PlanConfig(method=method,
-                                            part_size=part_size))
+                                            part_size=part_size,
+                                            num_shards=num_shards))
         else:
             validate_plan(g, plan)
+            if plan.sharded is not None:
+                backends.check_device_count(plan.sharded.num_shards)
         self.plan = plan
         self.method = plan.method
         self.backend = backends.get_backend(plan.method)
@@ -158,6 +242,37 @@ class SpMVEngine:
         self.num_nodes = plan.num_nodes
         self.num_edges = plan.num_edges
         self.two_phase = two_phase
+        self.partitioning = plan.partitioning
+        # mesh axis name — the plan's (normalized) axis, so the drivers,
+        # the serving paths and the spmv closure share ONE mesh
+        self.shard_axis = plan.config.shard_axis
+
+    # ------------------------------------------------------ plan views
+    @property
+    def layout(self) -> PNGLayout:
+        """The PNG layout (pcpm/pcpm_pallas plans)."""
+        if self.plan.png is None:
+            raise AttributeError(
+                f"backend {self.method!r} has no PNG layout")
+        return self.plan.png
+
+    @property
+    def sharded_layout(self):
+        if self.plan.sharded is None:
+            raise AttributeError(
+                f"backend {self.method!r} has no sharded layout")
+        return self.plan.sharded
+
+    @property
+    def mesh(self):
+        """The plan's ``ShardMesh`` on this engine's device."""
+        from . import backends
+        return backends.sharded_mesh(self.plan, self.shard_axis,
+                                     self.device)
+
+    @property
+    def compression_ratio(self) -> float:
+        return self.plan.compression_ratio
 
     @property
     def _fused_cache(self) -> dict:

@@ -62,6 +62,21 @@ class GatewayConfig:
     idle_wait_s: float = 0.002    # device-thread sleep when idle
 
 
+def check_one_controller(engine) -> None:
+    """A gateway over a sharded engine needs world size 1: its threads
+    decide what each chunk holds from wall-clock arrivals, so several
+    ranks would step different pools and wait in different collectives.
+    Above world size 1 this raises ``NotImplementedError`` naming ROADMAP
+    A14: a controller rank that broadcasts the gateway's operations to
+    the others."""
+    if engine.backend.supports_sharding and engine.mesh.world_size > 1:
+        raise NotImplementedError(
+            "a gateway over a sharded engine runs at world size 1 only "
+            f"(this one has {engine.mesh.world_size} ranks): its threads "
+            "cannot keep ranks in lockstep. A controller rank that "
+            "broadcasts the gateway's ops is ROADMAP A14")
+
+
 class Gateway:
     """Threaded front door over one or more compiled schedulers.
 
@@ -78,6 +93,8 @@ class Gateway:
             schedulers = {name: schedulers}
         if not schedulers:
             raise ValueError("gateway needs at least one scheduler")
+        for sch in schedulers.values():
+            check_one_controller(sch.engine)
         self.config = config or GatewayConfig()
         self._schedulers: dict[str, SlotScheduler] = dict(schedulers)
         # observability: explicit bundle, or inherit the first

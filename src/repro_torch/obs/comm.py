@@ -227,7 +227,8 @@ class CommAccountant:
             try:
                 bd = measure_plan(plan, ncols=ncols)
             except ValueError:
-                self._skipped[key] = plan    # pcpm_pallas plan: skip
+                # a pcpm_pallas or pcpm_sharded plan: skip
+                self._skipped[key] = plan
                 return None
             self._breakdowns[key] = bd
             self._plans[key] = plan

@@ -135,8 +135,7 @@ def corrupt_plan_arrays(plan):
     uploads nor its "tile" gather order are ever served for it, and the
     original's arrays and uploads are left as they are (plans are shared
     through the process cache). What ``check_plan_integrity`` must catch
-    before a rebind serves it. Sharded plans come with the sharded-path
-    slice (A10)."""
+    before a rebind serves it."""
     bad_id = plan.num_nodes + 7
     kw: dict = {"_device": {}}
     if plan.png is not None:
@@ -151,9 +150,10 @@ def corrupt_plan_arrays(plan):
         src = plan.bv_src.copy()
         src[:1] = bad_id
         kw["bv_src"] = src
-    elif getattr(plan, "sharded", None) is not None:
-        from ..api import _later
-        _later("corrupt_plan_arrays on a sharded plan", "sharded-path (A10)")
+    elif plan.sharded is not None:
+        send = plan.sharded.send_ids.copy()
+        send.reshape(-1)[:1] = plan.sharded.shard_size + 7
+        kw["sharded"] = dataclasses.replace(plan.sharded, send_ids=send)
     else:
         raise ValueError("plan has no index arrays to corrupt")
     return dataclasses.replace(plan, **kw)

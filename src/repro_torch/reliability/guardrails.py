@@ -100,6 +100,15 @@ def check_plan_integrity(plan) -> "object":
         _bounds("blocked.edge_dst_local", blk.edge_dst_local,
                 0, blk.part_size)
 
-    # sharded plans (pcpm_sharded) and their check come with the
-    # sharded-path slice (A10)
+    if plan.sharded is not None:                      # pcpm_sharded
+        sh = plan.sharded
+        recv = sh.num_shards * sh.send_ids.shape[2]   # S*U zero slot
+        _bounds("sharded.send_ids", sh.send_ids, -1, sh.shard_size - 1)
+        _bounds("sharded.edge_upd", sh.edge_upd, 0, recv)
+        _bounds("sharded.edge_dst", sh.edge_dst, 0, sh.shard_size)
+        _bounds("sharded.eui_padded", sh.eui_padded, 0, recv)
+        _bounds("sharded.piece_dst", sh.piece_dst, 0, sh.shard_size)
+        if (sh.piece_end < sh.piece_start).any():
+            raise ValueError("plan integrity: sharded schedule has "
+                             "pieces with end < start")
     return plan

@@ -20,9 +20,10 @@ versions — so a file written by either package loads in the other:
 
 A scheduler with an observability bundle (``obs``) records a
 ``snapshot`` event and parks its flight recorder beside the state as
-``<path>.trace.jsonl``, as the JAX package does. The JAX package also
-places restored columns on a sharded pool (the sharded-path slice, A10);
-a port scheduler has none, so that is not reached here.
+``<path>.trace.jsonl``, as the JAX package does. A sharded pool's
+columns are written in full, all ``n_pad`` padded rows, as the JAX
+package writes them; above world size 1 rank 0 writes the file and
+every rank restores from it (each rank holds the whole pool).
 """
 from __future__ import annotations
 
@@ -77,20 +78,23 @@ def load_rank_checkpoint(path: str) -> RankCheckpoint:
 # ---------------------------------------------------------------------------
 def snapshot_scheduler(sch, path: str) -> None:
     """Persist ``sch``'s serving state: per in-flight query its spec,
-    iteration count and CURRENT (n,) rank column, and per queued query
-    its spec. Deadlines are stored as REMAINING seconds and re-based on
-    the restoring process's clock. Completed results are not included —
-    they were already delivered.
+    iteration count and CURRENT (n_pad,) rank column (n_pad = n unless
+    the pool is sharded), and per queued query its spec. Deadlines are
+    stored as REMAINING seconds and re-based on the restoring process's
+    clock. Completed results are not included — they were already
+    delivered.
 
     The cut is consistent under live traffic: the step lock keeps a
     chunk from advancing mid-snapshot (a half-stepped pool would pair
     pre-step iteration counts with post-step columns) and the intake
     lock keeps the queue still while it is walked (lock order: step,
     then intake, as ``step()`` takes them). The in-flight columns are
-    read from the pool in one copy."""
+    read from the pool in one copy. A sharded scheduler calls this on
+    every rank (the SPMD contract): rank 0 writes, and every rank of the
+    mesh waits at a barrier until the file is there."""
     import torch
     from ..core.plan import graph_fingerprint
-    n = sch.n
+    n = sch._n_pad
     with sch._step_lock, sch._lock:
         now = sch.clock()
         live = [(slot, q) for slot, q in enumerate(sch._slot_query)
@@ -109,8 +113,6 @@ def snapshot_scheduler(sch, path: str) -> None:
     meta = {"version": SNAPSHOT_VERSION,
             "graph_fp": graph_fingerprint(sch.g),
             "damping": sch.damping, "dangling": sch.dangling,
-            # the port's pool is unsharded: n rows, as the JAX package
-            # writes when it is not sharded
             "n_pad": n,
             # slot columns and seeds are INTERNAL-space vectors when the
             # plan is reordered — the restoring scheduler must use the
@@ -118,6 +120,10 @@ def snapshot_scheduler(sch, path: str) -> None:
             "reorder": sch.engine.plan.config.reorder,
             "uid_floor": (max(q.uid for q, _, _ in specs) + 1
                           if specs else 0)}
+    mesh = sch.engine.mesh if sch.sharded else None
+    if mesh is not None and mesh.shard != 0:
+        mesh.barrier()                # rank 0 writes
+        return
     np.savez_compressed(
         path, __meta__=json.dumps(meta),
         q_uid=np.array([q.uid for q, _, _ in specs], np.int64),
@@ -146,6 +152,8 @@ def snapshot_scheduler(sch, path: str) -> None:
                          in_flight=int(sum(1 for _, _, fl in specs
                                            if fl)), queued=len(sch._queue))
         obs.recorder.dump(f"{path}.trace.jsonl")
+    if mesh is not None:
+        mesh.barrier()
 
 
 def restore_scheduler(path: str, g, **scheduler_kwargs):
@@ -190,10 +198,10 @@ def restore_scheduler(path: str, g, **scheduler_kwargs):
             f"reorder={meta.get('reorder', 'none')!r} internal space; "
             f"the restored scheduler uses "
             f"reorder={sch.engine.plan.config.reorder!r}")
-    if sch.n != meta["n_pad"]:
+    if sch._n_pad != meta["n_pad"]:
         raise ValueError(
             f"snapshot/scheduler mismatch: snapshot state is padded "
-            f"to {meta['n_pad']} rows, scheduler to {sch.n} "
+            f"to {meta['n_pad']} rows, scheduler to {sch._n_pad} "
             "(different sharding?)")
     ensure_uid_floor(int(meta["uid_floor"]))
     now = sch.clock()

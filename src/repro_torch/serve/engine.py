@@ -8,7 +8,10 @@ work once (plan, device streams, inverse degrees, the fused loop), so a
 query pays no rebuild: with ``batch > 1`` it iterates the (n, batch)
 state in lockstep, one multi-vector SpMV per iteration (on a
 pcpm_pallas plan, kernel B1's "warp" path at d = batch); with
-``batch == 1`` the (n,) state, through B1's "tile" path.
+``batch == 1`` the (n,) state, through B1's "tile" path. With
+``sharded=True`` it serves from the all-to-all engine over the ranks of
+the caller's process group (core/distributed.py): every rank makes the
+same queries in the same order and gets the same answers.
 
 ``ServeEngine``, the counterpart of the JAX package's ``serve/engine.py::ServeEngine``: a
 fixed pool of B slots shares one KV cache of static shape. Requests are
@@ -30,7 +33,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..api import reject_later_knobs
 from ..configs.base import LMConfig
 from ..core.backends import reorder_device, resolve_engine
 from ..core.pagerank import _inv_degree, fused_power_iteration
@@ -75,25 +77,32 @@ class PageRankServer:
     fused loop; ``query()`` only runs it. ``trace_count`` is 1 once the
     loop is built and stays 1 (the JAX package counts traces of its
     compiled loop; here it means the loop was built once).
-    ``sharded``/``num_shards`` come with the sharded-path slice
-    (``api.reject_later_knobs``). ``device`` defaults to ``"cuda"``
-    (ignored when ``engine`` is given).
+
+    ``sharded=True`` serves from the sharded engine instead: the graph
+    is vertex-sharded over ``num_shards`` ranks (default all of them)
+    and each query runs the sharded loop — all-to-all scatter, blocked
+    local gather, all-reduced residual (core/distributed.py) — over
+    padded vectors; ranks outside a smaller mesh get the answer from
+    rank 0. ``device`` defaults to ``"cuda"`` (ignored when ``engine``
+    is given).
     """
 
     def __init__(self, g: Graph, *, method: str = "pcpm_pallas",
                  part_size: int = 65536, batch: int = 1,
                  damping: float = 0.85, num_iterations: int = 20,
                  tol: float = 0.0, check_every: int = 1,
-                 dangling: str = "none",
-                 engine: SpMVEngine | None = None, device=None, **later):
-        reject_later_knobs("PageRankServer", **later)
+                 dangling: str = "none", sharded: bool = False,
+                 num_shards: int | None = None,
+                 engine: SpMVEngine | None = None, device=None):
         self.g = g
         self.n = g.num_nodes
         self.batch = batch
         self.damping = damping
-        self.engine = resolve_engine(g, method=method,
-                                     part_size=part_size, engine=engine,
+        self.engine = resolve_engine(g, method=method, sharded=sharded,
+                                     part_size=part_size,
+                                     num_shards=num_shards, engine=engine,
                                      device=device)
+        self.sharded = self.engine.backend.supports_sharding
         self.device = self.engine.device
         self._uniform_cache = None
         # reordered plans: iterate in the plan's internal (relabeled)
@@ -103,19 +112,38 @@ class PageRankServer:
         self._inv = (None if self._perm is None
                      else reorder_inverse(self.engine.plan))
         gi = internal_graph(g, self.engine.plan)
-        self._run = fused_power_iteration(
-            self.engine, damping=damping, num_iterations=num_iterations,
-            tol=tol, check_every=check_every, multi=batch > 1,
-            dangling=dangling)
-        self._inv_deg = _inv_degree(gi, self.device)
+        if self.sharded:
+            from ..core.distributed import (padded_inv_degree,
+                                            sharded_power_iteration)
+            layout = self.engine.sharded_layout
+            self._n_pad = layout.padded_nodes
+            self._run = sharded_power_iteration(
+                layout, self.engine.mesh, damping=damping,
+                num_iterations=num_iterations, tol=tol,
+                check_every=check_every, multi=batch > 1,
+                dangling=dangling)
+            self._inv_deg = padded_inv_degree(gi, layout, self.device)
+        else:
+            self._n_pad = self.n
+            self._run = fused_power_iteration(
+                self.engine, damping=damping,
+                num_iterations=num_iterations, tol=tol,
+                check_every=check_every, multi=batch > 1,
+                dangling=dangling)
+            self._inv_deg = _inv_degree(gi, self.device)
         self.trace_count = 1
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(host).to(self.device)
+        """A host (n, ...) array on the device, zero-padded to the
+        shards' rows when sharded."""
+        if self._n_pad != self.n:
+            host = np.pad(host, ((0, self._n_pad - self.n),)
+                          + ((0, 0),) * (host.ndim - 1))
+        return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
 
     def _uniform_batch(self):
         """The uniform-teleport start vector and base, both on the
-        device and built once: the fused loop never writes its start
+        device and built once: the loops never write their start
         vector, so one buffer serves every uniform query."""
         if self._uniform_cache is None:
             shape = (self.n, self.batch) if self.batch > 1 else (self.n,)
@@ -140,9 +168,11 @@ class PageRankServer:
                 np.asarray(seeds, dtype=np.float32).reshape(shape))
             if self._perm is not None:
                 host = host[self._inv]        # into internal space
-            v = self._upload(np.ascontiguousarray(host))
+            v = self._upload(host)
             base = (1.0 - self.damping) * v
         pr, it, res = self._run(v, self._inv_deg, base)
+        if self.sharded:
+            pr = pr[:self.n]
         if self._perm is not None:            # back to original ids
             perm_dev, _ = reorder_device(self.engine.plan, self.device)
             pr = pr.index_select(0, perm_dev)

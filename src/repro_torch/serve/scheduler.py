@@ -63,8 +63,18 @@ caller, which is what the async front door (``repro_torch.gateway``)
 builds on; ``GraphRegistry.run_until_drained`` interleaves graphs
 weighted-fair (``gateway.qos.WeightedFair``).
 
-A port of the JAX package's ``serve/scheduler.py``. ``sharded=True``
-(the sharded path, A10) raises ``NotImplementedError`` naming the slice.
+Sharded pools (``sharded=True``): the slot pool is (n_pad, B), padded
+to the shards of a pcpm_sharded plan, and the stepper is
+``core.distributed.sharded_chunk_stepper``: each rank of the caller's
+process group iterates its own rows and the rows are gathered to every
+rank at the end of each chunk. The SPMD contract holds: every rank
+makes the same calls in the same order (the same submits, steps and
+deltas), and then uids and results are identical on every rank; so the
+mesh must span the whole world (``num_shards`` == world size), and
+above world size 1 queries take no deadline (a wall clock differs
+between ranks). Sharded pools have no push route.
+
+A port of the JAX package's ``serve/scheduler.py``.
 """
 from __future__ import annotations
 
@@ -77,7 +87,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..api import reject_later_knobs
 from ..core.backends import resolve_engine
 from ..core.pagerank import (StepperFailure, _inv_degree,
                              masked_chunk_stepper)
@@ -190,15 +199,14 @@ class SlotScheduler:
     def __init__(self, g: Graph, *, slots: int = 4,
                  method: str = "pcpm", part_size: int = 65536,
                  damping: float = 0.85, chunk: int = 8,
-                 dangling: str = "none",
+                 dangling: str = "none", sharded: bool = False,
+                 num_shards: int | None = None,
                  engine: SpMVEngine | None = None,
                  metrics: ServeMetrics | None = None,
                  resilience: ResilienceConfig | None = None,
                  route: str = "auto", push_tol: float = 1e-4,
                  push_mode: str = "auto", push_max_sweeps: int = 64,
-                 fault_injector=None, idmap=None, obs=None, device=None,
-                 **later):
-        reject_later_knobs("SlotScheduler", **later)
+                 fault_injector=None, idmap=None, obs=None, device=None):
         if slots < 1:
             raise ValueError(f"need at least one slot; got {slots}")
         if route not in ("auto", "push", "stepper"):
@@ -211,10 +219,21 @@ class SlotScheduler:
         self.damping = damping
         self.chunk = chunk
         self.dangling = dangling
-        self.engine = resolve_engine(g, method=method,
-                                     part_size=part_size, engine=engine,
+        self.engine = resolve_engine(g, method=method, sharded=sharded,
+                                     part_size=part_size,
+                                     num_shards=num_shards, engine=engine,
                                      device=device)
         self.device = self.engine.device
+        self.sharded = self.engine.backend.supports_sharding
+        self._n_pad = self.n
+        if self.sharded:
+            mesh = self.engine.mesh
+            if mesh.num_shards != mesh.world_size:
+                raise ValueError(
+                    f"SlotScheduler(sharded=True) needs num_shards == the "
+                    f"world size ({mesh.num_shards} != "
+                    f"{mesh.world_size}): every rank steps the pool")
+            self._n_pad = self.engine.sharded_layout.padded_nodes
         # locality-reordered plans: the slot pool, the stepper and the
         # push engine all run in the plan's internal (relabeled) id
         # space — seeds map in at submit, ranks/top ids map back at
@@ -232,6 +251,7 @@ class SlotScheduler:
         # so the construction's build is recorded.
         self.obs = obs
         self.resilience = resilience or ResilienceConfig()
+        self._check_spmd_deadline(self.resilience.default_deadline_s)
         self.trace_count = 0          # stepper builds — must stay 1
         self.admit_trace_count = 0    # column-admit builds — must stay 1
         self.rebind_count = 0         # plan swaps (the streaming slice)
@@ -269,7 +289,8 @@ class SlotScheduler:
 
         # cached uniform teleport seed — admit never writes the seed
         # argument, so one device buffer serves every seeds=None query
-        uni = np.full(self.n, 1.0 / self.n, dtype=np.float32)
+        uni = np.zeros(self._n_pad, dtype=np.float32)
+        uni[:self.n] = 1.0 / self.n
         self._uniform_seed = torch.from_numpy(uni).to(self.device)
 
         # host-side slot + queue state
@@ -297,9 +318,9 @@ class SlotScheduler:
         failure that may have left the pool half-written."""
         B = self.slots
         # pr is updated in place by the stepper and the column writes
-        self._pr = torch.zeros((self.n, B), dtype=torch.float32,
+        self._pr = torch.zeros((self._n_pad, B), dtype=torch.float32,
                                device=self.device)
-        self._base = torch.zeros((self.n, B), dtype=torch.float32,
+        self._base = torch.zeros((self._n_pad, B), dtype=torch.float32,
                                  device=self.device)
         self._slot_query: list[Optional[Query]] = [None] * B
         self._active[:] = False
@@ -324,10 +345,19 @@ class SlotScheduler:
         plan's device uploads, when this is their first use)."""
         t0 = time.perf_counter()
         gi = internal_graph(g, engine.plan)
-        step = masked_chunk_stepper(engine, damping=self.damping,
-                                    chunk=self.chunk,
-                                    dangling=self.dangling)
-        inv_deg = _inv_degree(gi, engine.device)
+        if self.sharded:
+            from ..core.distributed import (padded_inv_degree,
+                                            sharded_chunk_stepper)
+            step = sharded_chunk_stepper(
+                engine.sharded_layout, engine.mesh, damping=self.damping,
+                chunk=self.chunk, dangling=self.dangling)
+            inv_deg = padded_inv_degree(gi, engine.sharded_layout,
+                                        engine.device)
+        else:
+            step = masked_chunk_stepper(engine, damping=self.damping,
+                                        chunk=self.chunk,
+                                        dangling=self.dangling)
+            inv_deg = _inv_degree(gi, engine.device)
         self.trace_count += 1
         if self.obs is not None:
             self.obs.tracer.event(
@@ -377,6 +407,8 @@ class SlotScheduler:
             delta.validate(self.g)
             if g_new is None:
                 g_new = apply_edges(self.g, delta)
+            # patch_plan takes a full rebuild for backends without a
+            # patcher (pcpm_sharded's all-to-all wire layout is global)
             new_plan = patch_plan(old_plan, delta, g_new)
             if self._injector is not None and \
                     self._injector.wants_corrupt(self._delta_idx):
@@ -457,8 +489,11 @@ class SlotScheduler:
                 np.asarray(seeds, dtype=np.float32).reshape(self.n))
             if self._perm is not None:
                 seed = seed[self._inv]        # into internal space
+            if self._n_pad != self.n:
+                seed = np.pad(seed, (0, self._n_pad - self.n))
         if deadline_s is None:
             deadline_s = self.resilience.default_deadline_s
+        self._check_spmd_deadline(deadline_s)
         spans = _spans
         if spans is None and self.obs is not None:
             from ..obs.trace import QuerySpans
@@ -510,9 +545,20 @@ class SlotScheduler:
                                                 max_iters)))
         return route, use_push
 
+    def _check_spmd_deadline(self, deadline_s) -> None:
+        """Deadlines are read on each rank's own clock, so above world
+        size 1 they would let ranks expire different queries and step
+        different pools."""
+        if (deadline_s is not None and self.sharded
+                and self.engine.mesh.world_size > 1):
+            raise ValueError(
+                "a sharded scheduler above world size 1 takes no "
+                "deadline: each rank's clock would decide on its own")
+
     # --------------------------------------------------- push routing
     def _push_supported(self) -> bool:
-        return (self.engine.backend.supports_push_query
+        return (not self.sharded
+                and self.engine.backend.supports_push_query
                 and self.dangling == "none")
 
     def _push_eligible(self, have_seed, top_k, tol, max_iters) -> bool:
@@ -527,6 +573,9 @@ class SlotScheduler:
 
     def _check_push_request(self, have_seed, tol, max_iters) -> None:
         """route="push" validation — raises before a uid is allocated."""
+        if self.sharded:
+            raise ValueError("route='push' is single-device (the push "
+                             "state is one (n,) vector)")
         if not self.engine.backend.supports_push_query:
             raise ValueError(
                 f"backend {self.engine.method!r} does not support push "
@@ -960,7 +1009,7 @@ class SlotScheduler:
             if q.obs is not None:
                 q.obs.event("readback", n=self.n)
             # a copy even on the CPU: the pool's column is reused
-            ranks = self._pr[:, slot].to("cpu", copy=True).numpy()
+            ranks = self._pr[:self.n, slot].to("cpu", copy=True).numpy()
             result = QueryResult(
                 q.uid, it, converged, residual,
                 self.metrics.traces[q.uid].latency_s,

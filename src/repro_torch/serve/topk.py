@@ -1,9 +1,11 @@
 """Top-k rank extraction on the device and on the host.
 
 A "top 100 of graph X" query should ship 100 ids and 100 scores to the
-host, not the full n-vector. ``make_slot_topk`` takes one column of the
-(n, B) slot pool (the column index is data) and ranks it on its device;
-only the (k,) results cross to the host.
+host, not the full n-vector. ``make_slot_topk`` (alias ``slot_topk``, the
+JAX package's name) takes one column of the (n_pad, B) slot pool (the
+column index is data) and ranks it on its device; only the (k,) results
+cross to the host. The pad rows of a sharded pool are masked out: only
+the first ``num_nodes`` rows are ranked.
 
 Ties break as ``jax.lax.top_k`` breaks them in the JAX package: equal
 scores order by lower id. ``torch.topk`` promises no order among equal
@@ -25,17 +27,20 @@ def topk_ranks(pr: torch.Tensor, k: int):
 
 
 def make_slot_topk(num_nodes: int):
-    """``topk(pr, col, k) -> (ids, scores)`` for an (n, B) slot pool
-    whose rows are the ``num_nodes`` vertices."""
+    """``topk(pr, col, k) -> (ids, scores)`` for an (n_pad, B) slot pool
+    whose first ``num_nodes`` rows are the vertices (the rest are the
+    pad rows of a sharded pool)."""
 
     def topk(pr: torch.Tensor, col: int, k: int):
-        if pr.shape[0] != num_nodes:
+        if pr.shape[0] < num_nodes:
             raise ValueError(f"slot pool has {pr.shape[0]} rows; expected "
-                             f"{num_nodes}")
-        return topk_ranks(pr[:, col], k)
+                             f"at least {num_nodes}")
+        return topk_ranks(pr[:num_nodes, col], k)
 
     return topk
 
+
+slot_topk = make_slot_topk
 
 
 def host_topk(ranks: np.ndarray, k: int):

@@ -102,11 +102,21 @@ def test_cuda_is_the_default_and_raises_without_it(graphs):
 
 
 def test_later_slices_raise(graphs):
-    g, _ = graphs
+    g, r = graphs
     sess = repro_torch.open(g, method="pcpm", part_size=256, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        repro_torch.open(g, method="pcpm", part_size=256, device="cpu",
-                         num_shards=2)
+    # the sharded slice (A10) is in, with the reference's rules: a
+    # backend that cannot shard ignores num_shards, and a sharded plan
+    # wider than the devices (the world size; 1 here) is refused
+    assert repro_torch.open(g, method="pcpm", part_size=256, device="cpu",
+                            num_shards=2).plan.config.num_shards is None
+    assert ref_api.open(r, method="pcpm", part_size=256,
+                        num_shards=2).plan.config.num_shards is None
+    for open_ in (lambda: repro_torch.open(g, method="pcpm_sharded",
+                                           num_shards=2, device="cpu"),
+                  lambda: ref_api.open(r, method="pcpm_sharded",
+                                       num_shards=2)):
+        with pytest.raises(ValueError, match="num_shards=2 exceeds"):
+            open_()
     # the gateway (A8) and observability (A9) slices are in
     obs = sess.observe()
     assert sess.observe() is obs and sess.obs is obs
@@ -130,10 +140,38 @@ def test_later_slices_raise(graphs):
         fresh.save_checkpoint("x")
 
 
+def test_engine_attributes_preserved():
+    """reference test_api.py::test_engine_attributes_preserved (ROADMAP
+    C3), and the sharded case: a sharded plan's ratio is on the wire."""
+    from repro_torch.core import SpMVEngine
+    g, r = generators.rmat(8, 4, seed=0), ref_gen.rmat(8, 4, seed=0)
+    ref_core = load_reference("core")
+    eng = SpMVEngine(g, method="pcpm", part_size=32, device="cpu")
+    ref = ref_core.SpMVEngine(r, method="pcpm", part_size=32)
+    assert eng.partitioning.part_size == 32
+    assert eng.layout.compression_ratio == eng.compression_ratio > 1
+    assert eng.compression_ratio == ref.compression_ratio
+    assert round(eng.compression_ratio, 4) == 2.0687
+    assert eng.num_nodes == g.num_nodes
+    eng_p = SpMVEngine(g, method="pdpr", device="cpu")
+    assert eng_p.compression_ratio == 1.0
+    with pytest.raises(AttributeError):
+        eng_p.layout
+    with pytest.raises(AttributeError):
+        eng_p.sharded_layout
+    eng_s = SpMVEngine(g, method="pcpm_sharded", device="cpu")
+    ref_s = ref_core.SpMVEngine(r, method="pcpm_sharded")
+    assert (eng_s.compression_ratio == eng_s.sharded_layout.wire_compression
+            == ref_s.compression_ratio)
+    assert eng_s.shard_axis == ref_s.shard_axis == "shards"
+    with pytest.raises(AttributeError):
+        eng_s.layout
+
+
 def test_bad_config_rejected(graphs):
     g, _ = graphs
     with pytest.raises(ValueError, match="unknown method"):
-        repro_torch.open(g, method="pcpm_sharded", device="cpu")
+        repro_torch.open(g, method="gespmm", device="cpu")
     with pytest.raises(ValueError, match="unknown reorder"):
         repro_torch.open(g, method="pcpm", reorder="gorder", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -9,7 +9,10 @@ warm update and ``SlotScheduler.apply_delta`` with launches counted by
 path); reliability (a poisoned column quarantined on the card, scheduler
 snapshot/restore, a rank checkpoint round trip); the observed gateway
 (autotuned width, launches by path, one upload per plan under racing
-threads, observability's cost in queries/s); kernel B3 against its plain version
+threads, observability's cost in queries/s); the sharded path at world
+size 1 through a one-rank NCCL group (PageRank, the engine's SpMV, a
+sharded scheduler and server, each against the CPU, with the mesh's
+collectives counted); kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), and the smoke LM's
 ``ServeEngine`` on the card against the same run on the CPU; kernel B2
 against its plain version, and the smoke MIND's
@@ -1231,3 +1234,83 @@ def test_mind_on_the_card_matches_cpu(cuda_device):
     apart[:, 1:] &= gaps
     apart[:, :-1] &= gaps
     assert torch.equal(ids.cpu()[apart], ref_ids[apart])
+
+
+# ------------------------------------------------- the sharded path (A10)
+@pytest.fixture
+def nccl_group(cuda_device):
+    """A one-rank NCCL process group on the card, torn down after the
+    test."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(cuda_device.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_pagerank_and_spmv_through_nccl(nccl_group):
+    from repro_torch.core import SpMVEngine, pagerank
+    dev = nccl_group
+    g = generators.rmat(10, 8, seed=4)
+    eng = SpMVEngine(g, method="pcpm_sharded", device=dev)
+    mesh = eng.mesh
+    assert mesh.group is not None and mesh.num_shards == 1
+    res = pagerank(g, engine=eng, num_iterations=20)
+    assert mesh.counts["all_to_all_single"] == 20
+    assert "identity_all_to_all" not in mesh.counts
+    cpu = pagerank(g, method="pcpm", num_iterations=20, device="cpu")
+    assert np.abs(res.ranks.cpu().numpy() - cpu.ranks.numpy()).max() <= 1e-6
+    x = (np.random.default_rng(0).integers(0, 16, (g.num_nodes, 4))
+         / 16).astype(np.float32)
+    np.testing.assert_allclose(eng(x).cpu().numpy(),
+                               dense_spmv(g.num_nodes, g.src, g.dst, x),
+                               rtol=1e-5, atol=1e-6)
+    res_t = pagerank(g, engine=eng, num_iterations=200, tol=1e-6)
+    # the CPU side runs unsharded: the group's NCCL takes no CPU tensor
+    cpu_t = pagerank(g, method="pcpm", num_iterations=200, tol=1e-6,
+                     device="cpu")
+    assert abs(res_t.iterations - cpu_t.iterations) <= 1
+    assert np.abs(res_t.ranks.cpu().numpy()
+                  - cpu_t.ranks.numpy()).max() <= 1e-6
+
+
+def test_sharded_scheduler_and_server_through_nccl(nccl_group):
+    from repro_torch.serve import PageRankServer, SlotScheduler
+    dev = nccl_group
+    g = generators.rmat(10, 8, seed=4)
+    seeds = np.zeros(g.num_nodes, np.float32)
+    seeds[[3, 70]] = 1.0
+    out = []
+    # the CPU side runs unsharded: the group's NCCL takes no CPU tensor
+    for kw in (dict(sharded=True, device=dev),
+               dict(method="pcpm", route="stepper", device="cpu")):
+        sch = SlotScheduler(g, slots=3, chunk=4, **kw)
+        uids = [sch.submit(tol=0.0, max_iters=15),
+                sch.submit(seeds, tol=1e-6, max_iters=200),
+                sch.submit(seeds, tol=0.0, max_iters=12, top_k=8)]
+        by = {q.uid: q for q in sch.run_until_drained()}
+        out.append([by[u] for u in uids])
+        assert sch.trace_count == 1
+    card, cpu = out
+    assert np.abs(card[0].ranks - cpu[0].ranks).max() <= 1e-6
+    assert abs(card[1].iterations - cpu[1].iterations) <= 1
+    assert np.abs(card[1].ranks - cpu[1].ranks).max() <= 1e-6
+    assert np.array_equal(card[2].top_ids, cpu[2].top_ids)
+    srv = PageRankServer(g, sharded=True, num_iterations=10, batch=2,
+                         device=dev)
+    pr, it, _ = srv.query(np.stack([seeds, np.ones_like(seeds)], 1))
+    ref = PageRankServer(g, method="pcpm", num_iterations=10, batch=2,
+                         device="cpu").query(
+        np.stack([seeds, np.ones_like(seeds)], 1))[0]
+    assert it == 10
+    assert np.abs(pr.cpu().numpy() - ref.numpy()).max() <= 1e-6

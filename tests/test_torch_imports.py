@@ -1,8 +1,13 @@
-"""Import hygiene of the port: it never needs JAX or the JAX package."""
+"""Import hygiene of the port: it never needs JAX or the JAX package;
+and every name the JAX package exports has its counterpart."""
+import ast
+import importlib
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -44,7 +49,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
     # the reliability, ingest, gateway and observability slices are in
     # the scan
     scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
-    assert {"reliability/faults.py", "reliability/snapshot.py",
+    assert {"core/distributed.py",
+            "reliability/faults.py", "reliability/snapshot.py",
             "ingest/parse.py", "ingest/idmap.py",
             "ingest/pipeline.py", "gateway/__init__.py",
             "gateway/frontdoor.py", "gateway/autotune.py",
@@ -65,3 +71,78 @@ def test_chip_smoke_refuses_without_cuda():
                          cwd=REPO)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# names of the JAX package's ``__all__`` lists that the port does not
+# have yet, each with the ROADMAP item that brings it
+LATER = {
+    "configs": {"GNNConfig": "A11.4", "GNN_SHAPES": "A11.4",
+                "LM_SHAPES": "A11.1"},
+    "data": {"synthetic_lm_batches": "A11.2", "graph_for_shape": "A11.4",
+             "batch_for_shape": "A11.4"},
+    "graphs": {"sampler": "A11.4"},
+    "launch": dict.fromkeys(
+        ("make_production_mesh", "make_host_mesh", "sharding",
+         "PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW_PER_LINK", "HBM_BYTES"),
+        "A11.5"),
+    "optim": dict.fromkeys(("AdamW", "AdamWState", "cosine_schedule"),
+                           "A11.2"),
+    "train": dict.fromkeys(("Trainer", "TrainerConfig", "checkpoint",
+                            "compression"), "A11.2"),
+    # Pallas's interpret-mode policy and VMEM update tile: TPU-only,
+    # documented as such by A11.5
+    "kernels.pcpm_spmv": {"default_interpret": "A11.5",
+                          "pick_u_tile": "A11.5"},
+}
+# the TPU kernels' entry points and their Hopper counterparts
+COUNTERPARTS = {
+    ("kernels.pcpm_spmv", "pcpm_gather_pallas"): "pcpm_gather_cuda",
+    ("kernels.embedding_bag", "embedding_bag_pallas"): "embedding_bag_cuda",
+    ("kernels.flash_attention", "flash_attention_pallas"):
+        "flash_attention_cuda",
+}
+REF_INITS = sorted((REPO / "src" / "repro").rglob("__init__.py"))
+
+
+def _reference_all(init: Path) -> list:
+    """``__all__`` of a JAX-package ``__init__.py``, read from its source
+    (``import repro`` fails on this runtime)."""
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    return []
+
+
+@pytest.mark.parametrize("init", REF_INITS, ids=lambda p: str(
+    p.parent.relative_to(REPO / "src" / "repro")))
+def test_reference_exports_exist_in_the_port(init):
+    rel = init.parent.relative_to(REPO / "src" / "repro")
+    sub = ".".join(rel.parts)
+    names = _reference_all(init)
+    try:
+        mod = importlib.import_module(
+            "repro_torch" + (f".{sub}" if sub else ""))
+    except ModuleNotFoundError:
+        mod = None
+    later = LATER.get(sub, {})
+    missing = set()
+    for name in names:
+        twin = COUNTERPARTS.get((sub, name), name)
+        if mod is None or not hasattr(mod, twin):
+            missing.add(name)
+    # the exceptions are exactly what is missing: a name that arrives
+    # leaves the list with its item
+    assert missing == set(later), (sub, sorted(missing ^ set(later)))
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    for name, item in later.items():
+        assert re.fullmatch(r"A11\.\d", item), (name, item)
+        assert f"**{item} " in roadmap, item
+
+
+def test_every_reference_init_is_covered():
+    subs = {".".join(p.parent.relative_to(REPO / "src" / "repro").parts)
+            for p in REF_INITS}
+    assert set(LATER) <= subs
+    assert {sub for sub, _ in COUNTERPARTS} <= subs
+    assert len(REF_INITS) >= 18

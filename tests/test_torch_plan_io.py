@@ -257,8 +257,17 @@ def test_engine_config_has_the_reference_fields(graphs):
     assert (sess.config.slots, sess.config.chunk) == (6, 3)
     with pytest.raises(ValueError, match="two_phase"):
         repro_torch.open(g, method="pcpm", two_phase=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        repro_torch.open(g, method="pcpm", num_shards=2, device="cpu")
+    # num_shards as the reference takes it: ignored by a backend that
+    # cannot shard, bounded by the devices (world size 1 here) for one
+    # that can
+    assert repro_torch.open(g, method="pcpm", num_shards=2,
+                            device="cpu").plan.num_shards is None
+    with pytest.raises(ValueError, match="available devices"):
+        repro_torch.open(g, method="pcpm_sharded", num_shards=2,
+                         device="cpu")
+    with pytest.raises(ValueError, match="available devices"):
+        ref_api.open(ref_gen.rmat(7, 8, seed=9), method="pcpm_sharded",
+                     num_shards=2)
     observed = repro_torch.open(g, method="pcpm", observe=True,
                                 device="cpu")
     assert observed.obs is not None

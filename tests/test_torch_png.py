@@ -160,6 +160,26 @@ def test_plan_from_arrays_rejects_missing_and_sharded():
               "num_nodes": plan.num_nodes, "num_edges": plan.num_edges}
     with pytest.raises(ValueError, match="needs"):
         plan_from_arrays(fields, {})
-    with pytest.raises(NotImplementedError, match="sharded"):
-        plan_from_arrays({**fields, "config": {**fields["config"],
-                                               "num_shards": 2}}, {})
+    # sharded plans carry over too (the shd/* arrays of the JAX
+    # package's plan file), and one without its layout is refused
+    from repro_torch.core.distributed import build_sharded_png
+    ref_dist = load_reference("core.distributed")
+    sharded = {**fields, "config": {**fields["config"],
+                                    "method": "pcpm_sharded",
+                                    "num_shards": 2}}
+    with pytest.raises(ValueError, match="needs"):
+        plan_from_arrays(sharded, {})
+    lay = build_sharded_png(g, 2)
+    names = ("send_ids", "edge_upd", "edge_dst", "eui_padded",
+             "piece_start", "piece_end", "piece_dst")
+    sharded["sharded"] = {k: getattr(lay, k) for k in (
+        "num_shards", "shard_size", "num_nodes", "gather_block",
+        "wire_updates", "wire_edges")}
+    carried = plan_from_arrays(sharded, {
+        f"shd/{k}": getattr(ref_dist.build_sharded_png(
+            ref_gen.rmat(6, 4, seed=0), 2), k) for k in names})
+    for k in names:
+        assert np.array_equal(getattr(carried.sharded, k), getattr(lay, k))
+    # two shards at world size 1: the reference's device-count rule
+    with pytest.raises(ValueError, match="available devices"):
+        SpMVEngine(g, plan=carried, device="cpu")

@@ -8,7 +8,8 @@ injected stepper failures, failing and corrupted deltas), overload,
 scheduler snapshot/restore and rank checkpoints. Slot choices and
 counters are equal, ranks within 1e-6 L∞ and iteration counts equal.
 Snapshots and checkpoints written by one package load in the other.
-``test_sharded_quarantine`` comes with the sharded-path slice (A10).
+``test_sharded_quarantine`` runs on a group of eight gloo ranks in
+``tests/test_torch_distributed.py``.
 """
 import dataclasses
 import json

@@ -271,8 +271,22 @@ def test_server_rejects_bad_seeds_and_sharding(graphs):
     srv = PageRankServer(g, part_size=PART, batch=2, device="cpu")
     with pytest.raises(ValueError, match="positive mass"):
         srv.query(np.zeros((g.num_nodes, 2)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        PageRankServer(g, part_size=PART, sharded=True, device="cpu")
+    # sharding (A10) as in the reference: one shard at world size 1 (no
+    # process group), the same answers; two shards exceed the devices
+    r = graphs[1]
+    srv = PageRankServer(g, part_size=PART, sharded=True, device="cpu")
+    assert srv.sharded and srv.engine.method == "pcpm_sharded"
+    pr, it, _ = srv.query()
+    rpr, rit, _ = ref_api.open(r, method="pcpm_sharded",
+                               part_size=PART).server().query()
+    assert it == rit
+    assert np.abs(pr.numpy() - np.asarray(rpr)).max() <= 1e-6
+    for make in (lambda: PageRankServer(g, sharded=True, num_shards=2,
+                                        device="cpu"),
+                 lambda: ref_api.open(r, method="pcpm_sharded",
+                                      num_shards=2)):
+        with pytest.raises(ValueError, match="available devices"):
+            make()
 
 
 # ---------------------------------------------------------- the scheduler
@@ -858,15 +872,20 @@ def test_session_serve_and_server_share_the_plan(graphs):
 def test_later_slices_raise_naming_them(graphs):
     g, _ = graphs
     kw = dict(part_size=PART, device="cpu")
-    for extra in (dict(sharded=True), dict(num_shards=4)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            SlotScheduler(g, **kw, **extra)
-    for extra in (dict(sharded=True), dict(num_shards=4)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            PageRankServer(g, **kw, **extra)
+    # the sharded slice (A10) is in, with the reference's rules:
+    # sharded=True picks pcpm_sharded (one shard at world size 1),
+    # num_shards alone is ignored by a method that cannot shard, and
+    # more shards than devices are refused
+    for make in (SlotScheduler, PageRankServer):
+        assert make(g, **kw, sharded=True).engine.method == "pcpm_sharded"
+        assert make(g, **kw, num_shards=4).engine.plan.num_shards is None
+        with pytest.raises(ValueError, match="num_shards=4 exceeds"):
+            make(g, **kw, sharded=True, num_shards=4)
+    with pytest.raises(ValueError, match="num_shards=4 exceeds"):
+        ref_sched.SlotScheduler(graphs[1], part_size=PART, sharded=True,
+                                num_shards=4)
     with pytest.raises(TypeError, match="no_such_knob"):
         SlotScheduler(g, **kw, no_such_knob=1)
-    # the default values of the later knobs pass
     SlotScheduler(g, **kw, sharded=False, num_shards=1, obs=None)
     # the reliability (A6) and ingest (A7) slices are in
     from repro_torch.ingest import NodeIdMapping

@@ -16,8 +16,8 @@ the patched PNG back from the shared PNG cache that ``install_plan``
 seeds, which is why the reference's own exactness test never compares
 the PNG splice for pcpm and pcpm_pallas with a real build.
 
-``pcpm_sharded`` (its full-rebuild fallback) comes with the sharded-path
-slice (A10), and its cases with it.
+``pcpm_sharded``'s full-rebuild fallback is held in
+``tests/test_torch_distributed.py``.
 """
 import dataclasses
 
