@@ -134,7 +134,13 @@ Phases, each of which exits non-zero when it fails:
    shapes of the JAX package's ``TestFlashAttention`` (float32 within
    2e-3, windows 64/128/200, unpadded S = 200; in bfloat16 too), the LM
    slice's decode shape (B 8, Hq 32, Hkv 4, Sq 1, 1024 cache slots,
-   mixed per-slot lengths) and its prefill shape (4, 2048, causal);
+   mixed per-slot lengths) and its prefill shape (4, 2048, causal), and
+   every shape at which phase 10b launches it: mixtral-8x7b's decode
+   (Hq 32, Hkv 8, dh 128, 1024 slots), its (1, 6144) prefill and its
+   forward over 6208 tokens under its 4096 window (whole key tiles
+   skipped); grok-1's (GQA group 6: Hq 48, Hkv 8) and deepseek-67b's
+   (group 8: Hq 64, Hkv 8) (2, 2048) prefills and forwards over 2080
+   tokens through "tc", and their decodes over 2080 slots;
    bfloat16 outputs within rtol 1.6e-2, atol 2e-3 (their rounding; inside
    TestFlashAttention's 5e-2);
 9. the LM serving path: TinyLlama-1.1B at its configured widths
@@ -150,6 +156,29 @@ Phases, each of which exits non-zero when it fails:
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
    port never calls); the device idle share and top kernels of profiled
    decode steps and prefills, with B3's share of each;
+10b. the MoE and sliding-window LMs at their published widths, random
+   bfloat16 weights (routers float32) from a seeded generator, the
+   parameter count held to the config's plus the routers', each model
+   freed before the next: mixtral-8x7b with its depth cut from 32 to 8
+   layers (all 32 would not fit the card) drains phase 9's 16 requests
+   over 8 slots (max_len 1024: the window does not bind) with B3 once per
+   layer per step and finite logits; ``prefill`` at (1, 6144), past the
+   4096 window, at the published capacity 1.25 (B3 once a layer, the
+   cache a 4096-slot ring); 64 ``decode_step``s after a prefill against
+   ``forward`` over the 6208 tokens at capacity E/k = 4, where the
+   forward drops no route, as decode never does (phase 9's gate at the
+   positions routed alike in every layer, at least 90% of them; router
+   flips, a token sent to another set of experts, named with their
+   margins, those that no flip at an earlier layer of the same position
+   explains held to a near-tie);
+   grok-1-314b (2 of 64 layers) and deepseek-67b (4 of 95): a (2, 2048)
+   prefill and 32 decode steps against ``forward``. Times with CUDA
+   events: mixtral's decode step beside its weight-bytes bound, its
+   expert GEMMs at decode beside theirs, its prefill; the device idle
+   share and top kernels of profiled decode steps with B3's share; B3 at
+   mixtral's decode and windowed prefill and grok-1's decode beside their
+   bounds, plain versions and ``scaled_dot_product_attention`` (an
+   explicit window mask where the window binds);
 11. kernel B2 (the embedding bag, ``repro_torch/csrc/embedding_bag.cu``)
    against its plain version on the card: the shapes of the JAX
    package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
@@ -215,6 +244,28 @@ CONSISTENCY_LEN = 256
 # a greedy token can flip only where the top-2 margin is below twice it
 DECODE_TOL = 0.2
 PROFILE_STEPS = 16
+# phase 10b, the MoE and sliding-window LMs at their published widths with
+# the depth cut to fit one 80 GB card in bfloat16: mixtral-8x7b 8 of 32
+# layers (~2.90 GB a layer; all 32 would be ~93 GB), grok-1-314b 2 of 64
+# (~9.8 GB a layer), deepseek-67b 4 of 95 (~1.4 GB a layer)
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 8
+MOE_PREFILL = (1, 6144)        # past the 4096 window, 6144 % 4096 != 0
+MOE_DECODE_STEPS = 64
+BIG_ARCHS = (("grok-1-314b", 2), ("deepseek-67b", 4))
+BIG_PREFILL = (2, 2048)
+BIG_DECODE_STEPS = 32
+# decode_step vs forward in bfloat16 through the MoE layers, at positions
+# routed alike in every layer: the max logit gaps measured on the H100 were
+# 0.0625 (mixtral), 0.0313 (grok-1) and 0.0391 (deepseek) on logits up to
+# 5.7; phase 9's tolerance is kept
+MOE_DECODE_TOL = 0.2
+# a router flip between decode and forward that no flip at an earlier
+# layer of the same position explains must be a near-tie: the first ones
+# measured on the H100 had margins of 0.0044 and 0.0067 (mixtral, 64
+# positions); and at least 90% of the positions must route alike in every
+# layer (measured 61 of 64 for mixtral, all for grok-1 and deepseek)
+MOE_ROUTER_TIE = 0.05
+MOE_ROUTED_ALIKE = 0.9
 # B2 against F.embedding_bag at serve_p99: alternating rounds of calls
 B2_ROUNDS, B2_ROUND_CALLS = 5, 50
 B3_F32_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -2796,10 +2847,13 @@ def check_b3(args, label, **kw) -> float:
 
 
 def check_b3_shapes(dev) -> dict:
-    """B3 against its plain version at TestFlashAttention's shapes and at
-    the LM slice's decode and prefill shapes; returns those two cases as
-    {name: (args, kwargs, max abs err)}."""
+    """B3 against its plain version at TestFlashAttention's shapes, at
+    the LM slice's decode and prefill shapes and at every shape phase 10b
+    launches it at; returns the five cases the kernels line times (the
+    LM slice's two, mixtral's decode and windowed prefill, grok-1's
+    decode) as {name: (args, kwargs, max abs err)}."""
     import torch
+    from repro_torch.configs import get as get_config
     gen = torch.Generator(device=dev).manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
     for b, hq, hkv, s, d in ((1, 4, 4, 256, 64), (2, 8, 2, 128, 64),
@@ -2834,14 +2888,60 @@ def check_b3_shapes(dev) -> dict:
                dict(causal=True))
     cases["prefill"] = prefill + (check_b3(prefill[0], "prefill shape",
                                            **prefill[1]),)
+    # phase 10b's shapes: mixtral's decode (GQA group 4, dh 128) and its
+    # prefill past the 4096 window, which skips whole key tiles; grok-1's
+    # decode after its (2, 2048) prefill (GQA group 6)
+    mix = get_config(MOE_ARCH)
+    heads = (mix.n_heads, mix.n_kv_heads)
+    decode = (b3_inputs(dev, gen, SLOTS, *heads, 1, MAX_LEN, mix.dh, bf16),
+              dict(causal=False, kv_len=torch.tensor(
+                  lens, dtype=torch.int32, device=dev)))
+    cases["mixtral_decode"] = decode + (check_b3(
+        decode[0], "mixtral decode shape", **decode[1]),)
+    b, s = MOE_PREFILL
+    prefill = (b3_inputs(dev, gen, b, *heads, s, s, mix.dh, bf16),
+               dict(causal=True, window=mix.window))
+    cases["mixtral_prefill"] = prefill + (check_b3(
+        prefill[0], "mixtral windowed prefill shape", **prefill[1]),)
+    grok = get_config(BIG_ARCHS[0][0])
+    b, s = BIG_PREFILL
+    slots = s + BIG_DECODE_STEPS
+    decode = (b3_inputs(dev, gen, b, grok.n_heads, grok.n_kv_heads, 1, slots,
+                        grok.dh, bf16),
+              dict(causal=False, kv_len=torch.tensor(
+                  [s + 1, slots], dtype=torch.int32, device=dev)))
+    cases["grok_decode"] = decode + (check_b3(
+        decode[0], "grok-1 decode shape", **decode[1]),)
+    # the rest of phase 10b's launches: mixtral's windowed forward over
+    # 6144 + 64 tokens; grok-1's and deepseek's (2, 2048) prefills and
+    # forwards over 2048 + 32 tokens, whose "tc" row packing divides by
+    # their GQA groups of 6 and 8; deepseek's "split" decode
+    mb, ms = MOE_PREFILL
+    sq = ms + MOE_DECODE_STEPS
+    check_b3(b3_inputs(dev, gen, mb, *heads, sq, sq, mix.dh, bf16),
+             "mixtral windowed forward shape", causal=True,
+             window=mix.window)
+    for arch, _ in BIG_ARCHS:
+        big = get_config(arch)
+        heads = (big.n_heads, big.n_kv_heads)
+        for label, sq in (("prefill", s), ("forward", slots)):
+            check_b3(b3_inputs(dev, gen, b, *heads, sq, sq, big.dh, bf16),
+                     f"{arch} {label} shape", causal=True)
+    deepseek = get_config(BIG_ARCHS[1][0])
+    decode = b3_inputs(dev, gen, b, deepseek.n_heads, deepseek.n_kv_heads,
+                       1, slots, deepseek.dh, bf16)
+    check_b3(decode, "deepseek-67b decode shape", causal=False,
+             kv_len=torch.tensor([s + 1, slots], dtype=torch.int32,
+                                 device=dev))
     return cases
 
 
 # --------------------------------------------------------------- phase 9
-def sdpa_call(q, k, v, *, causal, kv_len=None):
+def sdpa_call(q, k, v, *, causal, kv_len=None, window=None):
     """``scaled_dot_product_attention`` on the same inputs, the
     yardstick: heads-major views of the (B, S, H, D) tensors, GQA by
-    ``enable_gqa``, per-row lengths as a boolean mask."""
+    ``enable_gqa``, per-row lengths as a boolean mask; under a window,
+    an explicit causal window mask (Sq = Skv)."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2849,6 +2949,11 @@ def sdpa_call(q, k, v, *, causal, kv_len=None):
     if kv_len is not None:
         mask = (torch.arange(k.shape[1], device=q.device)[None, :]
                 < kv_len[:, None])[:, None, None, :]
+    if window is not None:
+        pos = torch.arange(k.shape[1], device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        causal = False
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True)
 
@@ -2856,7 +2961,8 @@ def sdpa_call(q, k, v, *, causal, kv_len=None):
 def b3_entry(case, name, launches, card) -> dict:
     """Time B3, its plain version and SDPA at one shape; its bound from
     this case's inputs: the bytes of q, o and the live K/V rows, and the
-    4·D operations of every visible (query, key) pair."""
+    4·D operations of every visible (query, key) pair (under a window,
+    min(i + 1, window) keys for query i)."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
@@ -2872,7 +2978,9 @@ def b3_entry(case, name, launches, card) -> dict:
         pairs = hq * live
     else:                                    # causal, Sq = Skv
         live = b * skv
-        pairs = b * hq * sq * (sq + 1) // 2
+        w = kw.get("window") or sq
+        seen = sum(min(i + 1, w) for i in range(sq))
+        pairs = b * hq * seen
     nbytes = q.element_size() * (2 * q.numel() + 2 * live * hkv * d)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops = 4 * d * pairs
@@ -3068,6 +3176,333 @@ def lm_phases(dev, card, b3_cases) -> list[dict]:
                   card, names=B3_KERNELS)
     return [b3_entry(b3_cases["decode"], "decode", decode_launches, card),
             b3_entry(b3_cases["prefill"], "prefill", prefill_launches, card)]
+
+
+# -------------------------------------------------------------- phase 10b
+def cut_config(arch: str, n_layers: int):
+    """``arch`` at its published widths with only its depth cut."""
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(get(arch), n_layers=n_layers)
+
+
+def init_model(cfg, dev, card):
+    """Random bfloat16 weights (the router float32) from a seeded
+    generator; the parameter count checked against the config's, which
+    leaves the router (n_layers x d_model x n_experts) out."""
+    import torch
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    want = cfg.param_count() + cfg.n_layers * cfg.d_model * cfg.n_experts
+    log(f"model: {cfg.name} at its published widths (d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.dh}, d_ff {cfg.d_ff}, "
+        f"experts {cfg.n_experts} top-{cfg.top_k}, window {cfg.window}, vocab "
+        f"{cfg.vocab}), depth cut to {cfg.n_layers} layers: {n} parameters "
+        f"({nbytes} B; = param_count {cfg.param_count()} + router "
+        f"{want - cfg.param_count()}: {n == want}) from torch.Generator seed "
+        f"0, {time.perf_counter() - t0:.1f} s ({card})")
+    if n != want:
+        fail(f"{cfg.name}: {n} parameters, the config counts {want}")
+    return model
+
+
+def with_capacity(model, capacity_factor: float):
+    """The same parameter tensors under another MoE capacity factor."""
+    import dataclasses
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(model.cfg, capacity_factor=capacity_factor)
+    return tf.LM(cfg, model.embed, model.unembed, model.final_norm,
+                 [{name: getattr(block, name)
+                   for name in tf.layer_weights(cfg)}
+                  for block in model.layers])
+
+
+class RouteLog:
+    """The router logits, the set of top-k experts (ascending) and the
+    top-k margin (k-th minus (k+1)-th router logit) of every MoE router
+    call (``transformer.route``) while open, in call order; the
+    decode-vs-forward check reads them. The set, not the order: with the
+    gates following their experts, two routes that swap places give the
+    same output."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as tf
+        self.tf, self.route, self.calls = tf, tf.route, []
+
+    def __enter__(self):
+        def route(h, router, k):
+            logits, top, experts = self.route(h, router, k)
+            following = logits.topk(k + 1, dim=-1).values[..., k]
+            self.calls.append((logits, experts.sort(-1).values,
+                               top[..., k - 1] - following))
+            return logits, top, experts
+        self.tf.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.route = self.route
+
+
+def decode_vs_forward(model, card, tokens, steps: int, label: str) -> int:
+    """``prefill`` of ``tokens`` (B, S), then ``steps`` lockstep
+    ``decode_step``s (positions S .. S+steps-1, through the prefill's
+    cache: its ring under a window, else copied into a cache of S+steps
+    slots) against ``forward`` over the S+steps tokens. Gate as phase 9:
+    the max logit gap and the greedy tokens where the top-2 margin
+    exceeds MOE_DECODE_TOL. A position where decode and forward send a
+    token to another set of experts in some layer is named with its
+    margins and not held to the gap; such a flip must be
+    a near-tie (MOE_ROUTER_TIE) unless a flip at an earlier layer of the
+    same position explains it, and at least MOE_ROUTED_ALIKE of the
+    positions must route alike in every layer. Returns the B3 launches of
+    the decode steps."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    b, s = tokens.shape[0], tokens.shape[1] - steps
+    n_moe = cfg.n_layers if cfg.moe else 0
+    with RouteLog() as fwd_log:
+        full = tf.forward(model, tokens)[0][:, s:].float()
+    _, cache = tf.prefill(model, tokens[:, :s])
+    wide = tf.init_cache(cfg, b, s + steps, device=tokens.device)
+    if wide["k"].shape[2] != cache["k"].shape[2]:     # no window: copy in
+        for name in ("k", "v"):
+            wide[name][:, :, :s] = cache[name]
+        cache = wide
+    del wide
+    b3.launch_count = 0
+    out = []
+    with RouteLog() as dec_log:
+        for t in range(s, s + steps):
+            logits, cache = tf.decode_step(model, cache,
+                                           tokens[:, t:t + 1], t)
+            out.append(logits[:, 0].float())
+    dec = torch.stack(out, 1)
+    torch.cuda.synchronize()
+    launches = b3.launch_count
+    del cache
+    # positions whose experts differ from the forward's in some layer
+    flipped = torch.zeros((b, steps), dtype=torch.bool, device=dec.device)
+    flips = []                           # in position order, then layer
+    for i in range(steps):
+        for layer in range(n_moe):
+            d_logits, d_exp, d_margin = dec_log.calls[i * n_moe + layer]
+            f_logits, f_exp, f_margin = fwd_log.calls[layer]
+            differ = (d_exp[:, 0] != f_exp[:, s + i]).any(-1)
+            drift = (d_logits[:, 0] - f_logits[:, s + i]).abs().amax(-1)
+            for row in differ.nonzero().flatten().tolist():
+                primary = not bool(flipped[row, i])
+                flips.append((row, s + i, layer, float(f_margin[row, s + i]),
+                              float(d_margin[row, 0]), float(drift[row]),
+                              primary))
+            flipped[:, i] |= differ
+    gaps = (dec - full).abs().amax(-1)
+    top2 = full.topk(2, -1).values
+    decided = (top2[..., 0] - top2[..., 1]) > MOE_DECODE_TOL
+    wrong = (dec.argmax(-1) != full.argmax(-1)) & decided
+    agree = ~flipped
+    gap = float(gaps.max())
+    gap_agree = float(gaps[agree].max()) if bool(agree.any()) else 0.0
+    log(f"{label} decode vs forward over positions {s}-{s + steps - 1} "
+        f"(batch {b}): max abs logit gap {gap!r} (tol {MOE_DECODE_TOL}; "
+        f"logits up to {float(full.abs().max()):.3f}), {gap_agree!r} where "
+        f"decode and forward route alike in every layer "
+        f"({int(agree.sum())} of {b * steps} positions); greedy tokens "
+        f"differ at {int(wrong.sum())} of {int(decided.sum())} positions "
+        f"whose top-2 margin exceeds the tol, {int((wrong & agree).sum())} "
+        f"of them routed alike; B3 launches {launches} "
+        f"(= {cfg.n_layers} x {steps}) ({card})")
+    for row, pos, layer, f_margin, d_margin, drift, primary in flips:
+        log(f"  router flip: row {row}, position {pos}, layer {layer}: "
+            f"forward margin {f_margin!r}, decode margin {d_margin!r}, "
+            f"router logits apart by up to {drift!r}"
+            f"{'' if primary else ' (after a flip at an earlier layer)'}")
+    if gap_agree > MOE_DECODE_TOL or bool((wrong & agree).any()):
+        fail(f"{label}: decode_step disagrees with forward where both "
+             "route alike")
+    ties = [f for f in flips if f[6] and max(f[3], f[4]) > MOE_ROUTER_TIE]
+    if ties or int(agree.sum()) < MOE_ROUTED_ALIKE * b * steps:
+        fail(f"{label}: decode and forward route apart beyond near-ties "
+             f"(tie {MOE_ROUTER_TIE}) or at more than "
+             f"{1 - MOE_ROUTED_ALIKE:.0%} of the positions: "
+             f"{ties or flips}")
+    if launches != cfg.n_layers * steps:
+        fail(f"{label}: B3 launches differ from layers x decode steps")
+    return launches
+
+
+def moe_prefill(model, tokens, label: str, card):
+    """``prefill`` once with B3's launches counted: it must launch once a
+    layer and give finite logits and a cache of the window's (or S)
+    slots; returns the B3 launches."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    b, s = tokens.shape
+    slots = min(s, cfg.window) if cfg.window else s
+    b3.launch_count = 0
+    logits, cache = tf.prefill(model, tokens)
+    torch.cuda.synchronize()
+    launches = b3.launch_count
+    finite = bool(torch.isfinite(logits).all())
+    shape = (cfg.n_layers, b, slots, cfg.n_kv_heads, cfg.dh)
+    log(f"{label} prefill {(b, s)} at capacity_factor {cfg.capacity_factor}: "
+        f"B3 launches {launches} (= {cfg.n_layers}), logits "
+        f"{tuple(logits.shape)} finite {finite}, cache "
+        f"{tuple(cache['k'].shape)} (= {shape}) ({card})")
+    if (launches != cfg.n_layers or not finite
+            or tuple(cache["k"].shape) != shape
+            or logits.shape != (b, 1, cfg.vocab)):
+        fail(f"{label} prefill")
+    return launches
+
+
+def moe_phases(dev, card, b3_cases) -> list[dict]:
+    """Phase 10b: mixtral-8x7b (8 of 32 layers) serving a drain, a
+    windowed prefill and decode against forward, with times; grok-1-314b
+    (2 of 64) and deepseek-67b (4 of 95): a prefill and decode against
+    forward. Returns B3's entries of the kernels line at mixtral's
+    decode, its windowed prefill and grok-1's decode."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import swiglu
+    from repro_torch.serve import Request, ServeEngine
+    t_phase = time.perf_counter()
+    cfg = cut_config(MOE_ARCH, MOE_LAYERS)
+    model = init_model(cfg, dev, card)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def greedy(logits):                  # argmax on the card; finiteness
+        finite.logical_and_(torch.isfinite(logits).all())   # read at the end
+        return logits.argmax(-1)
+
+    def engine():
+        return ServeEngine(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN,
+                           sample=greedy)
+
+    engine().run_until_drained([Request(uid=-1, prompt=[1] * 4,
+                                        max_new_tokens=4)])   # warm-up
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        1, cfg.vocab, int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+    ).tolist(), max_new_tokens=NEW_TOKENS) for i in range(N_REQUESTS)]
+    eng = engine()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    b3.launch_count = 0                  # counts of the serving path only
+    start.record()
+    eng.run_until_drained(reqs)
+    end.record()
+    torch.cuda.synchronize()
+    decode_launches = b3.launch_count
+    drain_ms = start.elapsed_time(end)
+    generated = sum(len(r.generated) for r in reqs)
+    log(f"main path (MoE serving, {cfg.name}): {N_REQUESTS} requests "
+        f"(prompts {min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens) over {SLOTS} slots, "
+        f"max_len {MAX_LEN} (cache slots {eng.cache['k'].shape[2]}: the "
+        f"{cfg.window} window does not bind): {eng.steps} decode steps, "
+        f"{generated} generated tokens, B3 launches {decode_launches} "
+        f"(= {cfg.n_layers} x {eng.steps}: "
+        f"{decode_launches == cfg.n_layers * eng.steps}), logits finite "
+        f"{bool(finite)}; {drain_ms / eng.steps!r} ms per decode step over "
+        f"the drain ({card})")
+    if not all(r.done and r.error is None
+               and len(r.generated) == NEW_TOKENS for r in reqs):
+        fail("MoE drain: a request did not finish with its 64 tokens")
+    if decode_launches != cfg.n_layers * eng.steps:
+        fail("MoE drain: B3 launches differ from layers x decode steps")
+    if not bool(finite):
+        fail("MoE drain: non-finite logits")
+
+    b, s = MOE_PREFILL
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    prefill_launches = moe_prefill(model, tokens, cfg.name, card)
+    # decode never drops a route (one token a sequence); the forward does
+    # at the published 1.25, so this check runs at E / k = 4, where it
+    # cannot drop either
+    seq = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s + MOE_DECODE_STEPS))).to(dev)
+    decode_vs_forward(with_capacity(model, cfg.n_experts / cfg.top_k), card,
+                      seq, MOE_DECODE_STEPS,
+                      f"{cfg.name} (capacity_factor {cfg.n_experts}/"
+                      f"{cfg.top_k} = {cfg.n_experts / cfg.top_k}, this "
+                      f"check only)")
+    del seq
+
+    # ---------------------------------------------------- times
+    steady = engine()
+    for i in range(SLOTS):
+        steady.add_request(Request(uid=i, prompt=[1 + i] * PROMPT_LENS[1],
+                                   max_new_tokens=NEW_TOKENS))
+    step_ms = time_ms(steady.step, reps=32, warmup=2)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for name, p in model.named_parameters()
+                       if name != "embed")
+    bound_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"time {cfg.name} decode step, {SLOTS} active slots: {step_ms!r} ms, "
+        f"{SLOTS / step_ms * 1e3!r} tokens/s; weight-bytes bound "
+        f"{bound_ms!r} ms ({weight_bytes} B of weights but the embedding, "
+        f"every expert read once a step, at {PEAK_BYTES_PER_S / 1e12} TB/s) "
+        f"({card})")
+    block = model.layers[0]
+    buf = torch.randn((cfg.n_experts, SLOTS, cfg.d_model), device=dev,
+                      dtype=block.w_gate.dtype)
+    expert_ms = time_ms(lambda: swiglu(buf, block.w_gate, block.w_up,
+                                       block.w_down), reps=32)
+    expert_bytes = 3 * block.w_gate.numel() * block.w_gate.element_size()
+    log(f"time {cfg.name} expert GEMMs of one layer at decode ((E, B·cap, d) "
+        f"= {tuple(buf.shape)}): {expert_ms!r} ms, bound {expert_bytes / PEAK_BYTES_PER_S * 1e3!r} "
+        f"ms ({expert_bytes} B); x {cfg.n_layers} layers = "
+        f"{100 * expert_ms * cfg.n_layers / step_ms:.1f}% of the step "
+        f"({card})")
+    del buf
+    prefill_ms = time_ms(lambda: tf.prefill(model, tokens), reps=3,
+                         warmup=1)
+    log(f"time {cfg.name} prefill {MOE_PREFILL} (capacity_factor "
+        f"{cfg.capacity_factor}): {prefill_ms!r} ms, "
+        f"{b * s / prefill_ms * 1e3!r} tokens/s ({card})")
+    profile_steps(steady.step, f"{cfg.name} decode, {steady.active} active "
+                  f"slots", card, names=B3_KERNELS)
+    entries = [b3_entry(b3_cases["mixtral_decode"], "mixtral_decode",
+                        decode_launches, card),
+               b3_entry(b3_cases["mixtral_prefill"],
+                        "mixtral_prefill_window", prefill_launches, card)]
+    del steady, eng, model, tokens
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- grok, deepseek
+    for arch, n_layers in BIG_ARCHS:
+        cfg = cut_config(arch, n_layers)
+        model = init_model(cfg, dev, card)
+        b, s = BIG_PREFILL
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (b, s + BIG_DECODE_STEPS))).to(dev)
+        moe_prefill(model, tokens[:, :s], cfg.name, card)
+        check = model
+        label = cfg.name
+        if cfg.moe:
+            check = with_capacity(model, cfg.n_experts / cfg.top_k)
+            label += (f" (capacity_factor {cfg.n_experts / cfg.top_k}, this "
+                      f"check only)")
+        launches = decode_vs_forward(check, card, tokens, BIG_DECODE_STEPS,
+                                     label)
+        if arch == "grok-1-314b":
+            entries.append(b3_entry(b3_cases["grok_decode"], "grok_decode",
+                                    launches, card))
+        del model, check, tokens
+        torch.cuda.empty_cache()
+    log(f"phase 10b (MoE and SWA LMs): {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return entries
 
 
 # --------------------------------------------------------------- phase 11
@@ -3416,6 +3851,10 @@ def main() -> None:
     b3_cases = check_b3_shapes(dev)
     # ---------------------------------------------------- 9-10. LM serving
     kernels += lm_phases(dev, card, b3_cases)
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 10b. MoE, SWA LMs
+    kernels += moe_phases(dev, card, b3_cases)
+    del b3_cases
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # ---------------------------------------------------- 11. B2 checks

@@ -1,9 +1,10 @@
 """Configurations, input shapes and the ``--arch`` registry.
 
 A copy of the LM and recsys parts of the JAX package's ``configs/base.py``
-(``ShapeSpec``, ``RECSYS_SHAPES``, ``LMConfig``, ``RecSysConfig``,
-``register``, ``get``): the port imports nothing of that package. The GNN
-configurations and the LM and GNN shape sets come with their slices.
+(``ShapeSpec``, ``LM_SHAPES``, ``RECSYS_SHAPES``, ``LMConfig``,
+``RecSysConfig``, ``register``, ``get``): the port imports nothing of that
+package. The GNN configurations and their shape set come with their
+slice.
 """
 from __future__ import annotations
 
@@ -49,7 +50,15 @@ class ShapeSpec:
     n_candidates: int = 0
 
 
-# ``train_batch`` is kept as data: the training slice will run it
+# ``train_4k`` and ``train_batch`` are kept as data: the training slices
+# will run them
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+    ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+    ShapeSpec("long_500k", "long_decode", seq_len=524288, global_batch=1),
+)
+
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "recsys_train", global_batch=65536),
     ShapeSpec("serve_p99", "recsys_serve", global_batch=512),
@@ -89,6 +98,15 @@ class LMConfig:
     def dh(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def shapes(self):
+        return LM_SHAPES
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """long_500k eligibility: SWA bounds the KV working set."""
+        return self.window is not None
+
     def param_count(self) -> int:
         d, dh = self.d_model, self.dh
         attn = d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh) \
@@ -99,6 +117,13 @@ class LMConfig:
             ffn = 3 * d * self.d_ff
         per_layer = attn + ffn + 2 * d
         return (self.n_layers * per_layer + 2 * self.vocab * d + d)
+
+    def active_param_count(self) -> int:
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        dead = (self.n_experts - self.top_k) * 3 * d * self.d_ff
+        return self.param_count() - self.n_layers * dead
 
     def scaled(self, *, n_layers=2, d_model=128, n_heads=4, n_kv_heads=None,
                d_ff=256, vocab=512, n_experts=None, window=None):

@@ -41,6 +41,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU feed-forward; with (E, N, d) rows and (E, d, f) /
+    (E, f, d) weights, every MoE expert's as one batched GEMM each."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 

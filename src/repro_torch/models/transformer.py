@@ -1,14 +1,32 @@
-"""Dense LM transformer: GQA, RoPE, RMSNorm, SwiGLU, KV-cache decode.
+"""LM transformer (dense and MoE): GQA, RoPE, RMSNorm, SwiGLU,
+sliding-window attention, capacity-bounded top-k MoE, KV-cache decode.
 
-The counterpart of the JAX package's ``models/transformer.py`` for dense
-configurations. The parameters live in an ``nn.Module`` (``LM``, one
-``Block`` per layer; weights kept in the reference's ``h @ W``
-orientation), and the functional names of the reference stand beside
-it: ``init_lm``, ``forward``, ``init_cache``, ``prefill`` and
-``decode_step``. On the card every attention call launches kernel B3.
+The counterpart of the JAX package's ``models/transformer.py``. The
+parameters live in an ``nn.Module`` (``LM``, one ``Block`` per layer;
+weights kept in the reference's ``h @ W`` orientation), and the
+functional names of the reference stand beside it: ``init_lm``,
+``forward``, ``init_cache``, ``prefill`` and ``decode_step``. On the card
+every attention call launches kernel B3.
 
-Not here yet (ROADMAP.md, Queue A): ``_moe_ffn`` (a MoE configuration
-raises ``NotImplementedError``), ``lm_loss``, ``make_train_step``,
+The MoE feed-forward (``_moe_ffn``) keeps the reference's partition-
+centric dispatch: per sequence, each route (token, choice) takes the next
+free slot of its expert's buffer in token-major order, routes past the
+capacity are dropped, and the (E, B·cap, d) buffers go through batched
+GEMMs (``swiglu`` over the experts' weights) before the gated combine.
+The router's product is taken in float64 and rounded to float32, so no
+TF32 setting of the caller's reaches it (a flip there changes a token's
+experts). Only ``forward`` computes the aux loss; ``prefill`` and
+``decode_step`` drop it, as the reference's do, and skip its work.
+
+One layout differs from the reference on purpose. Under sliding-window
+attention, ``prefill`` keeps position p of the last ``window`` keys in
+cache slot ``p % window`` (a ring), the slot ``decode_step`` writes
+position p to. The reference keeps them in position order from slot 0,
+so after a prefill of S > window tokens with S % window != 0 its decode
+overwrites a key that is not the oldest; the port's cache is the
+reference's rolled by S % window, and its decode agrees with ``forward``.
+
+Not here yet (ROADMAP.md, Queue A): ``lm_loss``, ``make_train_step``,
 ``param_logical`` and ``shard_params``. The reference's scan over layers
 and its ``unroll_layers`` switch are a Python loop here.
 """
@@ -16,6 +34,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import LMConfig
@@ -27,24 +46,91 @@ PARAM_DTYPE = torch.bfloat16
 ATTN_CHUNK = 1024        # the reference's default ``attn_chunk``
 LAYER_WEIGHTS = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo",
                  "w_gate", "w_up", "w_down")
+MOE_WEIGHTS = LAYER_WEIGHTS + ("router",)
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a MoE configuration: the MoE feed-forward "
-            "(_moe_ffn) comes with the MoE slice of the port (ROADMAP.md, "
-            "Queue A); this slice runs dense LMs only")
+def layer_weights(cfg: LMConfig) -> tuple[str, ...]:
+    """The names of one layer's weights: a MoE layer adds its router."""
+    return MOE_WEIGHTS if cfg.moe else LAYER_WEIGHTS
+
+
+def capacity(cfg: LMConfig, s: int) -> int:
+    """Expert slots per sequence of ``s`` tokens (GShard-style group
+    capacity), rounded up to a multiple of 128 above 128."""
+    cap = max(int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts), 1)
+    return -(-cap // 128) * 128 if cap > 128 else cap
+
+
+def route(h: torch.Tensor, router: torch.Tensor, k: int):
+    """h (B, S, d) -> (router logits (B, S, E) float32, top-k logits and
+    experts (B, S, K), largest first). The product is float64 rounded to
+    float32: float32 accuracy whatever TF32 flags the caller has set."""
+    logits = (h.double() @ router.double()).float()
+    top, experts = logits.topk(k, dim=-1)
+    return logits, top, experts
+
+
+def expert_slots(experts: torch.Tensor, n_experts: int,
+                 cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """experts (B, S, K) -> (slot, kept), each (B, S·K) in token-major
+    route order: a route's slot is its rank among the routes of its
+    sequence to the same expert; it is kept while slot < cap."""
+    b, s, k = experts.shape
+    onehot = F.one_hot(experts.reshape(b, s * k), n_experts)  # (B, SK, E)
+    slot = (onehot.cumsum(1) * onehot).sum(-1) - 1
+    return slot, slot < cap
+
+
+def aux_loss(logits: torch.Tensor, experts: torch.Tensor,
+             n_experts: int) -> torch.Tensor:
+    """The Switch load-balance loss E · Σ_e f_e · mean(probs)_e, with f_e
+    the share of tokens whose top-1 expert is e."""
+    probs = torch.softmax(logits, dim=-1)
+    f_e = F.one_hot(experts[..., 0], n_experts).float().mean((0, 1))
+    return n_experts * (f_e * probs.mean((0, 1))).sum()
+
+
+def _moe_ffn(h: torch.Tensor, block: "Block", cfg: LMConfig, *,
+             with_aux: bool = True) -> tuple[torch.Tensor,
+                                             torch.Tensor | None]:
+    """Capacity-bounded top-k MoE with per-sequence dispatch, as the
+    reference's ``_moe_ffn``: h (B, S, d) -> (out (B, S, d), aux loss, or
+    None without ``with_aux``).
+
+    A route's slot is its rank among the routes of its sequence to the
+    same expert, in token-major order (token t's choices, then token
+    t+1's); slots >= cap drop the route, which then adds nothing. Expert
+    e's buffer for batch row b is rows ``b·cap .. b·cap + cap - 1`` of
+    ``buf[e]``; a last row takes the dropped routes and is never read.
+    """
+    b, s, d = h.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, s)
+    logits, top, experts = route(h, block.router, k)
+    gates = torch.softmax(top, dim=-1)
+    e_flat = experts.reshape(b, s * k)
+    slot, keep = expert_slots(experts, e, cap)
+    rows = torch.where(keep, torch.arange(b, device=h.device)[:, None] * cap
+                       + slot, b * cap)
+    buf = h.new_zeros((e, b * cap + 1, d))
+    buf[e_flat, rows] = h.repeat_interleave(k, dim=1)
+    out = swiglu(buf[:, :b * cap], block.w_gate, block.w_up, block.w_down)
+    vals = out[e_flat, rows.clamp(max=b * cap - 1)]      # (B, SK, d)
+    w = gates.reshape(b, s * k).to(h.dtype) * keep
+    y = (vals * w[..., None]).reshape(b, s, k, d).sum(2)
+    return y, aux_loss(logits, experts, e) if with_aux else None
 
 
 class Block(nn.Module):
-    """One decoder layer: attention then SwiGLU feed-forward, each with a
-    pre-RMSNorm and a residual add."""
+    """One decoder layer: attention then the feed-forward (SwiGLU, or a
+    MoE of SwiGLU experts), each with a pre-RMSNorm and a residual add.
+    A MoE layer holds its float32 ``router`` (d, E) and its experts'
+    weights stacked as (E, d, f) and (E, f, d)."""
 
     def __init__(self, cfg: LMConfig, weights: dict[str, torch.Tensor]):
         super().__init__()
         self.cfg = cfg
-        for name in LAYER_WEIGHTS:
+        for name in layer_weights(cfg):
             setattr(self, name, nn.Parameter(weights[name],
                                              requires_grad=False))
 
@@ -64,12 +150,19 @@ class Block(nn.Module):
         b, s = o.shape[:2]
         return x + o.reshape(b, s, -1) @ self.wo
 
-    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def ffn(self, x: torch.Tensor, with_aux: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The reference's ``_ffn_block``: (x + feed-forward, aux loss);
+        the aux is None for a dense layer, or without ``with_aux``."""
         h = rms_norm(x, self.ffn_norm, self.cfg.norm_eps)
-        return x + swiglu(h, self.w_gate, self.w_up, self.w_down)
+        if self.cfg.moe:
+            out, aux = _moe_ffn(h, self, self.cfg, with_aux=with_aux)
+            return x + out, aux
+        return x + swiglu(h, self.w_gate, self.w_up, self.w_down), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                attn_path: str = "dense") -> torch.Tensor:
+                attn_path: str = "dense") -> tuple[torch.Tensor,
+                                                   torch.Tensor | None]:
         q, k, v = self.qkv(x, positions)
         if attn_path == "chunked":
             o = chunked_attention(q, k, v, causal=True,
@@ -77,18 +170,17 @@ class Block(nn.Module):
                                   chunk=min(ATTN_CHUNK, x.shape[1]))
         else:
             o = dense_attention(q, k, v, causal=True, window=self.cfg.window)
-        return self.ffn(self.attn_out(x, o))
+        return self.ffn(self.attn_out(x, o), with_aux=True)
 
 
 class LM(nn.Module):
-    """The dense LM: embedding, ``cfg.n_layers`` blocks, final RMSNorm
-    and unembedding. Inference only: no parameter requires a gradient."""
+    """The LM: embedding, ``cfg.n_layers`` blocks, final RMSNorm and
+    unembedding. Inference only: no parameter requires a gradient."""
 
     def __init__(self, cfg: LMConfig, embed: torch.Tensor,
                  unembed: torch.Tensor, final_norm: torch.Tensor,
                  layers: list[dict[str, torch.Tensor]]):
         super().__init__()
-        _dense_only(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.unembed = nn.Parameter(unembed, requires_grad=False)
@@ -103,8 +195,10 @@ class LM(nn.Module):
         return rms_norm(x, self.final_norm, self.cfg.norm_eps) @ self.unembed
 
     def forward(self, tokens: torch.Tensor,
-                attn_path: str = "auto") -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V)."""
+                attn_path: str = "auto") -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
+        """tokens (B, S) -> (logits (B, S, V), aux loss: the layers' MoE
+        aux losses summed and divided by the depth)."""
         s = tokens.shape[1]
         if attn_path == "auto":
             attn_path = "chunked" if s >= 2048 else "dense"
@@ -113,9 +207,12 @@ class LM(nn.Module):
                              f"{attn_path!r}")
         x = self.embed[tokens]
         positions = torch.arange(s, device=tokens.device)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for block in self.layers:
-            x = block(x, positions, attn_path)
-        return self.logits(x)
+            x, aux_l = block(x, positions, attn_path)
+            if aux_l is not None:
+                aux = aux + aux_l
+        return self.logits(x), aux / self.cfg.n_layers
 
 
 # ---------------------------------------------------------------- params
@@ -123,10 +220,10 @@ def init_lm(cfg: LMConfig, *, generator: torch.Generator | None = None,
             device=None, dtype: torch.dtype = PARAM_DTYPE) -> LM:
     """Random parameters in the reference's shapes and scales (normal,
     fan_in^-1/2; the embedding at scale 1; norms at 1), drawn from
-    ``generator`` on ``device`` (default ``"cuda"``). ``jax.random``
+    ``generator`` on ``device`` (default ``"cuda"``); a MoE router is
+    float32 whatever ``dtype`` is, as the reference's. ``jax.random``
     cannot be reproduced: parity tests load the reference's parameters
     with ``params_from_numpy``."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     d, dh, f = cfg.d_model, cfg.dh, cfg.d_ff
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -138,11 +235,21 @@ def init_lm(cfg: LMConfig, *, generator: torch.Generator | None = None,
     def ones(n):
         return torch.ones(n, dtype=dtype, device=dev)
 
-    layers = [{"attn_norm": ones(d), "ffn_norm": ones(d),
-               "wq": normal((d, hq * dh)), "wk": normal((d, hkv * dh)),
-               "wv": normal((d, hkv * dh)), "wo": normal((hq * dh, d)),
-               "w_gate": normal((d, f)), "w_up": normal((d, f)),
-               "w_down": normal((f, d))} for _ in range(cfg.n_layers)]
+    def layer():
+        w = {"attn_norm": ones(d), "ffn_norm": ones(d),
+             "wq": normal((d, hq * dh)), "wk": normal((d, hkv * dh)),
+             "wv": normal((d, hkv * dh)), "wo": normal((hq * dh, d))}
+        if not cfg.moe:
+            return {**w, "w_gate": normal((d, f)), "w_up": normal((d, f)),
+                    "w_down": normal((f, d))}
+        e = cfg.n_experts
+        return {**w, "router": dense_init(
+                    (d, e), generator=generator, dtype=torch.float32,
+                    device=dev),
+                "w_gate": normal((e, d, f)), "w_up": normal((e, d, f)),
+                "w_down": normal((e, f, d))}
+
+    layers = [layer() for _ in range(cfg.n_layers)]
     return LM(cfg, normal((cfg.vocab, d), scale=1.0),
               normal((d, cfg.vocab)), ones(d), layers)
 
@@ -159,15 +266,21 @@ def params_from_numpy(cfg: LMConfig, tree: dict, *, device=None,
     """The port's ``LM`` holding the parameters of the reference's
     ``init_lm`` pytree given as numpy arrays (``{"embed", "unembed",
     "final_norm", "layers": {name: (L, ...)}}``), in their ``h @ W``
-    orientation; ``dtype`` None keeps each array's dtype."""
+    orientation; ``dtype`` None keeps each array's dtype. A MoE router
+    given a ``dtype`` becomes float32, as ``init_lm`` draws it."""
     dev = resolve_device(device)
 
-    def put(a):
-        return _tensor(a).to(device=dev, dtype=dtype, copy=True)
+    def put(a, dt=dtype):
+        return _tensor(a).to(device=dev, dtype=dt, copy=True)
+
+    def put_layer(name, a):
+        if name == "router" and dtype is not None:
+            return put(a, torch.float32)
+        return put(a)
 
     stacked = tree["layers"]
-    layers = [{name: put(np.asarray(stacked[name])[i])
-               for name in LAYER_WEIGHTS} for i in range(cfg.n_layers)]
+    layers = [{name: put_layer(name, np.asarray(stacked[name])[i])
+               for name in layer_weights(cfg)} for i in range(cfg.n_layers)]
     return LM(cfg, put(tree["embed"]), put(tree["unembed"]),
               put(tree["final_norm"]), layers)
 
@@ -177,10 +290,10 @@ def forward(model: LM, tokens: torch.Tensor, *,
             attn_path: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), aux_loss). ``attn_path``:
     ``auto`` (chunked at S >= 2048, else dense), ``dense`` or
-    ``chunked``; on the card all three are B3. The aux loss is that of
-    MoE routing, 0 for a dense LM."""
-    logits = model(tokens, attn_path)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    ``chunked``; on the card all three are B3. The aux loss is the mean
+    over layers of the MoE load-balance loss (float32), 0 for a dense
+    LM."""
+    return model(tokens, attn_path)
 
 
 # ----------------------------------------------------------------- serve
@@ -198,10 +311,17 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
 
 def prefill(model: LM, tokens: torch.Tensor):
     """tokens (B, S) -> (logits of the last position (B, 1, V), cache
-    {"k", "v"} (L, B, slots, Hkv, dh) with slots = S, or the window)."""
+    {"k", "v"} (L, B, slots, Hkv, dh) with slots = S, or the window).
+
+    Position p of the cached keys sits in slot ``p % slots``, where
+    ``decode_step`` writes and reads it: with S > slots the last
+    ``slots`` keys form a ring (the reference's cache rolled by
+    S % slots; the module docstring says why). The MoE aux loss is
+    dropped, as the reference's prefill drops it."""
     cfg = model.cfg
     s = tokens.shape[1]
     slots = min(s, cfg.window) if cfg.window else s
+    shift = s % slots
     x = model.embed[tokens]
     positions = torch.arange(s, device=tokens.device)
     ks, vs = [], []
@@ -209,9 +329,12 @@ def prefill(model: LM, tokens: torch.Tensor):
         q, k, v = block.qkv(x, positions)
         o = chunked_attention(q, k, v, causal=True, window=cfg.window,
                               chunk=min(ATTN_CHUNK, s))
-        x = block.ffn(block.attn_out(x, o))
-        ks.append(k[:, -slots:])
-        vs.append(v[:, -slots:])
+        x, _ = block.ffn(block.attn_out(x, o))
+        k, v = k[:, -slots:], v[:, -slots:]
+        if shift:
+            k, v = k.roll(shift, 1), v.roll(shift, 1)
+        ks.append(k)
+        vs.append(v)
     return model.logits(x[:, -1:]), {"k": torch.stack(ks),
                                      "v": torch.stack(vs)}
 
@@ -225,7 +348,9 @@ def decode_step(model: LM, cache: dict[str, torch.Tensor],
     Returns (logits (B, 1, V), cache). The reference returns a new cache;
     here each layer's new K/V row is written into ``cache`` in place with
     an index-put, so a step never copies the cache, and the same dict
-    comes back.
+    comes back. At one token a sequence no MoE route is dropped
+    (capacity >= 1 and a token's top-k experts differ); the aux loss is
+    dropped, as the reference's decode drops it.
     """
     cfg = model.cfg
     b = tokens.shape[0]
@@ -253,5 +378,5 @@ def decode_step(model: LM, cache: dict[str, torch.Tensor],
             kc[:, slot] = k[:, 0]
             vc[:, slot] = v[:, 0]
         o = dense_attention(q, kc, vc, causal=False, kv_len=kv_len)
-        x = block.ffn(block.attn_out(x, o))
+        x, _ = block.ffn(block.attn_out(x, o))
     return model.logits(x), cache

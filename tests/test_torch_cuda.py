@@ -13,8 +13,10 @@ threads, observability's cost in queries/s); the sharded path at world
 size 1 through a one-rank NCCL group (PageRank, the engine's SpMV, a
 sharded scheduler and server, each against the CPU, with the mesh's
 collectives counted); kernel B3 against its plain version
-through each of its paths ("tc", "simt", "split"), and the smoke LM's
-``ServeEngine`` on the card against the same run on the CPU; kernel B2
+through each of its paths ("tc", "simt", "split"), with grok-1's GQA
+group of 6 and a windowed "tc" prefill, the smoke LM's ``ServeEngine``
+on the card against the same run on the CPU, and the MoE smoke models'
+``forward``, ``prefill`` and serving against the CPU; kernel B2
 against its plain version, and the smoke MIND's
 ``serve_step``/``retrieval_step`` on the card against the CPU.
 
@@ -23,6 +25,7 @@ neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch for CUDA:  ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1132,6 +1135,112 @@ def test_serve_engine_on_the_card_matches_cpu(cuda_device):
     assert [(r.generated, r.error) for r in on_card] == [
         (r.generated, r.error) for r in on_cpu]
     assert on_card[-1].error is not None
+
+
+# grok-1's GQA group of 6 (48/8 heads; a smaller batch and cache) and a
+# windowed "tc" prefill that skips whole key tiles (mixtral's window at a
+# smaller scale: 1024 tokens under a 256 window)
+B3_NEW_CASES = [
+    ((2, 48, 8, 1, 512, 128), None, None), ((1, 12, 2, 320, 320, 128), None,
+                                            None),
+    ((1, 8, 2, 1024, 1024, 128), 256, None),
+    ((1, 32, 8, 1, 1024, 128), None, 700),
+]
+
+
+@pytest.mark.parametrize("shape,window,kv_len", B3_NEW_CASES)
+def test_b3_grok_group_and_windowed_tc_vs_plain(cuda_device, shape, window,
+                                                kv_len):
+    dt = torch.bfloat16
+    q, k, v = _attn_inputs(cuda_device, shape, dt, seed=sum(shape))
+    decode = shape[3] == 1
+    kw = (dict(causal=False, kv_len=torch.full(
+        (shape[0],), kv_len or shape[4], dtype=torch.int32,
+        device=cuda_device)) if decode else dict(causal=True, window=window))
+    path = "split" if decode else "tc"
+    before = dict(b3.kernel.launch_counts)
+    out = b3.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_counts == {**before, path: before[path] + 1}
+    ref = b3.attention_ref(q.float(), k.float(), v.float(), **kw)
+    # a bfloat16 output against float32 sums: its rounding
+    torch.testing.assert_close(out.float(), ref, rtol=1.6e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])
+def test_moe_lm_on_the_card_matches_cpu(cuda_device, arch):
+    """The MoE smoke models (grok's with its GQA group of 6) in float32:
+    ``forward`` (logits and aux) and ``prefill`` (logits and cache) on the
+    card against the port's CPU path, at a capacity that drops routes and
+    under a window shorter than the sequence; B3 once per layer a call."""
+    smoke = (dict(d_model=192, n_heads=6, n_kv_heads=1)
+             if arch == "grok-1-314b" else {})
+    cfg = dataclasses.replace(configs.get(arch).scaled(window=32, **smoke),
+                              capacity_factor=0.5)
+    cpu_model = tf.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 80)))
+    before = b3.kernel.launch_count
+    logits, aux = tf.forward(gpu_model, tokens.to(cuda_device))
+    p_logits, cache = tf.prefill(gpu_model, tokens.to(cuda_device))
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_count - before == 2 * cfg.n_layers
+    ref, ref_aux = tf.forward(cpu_model, tokens)
+    ref_p, ref_cache = tf.prefill(cpu_model, tokens)
+    tol = dict(rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(logits.cpu(), ref, **tol)
+    torch.testing.assert_close(aux.cpu(), ref_aux, rtol=1e-5, atol=0)
+    torch.testing.assert_close(p_logits.cpu(), ref_p, **tol)
+    for name in ("k", "v"):
+        assert cache[name].shape[2] == 32
+        torch.testing.assert_close(cache[name].cpu(), ref_cache[name], **tol)
+
+
+def test_moe_serve_engine_on_the_card_matches_cpu(cuda_device):
+    """mixtral's smoke model under an 8-slot window: the decode ring wraps
+    in every slot; the card's tokens are the CPU's."""
+    cfg = configs.get("mixtral-8x7b").scaled(window=8)
+    cpu_model = tf.init_lm(cfg, generator=torch.Generator().manual_seed(1),
+                           device="cpu", dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+
+    def run(model):
+        rng = np.random.default_rng(1)
+        reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, int(
+            rng.integers(9, 30))).tolist(), max_new_tokens=10)
+            for i in range(8)]
+        eng = ServeEngine(cfg, model, batch_slots=4, max_len=64)
+        return eng, eng.run_until_drained(reqs)
+
+    before = b3.kernel.launch_count
+    gpu_eng, on_card = run(gpu_model)
+    torch.cuda.synchronize()
+    assert b3.kernel.launch_count - before == cfg.n_layers * gpu_eng.steps
+    cpu_eng, on_cpu = run(cpu_model)
+    assert gpu_eng.steps == cpu_eng.steps
+    assert [r.generated for r in on_card] == [r.generated for r in on_cpu]
+
+
+def test_router_logits_float32_accurate_with_tf32_allowed(cuda_device):
+    """A caller that allows TF32 for float32 matmuls does not reach the
+    router: its logits on the card are still the float64 product rounded
+    to float32, within an ulp of the CPU's."""
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn((4, 64, 4096), generator=gen).to(torch.bfloat16)
+    router = torch.randn((4096, 8), generator=gen) / 64
+    want = (h.double() @ router.double()).float()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        logits, top, _ = tf.route(h.to(cuda_device), router.to(cuda_device),
+                                  2)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(top.cpu(), want.topk(2, -1).values,
+                               rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------------------ kernel B2

@@ -76,8 +76,7 @@ def test_chip_smoke_refuses_without_cuda():
 # names of the JAX package's ``__all__`` lists that the port does not
 # have yet, each with the ROADMAP item that brings it
 LATER = {
-    "configs": {"GNNConfig": "A11.4", "GNN_SHAPES": "A11.4",
-                "LM_SHAPES": "A11.1"},
+    "configs": {"GNNConfig": "A11.4", "GNN_SHAPES": "A11.4"},
     "data": {"synthetic_lm_batches": "A11.2", "graph_for_shape": "A11.4",
              "batch_for_shape": "A11.4"},
     "graphs": {"sampler": "A11.4"},

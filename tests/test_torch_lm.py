@@ -1,5 +1,6 @@
-"""The dense LM: the port's ``models/transformer.py`` against the JAX
-package's, on the same parameters.
+"""The dense LM and the sliding-window cache: the port's
+``models/transformer.py`` against the JAX package's, on the same
+parameters.
 
 The reference's ``init_lm`` draws the parameters (``jax.random`` cannot
 be reproduced in torch); ``params_from_numpy`` loads them into the port.
@@ -11,7 +12,10 @@ head, as the full configuration does): float32 parameters within 1e-3
 up to ≈4.5e-4 for decode, where a one-ulp float32 difference can flip a
 rounding of the bfloat16 cache), bfloat16 parameters within 5e-2 (the
 bfloat16 roundings of two frameworks; measured ≈3.9e-2, one bfloat16
-step at 4).
+step at 4). Then the sliding-window cache on a dense and a MoE model at
+``scaled(window=8)``: the port's prefill cache is the reference's rolled
+by S % window (a ring), and decode after a prefill longer than the
+window agrees with ``forward``, where the reference's own does not.
 """
 import dataclasses
 
@@ -177,13 +181,6 @@ def test_init_lm_shapes_and_dtype():
     assert torch.equal(model.layers[0].wq, again.layers[0].wq)
 
 
-def test_moe_config_raises_not_implemented():
-    cfg = dataclasses.replace(configs.get("tinyllama-1.1b").scaled(),
-                              n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tf.init_lm(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layers_match_reference(dtype):
     rng = np.random.default_rng(4)
@@ -198,3 +195,90 @@ def test_layers_match_reference(dtype):
     _close(layers.rope(torch.from_numpy(x).to(tdt), torch.from_numpy(pos),
                        1e4),
            ref_layers.rope(jnp.asarray(x, jdt), jnp.asarray(pos), 1e4), dtype)
+
+
+# ------------------------------------------------- sliding-window cache
+SWA_ARCHS = ["tinyllama-1.1b", "mixtral-8x7b"]
+WINDOW = 8
+
+
+def _swa_models(arch):
+    """float32 ``scaled(window=8)`` models of a dense and a MoE LM."""
+    cfg = configs.get(arch).scaled(window=WINDOW)
+    ref_cfg = ref_configs.get(arch).scaled(window=WINDOW)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          ref_tf.init_lm(ref_cfg, jax.random.key(0)))
+    model = tf.params_from_numpy(cfg, _numpy_tree(params, jnp.float32),
+                                 device="cpu")
+    return cfg, ref_cfg, params, model
+
+
+@pytest.mark.parametrize("s", [21, 24, 6])
+@pytest.mark.parametrize("arch", SWA_ARCHS)
+def test_swa_prefill_cache_is_the_reference_rolled(arch, s):
+    """The port keeps position p in slot p % slots (a ring); the
+    reference keeps the last ``slots`` positions in order from slot 0. So
+    the port's cache is the reference's rolled by S % slots: unchanged at
+    S <= window (6) and at S % window == 0 (24)."""
+    cfg, ref_cfg, params, model = _swa_models(arch)
+    tokens = _tokens(cfg, 2, s, seed=4)
+    ref_logits, ref_cache = ref_tf.prefill(params, ref_cfg,
+                                           jnp.asarray(tokens))
+    logits, cache = tf.prefill(model, torch.from_numpy(tokens))
+    slots = min(s, WINDOW)
+    _close(logits, ref_logits, "float32")
+    for name in ("k", "v"):
+        assert cache[name].shape == ref_cache[name].shape
+        assert cache[name].shape[2] == slots
+        _close(cache[name], np.roll(np.asarray(ref_cache[name]), s % slots,
+                                    axis=2), "float32")
+
+
+def _decode_after_prefill(decode_step, cache, tokens, s, n):
+    """Logits of ``n`` lockstep decode steps at positions s .. s+n-1 on the
+    cache of a prefill of the first s tokens."""
+    out = []
+    for t in range(s, s + n):
+        logits, cache = decode_step(cache, tokens[:, t:t + 1], t)
+        out.append(np.asarray(logits.float() if torch.is_tensor(logits)
+                              else logits, np.float32))
+    return np.concatenate(out, 1)
+
+
+@pytest.mark.parametrize("arch", SWA_ARCHS)
+def test_swa_decode_after_a_long_prefill_matches_forward(arch):
+    """S = 21 > window 8 and S % 8 != 0: three decode steps after the
+    prefill against the reference's ``forward`` over the 24 tokens
+    (measured ≈2e-6 in float32)."""
+    cfg, ref_cfg, params, model = _swa_models(arch)
+    s, n = 21, 3
+    tokens = _tokens(cfg, 2, s + n, seed=5)
+    ref_full, _ = ref_tf.forward(params, ref_cfg, jnp.asarray(tokens))
+    _, cache = tf.prefill(model, torch.from_numpy(tokens[:, :s]))
+    dec = _decode_after_prefill(
+        lambda c, tok, t: tf.decode_step(
+            model, c, torch.from_numpy(tok), t),
+        cache, tokens, s, n)
+    np.testing.assert_allclose(dec, np.asarray(ref_full)[:, s:], rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", SWA_ARCHS)
+def test_reference_swa_decode_after_a_long_prefill_disagrees(arch):
+    """Pinned: the reference's own prefill and decode disagree with its
+    ``forward`` at the same point (its decode overwrites a key that is
+    not the oldest; measured gaps 1.3-1.8). If the reference is fixed,
+    this test fails and says so."""
+    cfg, ref_cfg, params, _ = _swa_models(arch)
+    s, n = 21, 3
+    tokens = _tokens(cfg, 2, s + n, seed=5)
+    ref_full, _ = ref_tf.forward(params, ref_cfg, jnp.asarray(tokens))
+    _, ref_cache = ref_tf.prefill(params, ref_cfg, jnp.asarray(tokens[:, :s]))
+    dec = _decode_after_prefill(
+        lambda c, tok, t: ref_tf.decode_step(params, ref_cfg, c,
+                                                   jnp.asarray(tok), t),
+        ref_cache, tokens, s, n)
+    gap = float(np.abs(dec - np.asarray(ref_full)[:, s:]).max())
+    assert gap > 0.5, (f"the reference's SWA decode now agrees with its "
+                       f"forward (gap {gap}): its prefill cache layout was "
+                       f"fixed; revisit the port's ring layout")

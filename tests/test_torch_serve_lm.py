@@ -106,3 +106,33 @@ def test_greedy_continuation_matches_full_forward(models):
                                attn_path="dense")
         toks.append(int(logits[0, -1].argmax()))
     assert toks[len(reqs[0].prompt):] == reqs[0].generated[:3]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moe_swa_serving_matches_reference(seed):
+    """A MoE model under a window of 8 slots, smaller than ``max_len``:
+    prompts of 9-20 tokens, so every slot's decode ring wraps while it
+    feeds and generates; the same tokens as the reference's engine."""
+    cfg = configs.get("mixtral-8x7b").scaled(window=8)
+    ref_cfg = ref_configs.get("mixtral-8x7b").scaled(window=8)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          ref_tf.init_lm(ref_cfg, jax.random.key(seed)))
+    model = tf.params_from_numpy(cfg, jax.tree.map(np.asarray, params),
+                                 device="cpu")
+
+    def requests(cls):
+        rng = np.random.default_rng(seed)
+        return [cls(uid=uid, prompt=rng.integers(
+            1, cfg.vocab, int(rng.integers(9, 21))).tolist(),
+            max_new_tokens=int(rng.integers(4, 12))) for uid in range(8)]
+
+    ref = ref_engine.ServeEngine(ref_cfg, params, batch_slots=4, max_len=40)
+    port = ServeEngine(cfg, model, batch_slots=4, max_len=40)
+    assert port.cache["k"].shape[2] == 8 < port.max_len
+    ref_reqs = ref.run_until_drained(requests(ref_engine.Request))
+    port_reqs = port.run_until_drained(requests(Request))
+    assert [dataclasses.asdict(r) for r in port_reqs] == [
+        dataclasses.asdict(r) for r in ref_reqs]
+    assert all(r.done and r.error is None for r in port_reqs)
+    np.testing.assert_array_equal(port.t, ref.t)
+    assert max(len(r.prompt) + len(r.generated) for r in port_reqs) > 8
