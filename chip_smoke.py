@@ -106,11 +106,13 @@ Phases, each of which exits non-zero when it fails:
    bit-identical cache hits, B1 "warp" once per chunk iteration and
    "tile" once per push sweep and seeding, one stepper build; a NaN
    through phase 6b's fault plan leaves a ``flight-*.jsonl`` dump;
-   queries/s without the cache, observability off and on in alternating
-   rounds (on >= 0.95 x off); inline push latency with the stepper idle
-   and loaded; phase 6's D2 through ``gateway.apply_delta`` under a second
-   storm: the cache invalidated at the commit, repeats re-solved on the
-   new graph within the gates of its float64 oracles; a complete span
+   queries/s of one gateway without the cache, its observability switched
+   off and on between storms in alternating order, each storm after a
+   full ``gc.collect()`` (on >= 0.95 x off, over 16 storms a side);
+   inline push latency with the stepper idle and loaded; phase 6's D2
+   through ``gateway.apply_delta`` under a second storm: the cache
+   invalidated at the commit, repeats re-solved on the new graph within
+   the gates of its float64 oracles; a complete span
    tree per query, the metrics endpoint as Prometheus text, and
    ``measure_plan`` of the pcpm plan within 2x of eq. 5;
 7b. the sharded path at world size 1 on phase 3's graph, through a
@@ -201,12 +203,43 @@ Phases, each of which exits non-zero when it fails:
    calls); at serve_p99, where a call's time is its host cost, B2 and
    ``F.embedding_bag`` are timed in alternating rounds and compared by
    their medians.
+13. LM training (``python -m repro_torch.launch.train``'s path): (a)
+   kernel B3-bwd (``repro_torch/csrc/flash_attention_bwd.cu``, the
+   backward of B3 behind ``kernels/flash_attention/ops.py``'s autograd
+   function) against autograd through the plain version on the same
+   inputs upcast to float32, at TestFlashAttention's shapes (float32
+   within 2e-3; bfloat16 within its outputs' rounding, rtol 1.6e-2 and
+   1.6e-2 of the largest magnitude), at tinyllama's training microbatch
+   (4, 4096, 32/4 heads, causal) and mixtral's (1, 4096, 32/8, dh 128,
+   window 4096), B3's forward with its log-sum-exp bit-equal to B3's
+   without; (b) tinyllama-1.1b at its configured widths through
+   ``launch/train.py::build_step_and_state`` (random bfloat16 weights
+   from seed 0), the train_4k sequence of 4096 with the global batch cut
+   from 256 to 8 in 2 microbatches: 5 steps on one batch at a constant
+   lr lower the loss, loss/nll/gnorm finite, B3-bwd once per layer and
+   microbatch (B3 twice: the forward and the per-layer recompute); time
+   per step, tokens/s, peak memory and a profile of one step with the
+   device idle share and B3's and B3-bwd's shares; (c) the whole model's
+   gradient on a (1, 2048) batch with B3-bwd and with the plain attention
+   backward, every parameter within a relative L2 error of 2e-2, wq, wk
+   and wv nonzero; (d) the restart drill at full width with the depth cut
+   to 2 layers: 10 steps, checkpoints every 5, a failure at step 7,
+   resumed from step 5, final parameters and moments bit-identical to the
+   uninterrupted run; a save and a restore timed; (e) one step through
+   the int8 error-feedback compressed path, and mixtral-8x7b at its
+   widths with its depth cut to 2 of 32 layers, bfloat16 moments, (1,
+   4096): 3 steps with finite loss and aux, B3-bwd once per layer; (f)
+   B3-bwd at tinyllama's training microbatch beside its bound (10·D
+   operations a visible pair at the bfloat16 rate), its plain version and
+   the backward of ``scaled_dot_product_attention`` (a yardstick the port
+   never calls).
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing each kernel (B1,
+B3, B2 and B3-bwd); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -2132,7 +2165,7 @@ GATEWAY_SUBMITTERS, GATEWAY_PER_THREAD = 4, 32
 GATEWAY_REPEATS, DELTA_STORM, LATENCY_PUSHES = 32, 32, 8
 GATEWAY_CANDIDATES = (2, 4, 8, 16, 32, 64)
 GATEWAY_TARGET_S, GATEWAY_PUSH_WORKERS, GATEWAY_CACHE = 0.025, 2, 1024
-QPS_ROUNDS = 4                        # (off, on) pairs, order alternating
+QPS_ROUNDS = 16                       # (off, on) pairs, order alternating
 
 
 def prometheus_families(text: str) -> dict:
@@ -2305,6 +2338,99 @@ def route_latencies(obs, sch, results) -> dict:
     return out
 
 
+class GcPauses:
+    """While installed, the garbage collector's passes (``gc.callbacks``):
+    ``seconds`` paused in all, and ``full`` passes of the oldest
+    generation."""
+
+    def __enter__(self):
+        import gc
+        self.seconds, self.full, self._t0 = 0.0, 0, None
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._callback)
+
+
+def observability_cost(sess, width, work, n, *, collect=True,
+                       idle_wait_s=None, instances=1):
+    """Queries/s of ``work`` (phase 5's mix) through a cache-less gateway
+    over ``sess``'s plan at ``width`` slots with ``sess``'s observability
+    switched off and on between storms (the gateway's and its
+    scheduler's ``obs``, which every hook reads as it runs): a warm-up
+    storm each way (the push workers' engines, the pool's pages), then
+    ``QPS_ROUNDS`` pairs in the order off on on off .... A side's
+    queries/s is its queries over the seconds of all its storms. One
+    gateway serves both sides because two gateways built alike can
+    differ by up to ≈ 20% in every storm for as long as they live; with
+    ``instances=2`` each side has one of its own, as the JAX package's
+    ``test_observed_storm_qps_within_5pct`` compares two schedulers.
+    Single storms spread by ≈ 7% on the host, so the 5% bound needs many
+    storms a side, and a best-of-few reads the spread's tails. Unless
+    ``collect`` is False each storm starts after a full ``gc.collect()``,
+    as that test does: garbage left by earlier work is not this storm's
+    overhead. ``idle_wait_s`` replaces the gateways' idle poll
+    (``GatewayConfig.idle_wait_s``). Returns the queries/s a side; the
+    best single storm a side; every run as (side, queries/s, ms of GC
+    pauses within it, full GC passes within it, s from its start to the
+    last push answered, to the last stepper answer); and the objects the
+    collector tracks after the last storm."""
+    import gc
+    from repro_torch.gateway import Gateway, GatewayConfig
+    nocache = GatewayConfig(push_workers=GATEWAY_PUSH_WORKERS,
+                            cache_entries=0)
+    if idle_wait_s is not None:
+        nocache = dataclasses.replace(nocache, idle_wait_s=idle_wait_s)
+    on = Gateway(sess.serve(slots=width), config=nocache)
+    obs = on.obs
+    gws = {"on": on, "off": on if instances == 1 else Gateway(
+        sess.serve(slots=width, obs=None), config=nocache)}
+
+    def switch(key):
+        gw = gws[key]
+        gw.obs = gw._schedulers["default"].obs = \
+            obs if key == "on" else None
+
+    for key in gws:
+        switch(key)
+        gateway_storm(gws[key], work, n)
+    seconds = {"off": 0.0, "on": 0.0}
+    best = {"off": 0.0, "on": 0.0}
+    runs = []
+    for i in range(QPS_ROUNDS):
+        for key in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            switch(key)
+            if collect:
+                gc.collect()
+            sch = gws[key]._schedulers["default"]
+            t0 = sch.clock()
+            with GcPauses() as pauses:
+                results, sec = gateway_storm(gws[key], work, n)
+            ends = {"push": 0.0, "stepper": 0.0}
+            for r in results:
+                tr = sch.metrics.traces[r.uid]
+                route = "push" if tr.route == "push" else "stepper"
+                ends[route] = max(ends[route], tr.t_done - t0)
+            runs.append((key, len(work) / sec, pauses.seconds * 1e3,
+                         pauses.full, ends["push"], ends["stepper"]))
+            seconds[key] += sec
+            best[key] = max(best[key], len(work) / sec)
+    for gw in {id(g): g for g in gws.values()}.values():
+        gw.close()
+    rate = {key: QPS_ROUNDS * len(work) / sec for key, sec in seconds.items()}
+    return rate, best, runs, len(gc.get_objects())
+
+
 def gateway_phase(dev, card, reuse, streamed, tile_entry,
                   warp_entry) -> None:
     """Phase 7: the async front door and observability at kron-21, on
@@ -2470,29 +2596,19 @@ def gateway_phase(dev, card, reuse, streamed, tile_entry,
     del faulty
 
     # ------------------------------------------------- 4. observability cost
-    nocache = GatewayConfig(push_workers=GATEWAY_PUSH_WORKERS,
-                            cache_entries=0)
-    gws = {"off": Gateway(sess.serve(slots=width, obs=None), config=nocache),
-           "on": Gateway(sess.serve(slots=width), config=nocache)}
-    for key in gws:         # the push workers' engines, the pools' pages
-        gateway_storm(gws[key], work, n)
-    best = {"off": 0.0, "on": 0.0}
-    runs = []
-    for i in range(QPS_ROUNDS):
-        for key in (("off", "on") if i % 2 == 0 else ("on", "off")):
-            _, sec = gateway_storm(gws[key], work, n)
-            runs.append((key, len(work) / sec))
-            best[key] = max(best[key], len(work) / sec)
-    for key in gws:
-        gws[key].close()
-    log(f"gateway observability cost: queries/s of the storm without the "
-        f"cache, best of {QPS_ROUNDS} after a warm-up storm each, in the "
-        f"order off on on off ...: off {best['off']!r}, on "
-        f"{best['on']!r} (ratio {best['on'] / best['off']!r}, >= 0.95); "
-        f"runs in order {runs} ({card})")
-    if best["on"] < 0.95 * best["off"]:
+    qps, best, runs, live = observability_cost(sess, width, work, n)
+    log(f"gateway observability cost: queries/s of the storm through one "
+        f"gateway without the cache, its observability switched off and on "
+        f"between storms, over {QPS_ROUNDS} storms a side after a warm-up "
+        f"storm each, in the order off on on off ..., each after a full "
+        f"gc.collect() ({live} objects tracked): off {qps['off']!r}, on "
+        f"{qps['on']!r} (ratio {qps['on'] / qps['off']!r}, >= 0.95); "
+        f"best single storm off {best['off']!r}, on {best['on']!r}; runs "
+        f"in order (side, queries/s, ms of GC pauses in the storm, full "
+        f"passes in it, s to its last push answer, to its last stepper "
+        f"answer) {runs} ({card})")
+    if qps["on"] < 0.95 * qps["off"]:
         fail("gateway: observability costs more than 5% of queries/s")
-    del gws
 
     # ------------------------------------------------- 5. push latency
     pushes = [seed_vector(n, [int(i)]) for i in
@@ -2595,7 +2711,7 @@ def gateway_phase(dev, card, reuse, streamed, tile_entry,
     shared = {"width": width, "probes_ms": rep.summary()["probes_ms"],
               "storm_launches": storm_counts,
               "queries_per_s": len(work) / storm_s,
-              "latency_ms": lat, "qps_off_on": best,
+              "latency_ms": lat, "qps_off_on": qps,
               "push_latency_ms": {"idle": idle, "loaded": loaded},
               "delta_s": t_delta}
     tile_entry["gateway"] = shared
@@ -3009,17 +3125,19 @@ def b3_entry(case, name, launches, card) -> dict:
     }
 
 
-def profile_steps(step, label, card, names=()) -> None:
-    """Device busy share and top kernels of PROFILE_STEPS calls of
+def profile_steps(step, label, card, names=(),
+                  steps: int = PROFILE_STEPS) -> None:
+    """Device busy share and top kernels of ``steps`` calls of
     ``step()``; with ``names``, also the device time of the kernels whose
-    name holds one of them (one kernel's, e.g. B3's)."""
+    name holds one of them (one kernel's, e.g. B3's), or, with a dict of
+    such tuples, of each group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -3029,20 +3147,22 @@ def profile_steps(step, label, card, names=()) -> None:
     if not busy_us:
         log(f"profile {label}: no device time in the trace (not measured)")
         return
-    log(f"profile {label} ({PROFILE_STEPS} steps): device busy "
+    log(f"profile {label} ({steps} steps): device busy "
         f"{busy_us:.0f} us of {wall_us:.0f} us wall "
         f"({100 * busy_us / wall_us:.1f}%), idle "
         f"{100 * (1 - busy_us / wall_us):.1f}% ({card})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / PROFILE_STEPS:9.1f} us/step "
-            f"x{e.count / PROFILE_STEPS:<5.1f} {e.key[:90]}")
-    if names:
-        mine = [e for e in events if any(n in e.key for n in names)]
-        us = sum(e.self_device_time_total for e in mine) / PROFILE_STEPS
-        log(f"profile {label}: kernels {'/'.join(names)} {us:.1f} us/step "
-            f"of device time ({100 * us * PROFILE_STEPS / busy_us:.1f}% of "
+        log(f"  {e.self_device_time_total / steps:9.1f} us/step "
+            f"x{e.count / steps:<5.1f} {e.key[:90]}")
+    groups = names if isinstance(names, dict) else (
+        {"/".join(names): names} if names else {})
+    for group, keys in groups.items():
+        mine = [e for e in events if any(n in e.key for n in keys)]
+        us = sum(e.self_device_time_total for e in mine) / steps
+        log(f"profile {label}: kernels {group} {us:.1f} us/step "
+            f"of device time ({100 * us * steps / busy_us:.1f}% of "
             f"the busy time) in "
-            f"{sum(e.count for e in mine) / PROFILE_STEPS:.1f} launches per "
+            f"{sum(e.count for e in mine) / steps:.1f} launches per "
             f"step")
 
 
@@ -3793,6 +3913,454 @@ def mind_phases(dev, card) -> list[dict]:
     return entries
 
 
+# --------------------------------------------------------------- phase 13
+# LM training: tinyllama-1.1b at its published widths, the train_4k
+# shape's sequence of 4096 with the global batch cut from 256 to 8 (two
+# microbatches of 4) to fit the run's time; 5 steps on one batch at a
+# constant learning rate
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 4096, 2, 5
+TRAIN_LR = 3e-4                # the reference launcher's default
+GRAD_SHAPE = (1, 2048)
+# the whole model's gradient with B3-bwd against the plain attention
+# backward, bfloat16 weights through 22 layers: relative L2 error of every
+# parameter's gradient (the attention gradients' bfloat16 rounding,
+# 2**-8, carried back through the layers)
+GRAD_REL_L2 = 2e-2
+# the restart drill: tinyllama at its widths, depth cut to 2 layers so
+# that a checkpoint stays ~2.6 GB; batches of (4, 1024) in 2 microbatches
+DRILL_LAYERS, DRILL_BATCH, DRILL_SEQ = 2, 4, 1024
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 10, 5, 7
+# mixtral-8x7b at its widths, depth cut to 2 of 32 layers, bfloat16
+# moments (the reference's knob for large models), (1, 4096)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SHAPE, MOE_TRAIN_STEPS = 2, (1, 4096), 3
+# B3-bwd against its plain version: float32 within 2e-3 (sums in another
+# order); bfloat16 within the outputs' rounding, 1.6e-2 relative and
+# 1.6e-2 of the tensor's largest magnitude near 0 (inside
+# TestFlashAttention's 5e-2)
+B3_BWD_F32_TOL = 2e-3
+B3_BWD_BF16_TOL = 1.6e-2
+B3_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
+B3_FWD_KERNELS = ("tc_fwd_kernel", "flash_fwd_kernel")
+
+
+def check_b3_bwd(args, label, **kw) -> float:
+    """B3 with its log-sum-exp (bit-equal to B3 without it) and B3-bwd on
+    random output gradients, against autograd through the plain version
+    on the same inputs upcast to float32, batch row by batch row (rows
+    are independent; a whole (4, 4096) plain backward would hold ~40 GB);
+    max abs err over dq, dk and dv."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention_bwd_cuda, flash_attention_cuda)
+    q, k, v, do = args
+    plain_out = flash_attention_cuda(q, k, v, **kw)
+    out, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True, **kw)
+    before = b3.bwd_launch_count
+    grads = flash_attention_bwd_cuda(q, k, v, o32, lse, do, **kw)
+    torch.cuda.synchronize()
+    if b3.bwd_launch_count != before + 1:
+        fail(f"B3-bwd {label}: not launched once")
+    if not torch.equal(out, plain_out) or \
+            not torch.equal(o32.to(out.dtype), out):
+        fail(f"B3 {label}: the output with the log-sum-exp and the float32 "
+             "output differs from the output without them")
+    f32 = q.dtype == torch.float32
+    err, ratio = 0.0, 0.0
+    for i in range(q.shape[0]):
+        want = attention_bwd_ref(*(x[i:i + 1].float() for x in (q, k, v, do)),
+                                 **kw)
+        for name, g, w in zip("qkv", grads, want):
+            g = g[i:i + 1].float()
+            tol = B3_BWD_F32_TOL if f32 else B3_BWD_BF16_TOL
+            atol = tol if f32 else tol * float(w.abs().max())
+            gap = (g - w).abs()
+            err = max(err, float(gap.max()))
+            ratio = max(ratio, float((gap / (atol + tol * w.abs())).max()))
+            if not bool(torch.isfinite(g).all()):
+                fail(f"B3-bwd {label}: non-finite d{name}")
+        del want
+    shapes = " ".join(str(tuple(a.shape)) for a in args[:3])
+    log(f"B3-bwd {label}: q k v {shapes} {str(q.dtype)[6:]}, {kw}: "
+        f"max_abs_err={err!r} (err/allowed {ratio:.3f}; "
+        f"{'rtol=atol 2e-3' if f32 else 'rtol 1.6e-2, atol 1.6e-2 x max|ref|'}"
+        f"); forward with its log-sum-exp and float32 output bit-equal: "
+        f"True")
+    if ratio > 1.0:
+        fail(f"B3-bwd {label}: beyond its tolerance")
+    return err
+
+
+def b3_bwd_inputs(dev, gen, b, hq, hkv, s, d, dtype):
+    """q, k, v and an output gradient, standard normal."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return (normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d),
+            normal(b, s, hq, d))
+
+
+def check_b3_bwd_shapes(dev) -> dict:
+    """Phase 13 (a): B3-bwd against its plain version at the shapes of the
+    JAX package's TestFlashAttention (float32 and bfloat16, windows 64,
+    128 and 200, the unpadded S = 200), at tinyllama's training
+    microbatch (4, 4096, 32/4 heads, dh 64, causal) and at mixtral's
+    (1, 4096, 32/8, dh 128, window 4096); returns the training shape's
+    case for the times, as (args, kwargs, max abs err)."""
+    import torch
+    from repro_torch.configs import get as get_config
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for b, hq, hkv, s, d in ((1, 4, 4, 256, 64), (2, 8, 2, 128, 64),
+                                 (1, 4, 1, 384, 128)):
+            check_b3_bwd(b3_bwd_inputs(dev, gen, b, hq, hkv, s, d, dt),
+                         f"{name} causal", causal=True)
+        for window in (64, 128, 200):
+            check_b3_bwd(b3_bwd_inputs(dev, gen, 1, 2, 2, 384, 64, dt),
+                         f"{name} window {window}", causal=True,
+                         window=window)
+        check_b3_bwd(b3_bwd_inputs(dev, gen, 1, 2, 2, 200, 64, dt),
+                     f"{name} unpadded", causal=True)
+    cfg = get_config(ARCH)
+    b, s = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
+    args = b3_bwd_inputs(dev, gen, b, cfg.n_heads, cfg.n_kv_heads, s, cfg.dh,
+                         torch.bfloat16)
+    err = check_b3_bwd(args, "tinyllama training shape", causal=True)
+    mix = get_config(MOE_ARCH)
+    check_b3_bwd(b3_bwd_inputs(dev, gen, 1, mix.n_heads, mix.n_kv_heads,
+                               MOE_TRAIN_SHAPE[1], mix.dh, torch.bfloat16),
+                 "mixtral training shape", causal=True, window=mix.window)
+    torch.cuda.empty_cache()
+    return (args, dict(causal=True), err)
+
+
+def sdpa_bwd_call(q, k, v, do):
+    """The backward of ``scaled_dot_product_attention`` (causal, GQA by
+    ``enable_gqa``) on the same inputs, the yardstick: one forward with
+    its graph kept, then ``autograd.grad`` per call."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    dout = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def b3_bwd_entry(case, launches, card) -> dict:
+    """Phase 13 (f): B3-bwd, its plain version (batch row by batch row)
+    and SDPA's backward at tinyllama's training microbatch; the bound:
+    10·D operations a visible (query, q head, key) triple at the bfloat16
+    tensor-core rate, against the bytes of q, k, v, o, dO, the
+    log-sum-exp read and dq, dk, dv written."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention_bwd_cuda, flash_attention_cuda)
+    (q, k, v, do), kw, err = case
+    _, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True, **kw)
+    ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o32, lse, do,
+                                                  **kw), reps=5, warmup=1)
+
+    def plain():
+        for i in range(q.shape[0]):
+            attention_bwd_ref(*(x[i:i + 1] for x in (q, k, v, do)), **kw)
+    plain_ms = time_ms(plain, reps=1, warmup=1)
+    torch.cuda.empty_cache()
+    library_ms = time_ms(sdpa_bwd_call(q, k, v, do), reps=5, warmup=1)
+    torch.cuda.empty_cache()
+    pairs, ops = b3.bwd_bound(q, k, **{"window": None, **kw})
+    # q, k, v and dO read, dq, dk and dv written, the float32 o and the
+    # lse read
+    nbytes = (q.element_size() * (3 * q.numel() + 2 * k.numel()
+                                  + 2 * v.numel())
+              + 4 * (o32.numel() + lse.numel()))
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_BF16_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"B3-bwd at tinyllama's training microbatch {tuple(q.shape)}: "
+        f"{ms!r} ms ({ops / ms / 1e9:.2f} TFLOP/s counted at 10·D); bound "
+        f"{bound_ms!r} ms ({pairs} visible pairs, {ops} operations at "
+        f"{PEAK_BF16_PER_S / 1e12:.0f} TFLOP/s bf16; {nbytes} B at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s); plain version (batch rows in "
+        f"turn) {plain_ms!r} ms; scaled_dot_product_attention backward "
+        f"{library_ms!r} ms ({card})")
+    return {
+        "name": "flash_attention_bwd/train",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "XLA autodiff of src/repro/models/layers.py:47 "
+                    "chunked_attention (no Pallas site)",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def reset_b3_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as b3
+    b3.launch_count = 0
+    b3.launch_counts = dict.fromkeys(b3.PATHS, 0)
+    b3.bwd_launch_count = 0
+
+
+def train_steps(step, state, batch, n, label):
+    """``n`` steps on ``batch``; (state, host metrics per step, ms per
+    step by CUDA events)."""
+    import torch
+    from repro_torch.train.trainer import _host_metrics
+    history, times = [], []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model, opt_state, metrics = step(state[0], state[1], batch)
+        end.record()
+        state = (model, opt_state)
+        history.append(_host_metrics(metrics))     # one host read a step
+        times.append(start.elapsed_time(end))
+    log(f"{label}: " + "; ".join(
+        f"step {i + 1} " + ", ".join(f"{k} {v!r}" for k, v in m.items())
+        + f", {t:.1f} ms" for i, (m, t) in enumerate(zip(history, times))))
+    return state, history, times
+
+
+def param_grads(model, tokens, labels):
+    """Every parameter's gradient of ``lm_loss`` (per-layer remat)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    names, params = zip(*model.named_parameters())
+    with model.trainable():
+        loss, _ = tf.lm_loss(model, tokens, labels, remat=True)
+        grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def train_phase(dev, card, bwd_case) -> list[dict]:
+    """Phase 13 (b)-(f): tinyllama-1.1b trained at its widths through
+    ``launch/train.py::build_step_and_state``; the whole model's gradient
+    with B3-bwd against the plain attention backward; the restart drill;
+    a compressed step and mixtral-8x7b's steps; B3-bwd's times. Returns
+    B3-bwd's entry of the kernels line."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.kernels.flash_attention import ops as b3_ops
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.launch.train import build_step_and_state
+    from repro_torch.train import Trainer, TrainerConfig, checkpoint
+    t_phase = time.perf_counter()
+
+    # ---------------------------------------- (b) tinyllama at its widths
+    cfg = get(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    step, state = build_step_and_state(
+        cfg, lr=TRAIN_LR, warmup=0, total=10_000,
+        num_microbatches=TRAIN_MICRO, device=dev, seed=0)
+    n_params = sum(p.numel() for p in state[0].parameters())
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    batch = next(synthetic_lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=0, device=dev))
+    reset_b3_counts()
+    state, history, times = train_steps(
+        step, state, batch, TRAIN_STEPS,
+        f"main path (LM training, {cfg.name} at its widths: {n_params} "
+        f"bfloat16 parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICRO} microbatches, lr {TRAIN_LR})")
+    torch.cuda.synchronize()
+    bwd_launches, fwd_launches = b3.bwd_launch_count, b3.launch_count
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in history]
+    per_step = cfg.n_layers * TRAIN_MICRO
+    step_ms = sum(times[1:]) / len(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"main path (LM training): losses {losses} (falling: "
+        f"{losses[-1] < losses[0]}); B3-bwd launches {bwd_launches} (= "
+        f"{cfg.n_layers} layers x {TRAIN_MICRO} microbatches x {TRAIN_STEPS} "
+        f"steps: {bwd_launches == per_step * TRAIN_STEPS}); B3 launches "
+        f"{fwd_launches} by path {b3.launch_counts} (forward and per-layer "
+        f"recompute: {fwd_launches == 2 * per_step * TRAIN_STEPS})")
+    log(f"time LM training step ({cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ}): "
+        f"{step_ms!r} ms (mean of steps 2-{TRAIN_STEPS}; step 1 "
+        f"{times[0]!r} ms), {tokens / step_ms * 1e3!r} tokens/s; peak device "
+        f"memory {peak} B ({card})")
+    if not all(np.isfinite([m[k] for m in history for k in
+                            ("loss", "nll", "gnorm")])):
+        fail("non-finite loss, nll or gnorm")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if bwd_launches != per_step * TRAIN_STEPS or \
+            fwd_launches != 2 * per_step * TRAIN_STEPS or \
+            b3.launch_counts["tc"] != fwd_launches:
+        fail("B3 / B3-bwd launches differ from layers x microbatches x steps")
+    profile_steps(lambda: step(state[0], state[1], batch),
+                  f"LM training step ({cfg.name})", card, steps=1,
+                  names={"B3 forward": B3_FWD_KERNELS,
+                         "B3-bwd": B3_BWD_KERNELS})
+
+    # ------------------------- (c) the whole model's gradient, two ways
+    model = state[0]
+    del state, step, batch
+    torch.cuda.empty_cache()
+    b, s = GRAD_SHAPE
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (b, s + 1))).to(dev)
+    before = b3.bwd_launch_count
+    loss_k, g_kernel = param_grads(model, toks[:, :-1], toks[:, 1:])
+    launched = b3.bwd_launch_count - before
+    real = b3_ops.flash_attention_bwd_cuda
+
+    def plain_bwd(q, k, v, o, lse, do, **kw):
+        return attention_bwd_ref(q, k, v, do, **kw)
+    b3_ops.flash_attention_bwd_cuda = plain_bwd
+    try:
+        loss_p, g_plain = param_grads(model, toks[:, :-1], toks[:, 1:])
+    finally:
+        b3_ops.flash_attention_bwd_cuda = real
+    worst, worst_name, zero = 0.0, "", []
+    for name, g in g_kernel.items():
+        w = g_plain[name].float()
+        rel = float((g.float() - w).norm() / w.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv") and \
+                float(g.float().norm()) == 0.0:
+            zero.append(name)
+    log(f"whole-model gradient, {cfg.name} {GRAD_SHAPE}, B3-bwd against the "
+        f"plain attention backward: loss {loss_k!r} / {loss_p!r}; B3-bwd "
+        f"launches {launched} (= {cfg.n_layers}); worst relative L2 error "
+        f"{worst!r} ({worst_name}; gate {GRAD_REL_L2}); wq, wk, wv zero in "
+        f"{len(zero)} of {3 * cfg.n_layers} layers' weights")
+    if launched != cfg.n_layers or worst > GRAD_REL_L2 or zero:
+        fail("the whole model's gradient with B3-bwd disagrees with the plain "
+             "attention backward, or attention weights get no gradient")
+    del model, g_kernel, g_plain
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- (d) the restart drill
+    drill_cfg = cut_config(ARCH, DRILL_LAYERS)
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-train-"))
+    try:
+        def trainer(path, fail_at=None, start=0):
+            step, state = build_step_and_state(
+                drill_cfg, lr=TRAIN_LR, warmup=2, total=DRILL_STEPS,
+                num_microbatches=TRAIN_MICRO, device=dev, seed=1)
+
+            def hook(i):
+                if i == fail_at:
+                    raise RuntimeError(f"injected failure at step {i}")
+            return Trainer(
+                TrainerConfig(total_steps=DRILL_STEPS,
+                              checkpoint_every=DRILL_EVERY,
+                              ckpt_dir=str(path), keep_checkpoints=2,
+                              log_every=10 ** 9),
+                step, state,
+                synthetic_lm_batches(drill_cfg.vocab, DRILL_BATCH, DRILL_SEQ,
+                                     seed=3, start_step=start, device=dev),
+                failure_hook=hook if fail_at is not None else None,
+                log_fn=log)
+        t0 = time.perf_counter()
+        run_a = trainer(root / "a")
+        run_a.run()
+        try:
+            trainer(root / "b", fail_at=DRILL_FAIL).run()
+            fail("the injected failure did not raise")
+        except RuntimeError as exc:
+            log(f"restart drill: run stopped: {exc}")
+        run_c = trainer(root / "b", start=DRILL_EVERY)
+        resumed = run_c.try_resume()
+        run_c.run()
+        same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            run_a.state[0].named_parameters(),
+            run_c.state[0].named_parameters()))
+        same_opt = all(torch.equal(run_a.state[1].mu[n], run_c.state[1].mu[n])
+                       and torch.equal(run_a.state[1].nu[n],
+                                       run_c.state[1].nu[n])
+                       for n in run_a.state[1].mu)
+        drill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.save(str(root / "t"), 1, run_a.state)
+        save_s = time.perf_counter() - t0
+        nbytes = (root / "t" / "step-00000001.npz").stat().st_size
+        t0 = time.perf_counter()
+        restored, _ = checkpoint.restore(str(root / "t"), run_a.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        exact = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            restored[0].named_parameters(), run_a.state[0].named_parameters()))
+        log(f"restart drill ({drill_cfg.name} at its widths, depth cut to "
+            f"{DRILL_LAYERS}; {DRILL_STEPS} steps of ({DRILL_BATCH}, "
+            f"{DRILL_SEQ}), checkpoints every {DRILL_EVERY}, failure at step "
+            f"{DRILL_FAIL}): resumed from step {run_c.step - len(run_c.metrics_history)} "
+            f"({resumed}); final parameters bit-identical to the "
+            f"uninterrupted run: {same}, moments: {same_opt}; losses "
+            f"{[m['loss'] for m in run_a.metrics_history]}; {drill_s:.1f} s")
+        log(f"time checkpoint: save {save_s:.2f} s, restore {restore_s:.2f} s "
+            f"({nbytes} B, restore exact: {exact}) ({card})")
+        if not (resumed and same and same_opt and exact):
+            fail("the restart drill is not bit-identical")
+        del run_a, run_c, restored
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --------------------- (e) a compressed step; mixtral at its widths
+    step, state = build_step_and_state(drill_cfg, compress_grads=True,
+                                       device=dev, seed=2)
+    batch = next(synthetic_lm_batches(drill_cfg.vocab, DRILL_BATCH,
+                                      DRILL_SEQ, seed=4, device=dev))
+    state, history, _ = train_steps(step, state, batch, 1,
+                                    f"compressed step ({drill_cfg.name}, "
+                                    f"{DRILL_LAYERS} layers, int8 error "
+                                    "feedback)")
+    ef = state[1][1]
+    if not np.isfinite(history[0]["loss"]) or not all(
+            bool(torch.isfinite(e).all()) for e in ef.values()):
+        fail("the compressed step")
+    del step, state, batch, ef
+    torch.cuda.empty_cache()
+    moe_cfg = cut_config(MOE_ARCH, MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    step, state = build_step_and_state(moe_cfg, lr=1e-4, warmup=0,
+                                       device=dev, state_dtype="bfloat16")
+    b, s = MOE_TRAIN_SHAPE
+    batch = next(synthetic_lm_batches(moe_cfg.vocab, b, s, seed=5,
+                                      device=dev))
+    reset_b3_counts()
+    state, history, times = train_steps(
+        step, state, batch, MOE_TRAIN_STEPS,
+        f"{moe_cfg.name} training (depth cut to {MOE_TRAIN_LAYERS} of 32, "
+        f"{MOE_TRAIN_SHAPE}, bfloat16 moments)")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    want_bwd = MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+    log(f"{moe_cfg.name} training: B3-bwd launches {b3.bwd_launch_count} "
+        f"(= {want_bwd}), B3 {b3.launch_count} (forward and recompute = "
+        f"{2 * want_bwd}); a step {sum(times[1:]) / len(times[1:])!r} ms; "
+        f"peak device memory {peak} B ({card})")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["aux"])
+               and m["aux"] > 0 for m in history) or \
+            b3.bwd_launch_count != want_bwd or \
+            b3.launch_count != 2 * want_bwd:
+        fail(f"{moe_cfg.name} training")
+    del step, state, batch
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- (f) B3-bwd times
+    entry = b3_bwd_entry(bwd_case, bwd_launches, card)
+    log(f"phase 13 (LM training): {time.perf_counter() - t_phase:.1f} s")
+    return [entry]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3862,6 +4430,9 @@ def main() -> None:
     # ---------------------------------------------------- 11-12. MIND serving
     kernels += mind_phases(dev, card)
     log(f"phases 11-12 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------- 13. LM training
+    kernels += train_phase(dev, card, check_b3_bwd_shapes(dev))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -26,6 +26,11 @@ LM serving lives in ``repro_torch.configs``, ``repro_torch.models``
 (``transformer``: ``init_lm``, ``forward``, ``prefill``,
 ``decode_step``) and ``repro_torch.serve`` (``ServeEngine``); its
 attention is the CUDA kernel ``repro_torch/csrc/flash_attention.cu``.
+LM training adds ``transformer.lm_loss``/``make_train_step``,
+``repro_torch.optim`` (``AdamW``), ``repro_torch.train`` (``Trainer``,
+checkpoints, gradient compression), ``repro_torch.data``
+(``synthetic_lm_batches``) and ``python -m repro_torch.launch.train``;
+the attention's backward is ``repro_torch/csrc/flash_attention_bwd.cu``.
 
 Recsys serving (MIND) lives in ``repro_torch.models.recsys``
 (``init_mind``, ``serve_step``, ``retrieval_step``); every embedding

@@ -50,8 +50,9 @@ class ShapeSpec:
     n_candidates: int = 0
 
 
-# ``train_4k`` and ``train_batch`` are kept as data: the training slices
-# will run them
+# ``train_4k`` is the LM training shape (``chip_smoke.py`` phase 13 runs
+# its sequence of 4096 with the global batch cut); ``train_batch`` is kept
+# as data until MIND training runs it
 LM_SHAPES = (
     ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
     ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),

@@ -66,6 +66,17 @@
 //
 // A view that is not 16-byte aligned (pointer or a stride) is loaded
 // element by element on the "tc" and "split" paths.
+//
+// For training, "tc" and "simt" also write each row's log-sum-exp of its
+// scaled scores (float32, (B, Hq, Sq)) when given a pointer for it: the
+// row's running max and sum are in registers at the end, so it costs one
+// store a row. The backward kernel (flash_attention_bwd.cu) recomputes
+// the probabilities from it. "tc" can also write o in float32 before its
+// rounding: the backward's rowsum(dO * O) from the bfloat16 o breaks
+// sum_j dS[i, j] = 0 by 2^-9 of it, an error the keys' common component
+// then multiplies (8.7e-2 relative L2 on a layer's wq gradient at
+// tinyllama's width, measured). Without the pointers nothing else
+// changes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -116,7 +127,20 @@ struct Params {
   float scale;
   int q_aligned;         // q's pointer and strides are 16-byte multiples
   int kv_aligned;        // idem for k and v
+  float* lse;            // (B, Hq, Sq) float32 log-sum-exp of each row's
+                         // scaled scores ("tc", "simt"), or null
+  float* o32;            // "tc": (B, Sq, Hq, D) contiguous float32 copy of
+                         // o before its rounding to bfloat16, or null
 };
+
+// The row (query pos, q head h)'s log-sum-exp, log sum_j exp(s_j * scale),
+// from the natural-log running max m and sum l: +inf for a row that sees
+// no key, so that the backward's exp(s * scale - lse) is 0 there.
+__device__ __forceinline__ void store_lse(const Params& p, int b, int h,
+                                          int pos, float m, float l) {
+  p.lse[((long long)b * p.Hq + h) * p.Sq + pos] =
+      l > 0.0f ? m + logf(l) : INFINITY;
+}
 
 __device__ __forceinline__ int row_kv_len(const Params& p, int b) {
   const int n = p.kv_lens != nullptr ? p.kv_lens[b] : p.kv_len;
@@ -465,6 +489,7 @@ flash_fwd_kernel(const Params p) {
     TO* out = og + pos * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store(out + lane + 32 * c, acc[r][c] * inv);
+    if (p.lse != nullptr && lane == 0) store_lse(p, b, h, pos, m[r], l[r]);
   }
 }
 
@@ -519,7 +544,10 @@ __device__ __forceinline__ bool needs_mask(const Params& p, int k0,
   return !full;
 }
 
-template <int D>
+// kStats: write the row's log-sum-exp and the float32 o (training); the
+// inference instance compiles without that epilogue code, so its registers
+// and timing are the forward's alone
+template <int D, bool kStats>
 __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
 tc_fwd_kernel(const Params p) {
   using C = Cfg<D>;
@@ -760,6 +788,33 @@ tc_fwd_kernel(const Params p) {
     l[h] += __shfl_xor_sync(kFull, l[h], 1);
     l[h] += __shfl_xor_sync(kFull, l[h], 2);
     inv[h] = l[h] > 0.0f ? 1.0f / l[h] : 0.0f;
+  }
+  if (kStats && p.o32 != nullptr) {   // float32 o, two columns a store
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a) {
+#pragma unroll
+      for (int j = 0; j < C::kOCols; j += 2) {
+        const int h = (j >> 1) & 1;
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= wn) continue;
+        const int row = row0 + wrow0 + r;
+        const int col = a * C::kAtomCols + 8 * (j >> 2) + 2 * t4;
+        const long long at = (((long long)b * p.Sq + row / group) * p.Hq +
+                              kvh * group + row % group) * D + col;
+        *reinterpret_cast<float2*>(p.o32 + at) =
+            make_float2(o[a][j] * inv[h], o[a][j + 1] * inv[h]);
+      }
+    }
+  }
+  if (kStats && t4 == 0) {   // m is in the log2 domain here
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      if (r >= wn) continue;
+      const int row = row0 + wrow0 + r;
+      store_lse(p, b, kvh * group + row % group, row / group,
+                m[h] * 0.6931471805599453f, l[h]);
+    }
   }
   uint8_t* smem_q = smem_raw + (sQ - s_raw);
 #pragma unroll
@@ -1008,16 +1063,17 @@ cudaError_t launch_simt(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kStats>
 cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   const long long rows = (long long)p.Sq * (p.Hq / p.Hkv);
   const int smem = tc::Cfg<D>::kSmem;
-  cudaError_t err = allow_smem(tc::tc_fwd_kernel<D>, smem);
+  cudaError_t err = allow_smem(tc::tc_fwd_kernel<D, kStats>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
       (rows + tc::kRows - 1) / tc::kRows * p.Hkv * p.B;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  tc::tc_fwd_kernel<D><<<(unsigned)blocks, tc::kThreads, smem, stream>>>(p);
+  tc::tc_fwd_kernel<D, kStats>
+      <<<(unsigned)blocks, tc::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1049,7 +1105,8 @@ cudaError_t launch(int path, const Params& p, float* part, int n_splits,
                                                           stream);
   if (path == kSimt) return launch_simt<TQ, TKV, TO, D>(p, stream);
   if constexpr (sizeof(TQ) == 2 && sizeof(TKV) == 2)
-    return launch_tc<D>(p, stream);
+    return p.lse != nullptr ? launch_tc<D, true>(p, stream)
+                            : launch_tc<D, false>(p, stream);
   return cudaErrorInvalidValue;   // "tc" takes bfloat16 q, k and v only
 }
 
@@ -1079,7 +1136,11 @@ extern "C" {
 // float32; a bfloat16 q with float32 k/v is refused. o is bfloat16 when
 // both are, else float32. Strides are in elements; d has stride 1.
 // kv_lens: (B,) int32 on the device, or null to use kv_len for every
-// batch row. window <= 0: no window. "split" needs Sq == 1 and a float32
+// batch row. window <= 0: no window. lse: a (B, Hq, Sq) float32 tensor
+// that "tc" and "simt" fill with each row's log-sum-exp (the backward
+// kernel's input), or null; "split" refuses one. o32: a contiguous
+// (B, Sq, Hq, D) float32 tensor that "tc" fills with o before its
+// rounding, given with lse, or null; the other paths refuse one. "split" needs Sq == 1 and a float32
 // scratch of B * Hkv * n_splits * (Hq / Hkv) * (D + 2) values, n_splits =
 // ceil(Skv / 64). Returns the cudaError_t of the launches.
 int flash_attention_fwd(int path, int q_bf16, int kv_bf16, int head_dim,
@@ -1091,7 +1152,7 @@ int flash_attention_fwd(int path, int q_bf16, int kv_bf16, int head_dim,
                         long long o_sb, long long o_ss, long long o_sh,
                         int causal, int window, int kv_len,
                         const void* kv_lens, float scale, void* scratch,
-                        int n_splits, void* stream) {
+                        int n_splits, void* lse, void* o32, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (q_bf16 && !kv_bf16) return (int)cudaErrorInvalidValue;
   const int q_elem = q_bf16 ? 2 : 4, kv_elem = kv_bf16 ? 2 : 4;
@@ -1101,12 +1162,14 @@ int flash_attention_fwd(int path, int q_bf16, int kv_bf16, int head_dim,
         !aligned16(o, o_elem, o_sb, o_ss, o_sh))
       return (int)cudaErrorInvalidValue;
   } else if (path == kSplit) {
-    if (Sq != 1 || (n_splits > 0 && scratch == nullptr) ||
+    if (Sq != 1 || lse != nullptr || (n_splits > 0 && scratch == nullptr) ||
         n_splits != (Skv + split::kChunk - 1) / split::kChunk)
       return (int)cudaErrorInvalidValue;
   } else if (path != kSimt) {
     return (int)cudaErrorInvalidValue;
   }
+  if (o32 != nullptr && (path != kTc || lse == nullptr))
+    return (int)cudaErrorInvalidValue;
   if ((long long)Sq * (Hq / Hkv) == 0 || B == 0) return (int)cudaSuccess;
   if (path == kSplit && n_splits == 0) {   // Skv 0: every row is zeros
     return (int)cudaMemsetAsync(o, 0, (size_t)B * o_sb * o_elem,
@@ -1118,7 +1181,8 @@ int flash_attention_fwd(int path, int q_bf16, int kv_bf16, int head_dim,
            static_cast<const int*>(kv_lens), scale,
            aligned16(q, q_elem, q_sb, q_ss, q_sh),
            aligned16(k, kv_elem, k_sb, k_ss, k_sh) &&
-               aligned16(v, kv_elem, v_sb, v_ss, v_sh)};
+               aligned16(v, kv_elem, v_sb, v_ss, v_sh),
+           static_cast<float*>(lse), static_cast<float*>(o32)};
   cudaStream_t s = (cudaStream_t)stream;
   float* part = static_cast<float*>(scratch);
   cudaError_t err;

@@ -1,4 +1,5 @@
-"""Flash attention forward (kernel B3) as CUDA kernels written for Hopper.
+"""Flash attention (kernel B3) and its backward (B3-bwd) as CUDA kernels
+written for Hopper.
 
 Replaces the JAX package's Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
@@ -28,7 +29,21 @@ cache, which is therefore never transposed or copied.
 
 ``flash_attention_cuda`` launches the kernel for CUDA tensors and raises
 on what it cannot take; for CPU tensors it computes the plain version
-(``ref.attention_ref``). There is no other fallback.
+(``ref.attention_ref``). There is no other fallback. With
+``for_backward=True`` ("tc" and "simt" only) it also returns what the
+backward reads: each row's log-sum-exp and the output in float32 before
+its rounding to bfloat16.
+
+B3-bwd (``flash_attention_bwd_cuda``, source
+``repro_torch/csrc/flash_attention_bwd.cu``, its own library) is the
+gradient of the forward with respect to q, k and v: three kernels (the
+rows' ``dO . O``, then dK and dV by key tile, then dQ by query tile),
+each output row summed by one block in a fixed order, so no atomics and
+the same bits every run. It replaces no Pallas kernel (the JAX package
+differentiates its XLA attention); ``ops.attention`` reaches it through
+a ``torch.autograd.Function`` when an input requires a gradient. Its
+plain version is autograd through ``ref.attention_ref``
+(``ref.attention_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -39,8 +54,8 @@ import math
 
 import torch
 
-from .. import _build
-from .ref import attention_ref
+from .. import _build, _launch
+from .ref import attention_bwd_ref, attention_ref, lse_ref
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
@@ -68,6 +83,13 @@ launch_counts = dict.fromkeys(PATHS, 0)
 build_seconds = 0.0
 build_log = ""
 
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# ``flash_attention_fwd``'s C signature (the two pointers before the
+# stream are the optional log-sum-exp and float32 outputs)
+FWD_ARGTYPES = ([_I32] * 4 + [_PTR] * 4 + [_I32] * 5 + [_I64] * 12
+                + [_I32] * 3
+                + [_PTR, ctypes.c_float, _PTR, _I32, _PTR, _PTR, _PTR])
+
 _lib = None
 
 
@@ -79,11 +101,8 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib, built = _build.load(SOURCE)
     build_seconds, build_log = built.seconds, built.log
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = (
-        [i32] * 4 + [ptr] * 4 + [i32] * 5 + [i64] * 12 + [i32] * 3
-        + [ptr, ctypes.c_float, ptr, i32, ptr])
-    lib.flash_attention_fwd.restype = i32
+    lib.flash_attention_fwd.argtypes = FWD_ARGTYPES
+    lib.flash_attention_fwd.restype = _I32
     _lib = lib
     return lib
 
@@ -177,8 +196,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
-                         kv_len: int | torch.Tensor | None = None
-                         ) -> torch.Tensor:
+                         kv_len: int | torch.Tensor | None = None,
+                         for_backward: bool = False):
     """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     The counterpart of the JAX package's ``flash_attention_pallas`` in
@@ -187,12 +206,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (the decode path). The output is bfloat16 when q, k and v are, else
     float32, as ``mha_ref`` promotes. CUDA tensors go to the kernel (or
     raise); CPU tensors go to the plain version.
+
+    ``for_backward=True`` returns (output, lse, o32), what B3-bwd reads:
+    lse (B, Hq, Sq) float32, each row's log-sum-exp of its scaled scores
+    (+inf where a row sees no key), and o32 the output in float32 before
+    its rounding (the output itself when it is float32), both written by
+    the "tc" and "simt" paths in the same launch; the "split" path
+    (Sq = 1) refuses it.
     """
     global launch_count
     _check(q, k, v, window)
+    if for_backward and q.shape[1] == 1:
+        raise ValueError("for_backward needs Sq > 1: the decode path "
+                         "(\"split\") writes no log-sum-exp")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             kv_len=kv_len)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            kv_len=kv_len)
+        if for_backward:
+            o32 = attention_ref(q.float(), k.float(), v.float(),
+                                causal=causal, window=window, kv_len=kv_len)
+            return out, lse_ref(q, k, causal=causal, window=window,
+                                kv_len=kv_len), o32
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_hopper(q.device)
@@ -218,6 +253,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, hq, d), device=q.device,
                       dtype=torch.bfloat16 if both_bf16 else torch.float32)
     path = b3_path(q.dtype, k.dtype, sq)
+    lse = o32 = None
+    if for_backward:
+        lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
+        o32 = (torch.empty((b, sq, hq, d), device=q.device,
+                           dtype=torch.float32) if path == "tc" else out)
     scratch, n_splits = None, 0
     if path == "split":
         # float32 partials of every split: acc (group, D), m and l (group)
@@ -241,10 +281,169 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), window or 0, kv_scalar,
             None if lens is None else lens.data_ptr(), 1.0 / math.sqrt(d),
             None if scratch is None else scratch.data_ptr(), n_splits,
-            stream)
+            None if lse is None else lse.data_ptr(),
+            o32.data_ptr() if path == "tc" and for_backward else None, stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed (path "
                            f"{path!r}): CUDA error {err}")
     launch_count += 1
     launch_counts[path] += 1
-    return out
+    return (out, lse, o32) if for_backward else out
+
+
+# ------------------------------------------------------------- B3-bwd
+BWD_SOURCE = _build.CSRC / "flash_attention_bwd.cu"
+# the source's ``enum Arg``, in order
+BWD_ARGS = _launch.Args(
+    "bf16", "head_dim", "q", "q_sb", "q_ss", "q_sh", "k", "k_sb", "k_ss",
+    "k_sh", "v", "v_sb", "v_ss", "v_sh", "o", "o_sb", "o_ss", "o_sh", "do",
+    "do_sb", "do_ss", "do_sh", "lse", "delta", "dq", "dk", "dv", "B", "Sq",
+    "Skv", "Hq", "Hkv", "causal", "window", "kv_len")
+# Calls of ``flash_attention_bwd_cuda`` that launched on the card (three
+# kernels each); CPU calls of the plain version do not count. Reset by
+# assigning 0.
+bwd_launch_count = 0
+_bwd_lib = None
+
+
+def load_bwd_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load B3-bwd's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib, _ = _build.load(BWD_SOURCE)
+        lib.flash_attention_bwd.argtypes = [_PTR, ctypes.c_float, _PTR]
+        lib.flash_attention_bwd.restype = _I32
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def bwd_tiles(head_dim: int) -> dict[str, int]:
+    """B3-bwd's tiles at head size ``head_dim`` (``KvCfg``/``QCfg`` in the
+    source): ``kv_keys`` keys a dK/dV block owns, ``kv_rows`` query rows
+    a tile of its walk; ``q_rows`` rows a dQ block owns, ``q_keys`` keys
+    a tile of its walk."""
+    kv_keys = 32 if head_dim == 128 else 64
+    q_rows = 32 if head_dim == 128 else 64
+    return {"kv_keys": kv_keys, "kv_rows": 2048 // kv_keys,
+            "q_rows": q_rows, "q_keys": 2048 // q_rows}
+
+
+def bwd_q_tile_range(k0: int, n_keys: int, sq: int, q_offset: int,
+                     kv_len: int, *, causal: bool, window: int | None,
+                     block_q: int) -> range:
+    """The query tiles (of ``block_q`` rows) that a dK/dV block owning keys
+    ``k0 .. k0 + n_keys - 1`` walks: those holding a row that sees one of
+    its keys. The source's ``dkv_kernel`` computes the same rule; every
+    other tile is wholly masked for these keys."""
+    k_last = min(k0 + n_keys, kv_len) - 1
+    if k_last < k0:
+        return range(0)
+    i_lo = max(0, k0 - q_offset) if causal else 0
+    i_hi = min(sq, k_last + window - q_offset) if window is not None else sq
+    if i_hi <= i_lo:
+        return range(0)
+    return range(i_lo // block_q, -(-i_hi // block_q))
+
+
+def bwd_bound(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+              window: int | None) -> tuple[int, int]:
+    """(visible (query, q head, key) triples, operations) of B3-bwd on
+    these shapes: 10·D operations a visible pair (S, dP, dV, dK and dQ,
+    two each per element of D), the work a backward must do whatever it
+    recomputes."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    q_offset = skv - sq
+    pos = torch.arange(sq, dtype=torch.int64) + q_offset
+    hi = torch.minimum(pos + 1, torch.tensor(skv)) if causal else \
+        torch.full_like(pos, skv)
+    lo = (pos - window + 1).clamp(min=0) if window is not None else \
+        torch.zeros_like(pos)
+    pairs = int((hi - lo).clamp(min=0).sum()) * b * hq
+    return pairs, 10 * d * pairs
+
+
+def bwd_launch_args(q, k, v, o, lse, do, delta, dq, dk, dv, *, causal,
+                    window, kv_len) -> bytes:
+    """B3-bwd's packed C arguments (``BWD_ARGS``, the source's ``enum
+    Arg``) for these tensors: pointers and strides in elements; dq, dk and
+    dv contiguous; ``kv_len`` None (every key) or an int, clamped to
+    [0, Skv]."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kv = skv if kv_len is None else max(0, min(int(kv_len), skv))
+    return BWD_ARGS.pack(
+        int(q.dtype == torch.bfloat16), d,
+        q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3], o.data_ptr(), *o.stride()[:3],
+        do.data_ptr(), *do.stride()[:3], lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv,
+        int(causal), window or 0, kv)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             kv_len: int | None = None):
+    """The gradient of ``flash_attention_cuda(q, k, v, ...)`` for the
+    output gradient ``do``, given the forward's float32 output ``o`` and
+    ``lse`` (``for_backward=True``): (dq, dk, dv) in the shapes and dtypes
+    of q, k, v. q, k, v and do all float32 or all bfloat16; ``kv_len``
+    None or an int (per-row lengths are a decode feature and raise). CUDA
+    tensors go to B3-bwd (or raise); CPU tensors go to the plain version,
+    autograd through ``attention_ref`` upcast to float32 (``o`` and
+    ``lse`` unused there)."""
+    global bwd_launch_count
+    _check(q, k, v, window)
+    if isinstance(kv_len, torch.Tensor):
+        raise NotImplementedError("B3-bwd takes kv_len None or an int; per-row "
+                                  "lengths are a decode feature")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
+                                 kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _launch.check_hopper(q.device, "flash attention backward")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dtypes = {t.dtype for t in (q, k, v, do)}
+    if len(dtypes) != 1 or o.dtype != torch.float32:
+        raise TypeError("B3-bwd takes q, k, v and do of one dtype and a "
+                        f"float32 o; got {q.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{do.dtype} and {o.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} is not one of {HEAD_DIMS}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {hq}, {sq}) "
+                         f"tensor on {q.device}")
+    if max(b, hq) > 65535 or max(sq, skv) >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: B={b}, Sq={sq}, "
+                         f"Skv={skv}, Hq={hq}")
+    do = do if do.stride(3) == 1 else do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must have a contiguous last dimension")
+    empty = sq == 0 or skv == 0 or b == 0
+    make = torch.zeros if empty else torch.empty
+    dq = make(q.shape, device=q.device, dtype=q.dtype)
+    dk = make(k.shape, device=q.device, dtype=k.dtype)
+    dv = make(v.shape, device=q.device, dtype=v.dtype)
+    if empty:
+        return dq, dk, dv
+    delta = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
+    args = bwd_launch_args(q, k, v, o, lse, do, delta, dq, dk, dv,
+                           causal=causal, window=window, kv_len=kv_len)
+    lib = load_bwd_library()
+    with _launch.device_guard(q.device):
+        err = lib.flash_attention_bwd(args, 1.0 / math.sqrt(d),
+                                      _launch.raw_stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash attention backward launch failed: CUDA "
+                           f"error {err}")
+    bwd_launch_count += 1
+    return dq, dk, dv

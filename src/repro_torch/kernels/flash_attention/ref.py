@@ -1,6 +1,9 @@
 """Plain PyTorch oracle of kernel B3: masked multi-head attention with
 GQA and a sliding window, a copy of the JAX package's
-``kernels/flash_attention/ref.py::mha_ref``."""
+``kernels/flash_attention/ref.py::mha_ref``; and the plain versions of
+what training adds, the rows' log-sum-exp (``lse_ref``) and the backward
+(``attention_bwd_ref``: autograd through ``attention_ref`` upcast to
+float32)."""
 from __future__ import annotations
 
 import math
@@ -56,3 +59,51 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    causal=causal, window=window,
                    kv_len=kv_len).transpose(1, 2)
+
+
+def _mask(sq: int, skv: int, *, causal: bool, window: int | None,
+          kv_len, device) -> torch.Tensor:
+    """(Sq, Skv) visibility of key j to query i (at position
+    i + Skv - Sq), as ``mha_ref`` masks with an int or no ``kv_len``."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    if kv_len is not None:
+        mask &= k_pos < int(kv_len)
+    return mask
+
+
+def lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            window: int | None = None,
+            kv_len: int | None = None) -> torch.Tensor:
+    """(B, Hq, Sq) float32: each row's log-sum-exp of its visible scaled
+    scores, log Σ_j exp(q_i·k_j / √D), +inf where a row sees no key (what
+    kernel B3 writes with ``for_backward``). q (B, Sq, Hq, D), k (B, Skv,
+    Hkv, D), in float32."""
+    b, sq, hq, d = q.shape
+    group = hq // k.shape[2]
+    kf = k.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
+    mask = _mask(sq, k.shape[1], causal=causal, window=window,
+                 kv_len=kv_len, device=q.device)
+    lse = torch.logsumexp(s.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.where(mask.any(-1), lse, torch.full_like(lse, math.inf))
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, causal: bool = True,
+                      window: int | None = None,
+                      kv_len: int | None = None):
+    """The plain version of kernel B3-bwd: (dq, dk, dv) of
+    ``attention_ref(q, k, v)`` for the output gradient ``do``, by autograd
+    on the inputs upcast to float32, cast back to the inputs' dtypes."""
+    with torch.enable_grad():
+        qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+        out = attention_ref(qf, kf, vf, causal=causal, window=window,
+                            kv_len=kv_len)
+        grads = torch.autograd.grad(out, (qf, kf, vf), do.float())
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))

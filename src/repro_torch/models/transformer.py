@@ -26,16 +26,29 @@ so after a prefill of S > window tokens with S % window != 0 its decode
 overwrites a key that is not the oldest; the port's cache is the
 reference's rolled by S % window, and its decode agrees with ``forward``.
 
-Not here yet (ROADMAP.md, Queue A): ``lm_loss``, ``make_train_step``,
-``param_logical`` and ``shard_params``. The reference's scan over layers
-and its ``unroll_layers`` switch are a Python loop here.
+Training (``lm_loss``, ``make_train_step``): the gradient comes from
+torch autograd; on the card every attention call's backward is kernel
+B3-bwd. The parameters are created with ``requires_grad=False``, so
+serving never builds an autograd graph; a train step switches them on
+for its own forward and backward only (``LM.trainable``). Each layer is
+checkpointed (``torch.utils.checkpoint``, the reference's per-layer
+``jax.checkpoint`` with nothing saved), so only the layer boundaries'
+activations stay live; ``sqrt_remat`` and ``remat_dots`` are TPU memory
+knobs of the reference (ROADMAP A11.5).
+
+Not here yet (ROADMAP.md, Queue A): ``param_logical`` and
+``shard_params``. The reference's scan over layers and its
+``unroll_layers`` switch are a Python loop here.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ..device import resolve_device
@@ -175,7 +188,8 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """The LM: embedding, ``cfg.n_layers`` blocks, final RMSNorm and
-    unembedding. Inference only: no parameter requires a gradient."""
+    unembedding. No parameter requires a gradient outside
+    ``trainable()``."""
 
     def __init__(self, cfg: LMConfig, embed: torch.Tensor,
                  unembed: torch.Tensor, final_norm: torch.Tensor,
@@ -191,14 +205,26 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @contextlib.contextmanager
+    def trainable(self):
+        """Every parameter requires a gradient inside the block, and none
+        after it: a train step's forward builds its graph, and serving
+        with the same model builds none."""
+        self.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            self.requires_grad_(False)
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.final_norm, self.cfg.norm_eps) @ self.unembed
 
-    def forward(self, tokens: torch.Tensor,
-                attn_path: str = "auto") -> tuple[torch.Tensor,
-                                                  torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, attn_path: str = "auto",
+                remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (logits (B, S, V), aux loss: the layers' MoE
-        aux losses summed and divided by the depth)."""
+        aux losses summed and divided by the depth). ``remat``: with
+        gradients on, each layer is checkpointed (its activations are
+        recomputed in the backward, attention's forward included)."""
         s = tokens.shape[1]
         if attn_path == "auto":
             attn_path = "chunked" if s >= 2048 else "dense"
@@ -208,8 +234,13 @@ class LM(nn.Module):
         x = self.embed[tokens]
         positions = torch.arange(s, device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        remat = remat and torch.is_grad_enabled()
         for block in self.layers:
-            x, aux_l = block(x, positions, attn_path)
+            if remat:
+                x, aux_l = checkpoint(block, x, positions, attn_path,
+                                      use_reentrant=False)
+            else:
+                x, aux_l = block(x, positions, attn_path)
             if aux_l is not None:
                 aux = aux + aux_l
         return self.logits(x), aux / self.cfg.n_layers
@@ -261,6 +292,36 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def param_tree(named: dict, stack=torch.stack) -> dict:
+    """The reference's parameter tree (``{"embed", "unembed",
+    "final_norm", "layers": {name: (L, ...)}}``) of a dict keyed by the
+    port's parameter names (``dict(model.named_parameters())``, or
+    gradients or optimizer moments keyed alike): each layer weight's
+    per-layer values, in layer order, given to ``stack`` (by default
+    stacked as one (L, ...) tensor, a copy)."""
+    layers: dict[str, dict] = {}
+    top = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(parts[2], {})[int(parts[1])] = t
+        else:
+            top[name] = t
+    top["layers"] = {w: stack([rows[i] for i in range(len(rows))])
+                     for w, rows in layers.items()}
+    return top
+
+
+def named_from_tree(tree: dict) -> dict:
+    """The inverse of ``param_tree``: a dict keyed by the port's
+    parameter names, each layer weight the row of its stack (a view of a
+    stacked tensor, or an item of a list)."""
+    named = {k: v for k, v in tree.items() if k != "layers"}
+    for w, stack in tree["layers"].items():
+        named.update((f"layers.{i}.{w}", row) for i, row in enumerate(stack))
+    return named
+
+
 def params_from_numpy(cfg: LMConfig, tree: dict, *, device=None,
                       dtype: torch.dtype | None = None) -> LM:
     """The port's ``LM`` holding the parameters of the reference's
@@ -286,14 +347,85 @@ def params_from_numpy(cfg: LMConfig, tree: dict, *, device=None,
 
 
 # ---------------------------------------------------------------- forward
-def forward(model: LM, tokens: torch.Tensor, *,
-            attn_path: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+def forward(model: LM, tokens: torch.Tensor, *, attn_path: str = "auto",
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), aux_loss). ``attn_path``:
     ``auto`` (chunked at S >= 2048, else dense), ``dense`` or
     ``chunked``; on the card all three are B3. The aux loss is the mean
     over layers of the MoE load-balance loss (float32), 0 for a dense
-    LM."""
-    return model(tokens, attn_path)
+    LM. ``remat`` checkpoints each layer when gradients are on."""
+    return model(tokens, attn_path, remat)
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
+            attn_path: str = "auto", aux_weight: float = 0.01,
+            remat: bool = False):
+    """The reference's ``lm_loss``: (nll + aux_weight · aux, (nll, aux))
+    with nll the mean over (B, S) of logsumexp(logits) − logits[label],
+    logits in float32. The gold logit is a ``gather`` (the reference's
+    one-hot contraction is a sharding device; the value is the same)."""
+    logits, aux = forward(model, tokens, attn_path=attn_path, remat=remat)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold).mean()
+    return nll + aux_weight * aux, (nll, aux)
+
+
+def make_train_step(cfg: LMConfig, optimizer, *, attn_path: str = "auto",
+                    num_microbatches: int = 1):
+    """The reference's ``make_train_step``: ``train_step(model,
+    opt_state, batch) -> (model, opt_state, metrics)`` with metrics
+    {"loss", "nll", "aux", "gnorm"} as 0-d float32 tensors on the
+    model's device (no host read).
+
+    ``num_microbatches`` nm > 1 splits the batch strided (microbatch i
+    holds rows i, i + nm, ...), accumulates each microbatch's gradients
+    in float32 buffers in order and divides by nm, as the reference's
+    scan does; with nm = 1 the gradients stay in the parameters' dtype.
+    Each layer is checkpointed, as the reference's are. The optimizer
+    updates the model's parameters in place (``optim.AdamW.update``)."""
+    nm = num_microbatches
+
+    def grads_of(model, names, params, tokens, labels):
+        loss, (nll, aux) = lm_loss(model, tokens, labels,
+                                   attn_path=attn_path, remat=True)
+        grads = torch.autograd.grad(loss, params)
+        return (loss.detach(), nll.detach(), aux.detach()), dict(zip(names,
+                                                                      grads))
+
+    def train_step(model: LM, opt_state, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        names, params = zip(*model.named_parameters())
+        with model.trainable():
+            if nm == 1:
+                (loss, nll, aux), grads = grads_of(model, names, params,
+                                                   tokens, labels)
+            else:
+                b, s = tokens.shape
+                if b % nm:
+                    raise ValueError(f"batch {b} is not a multiple of "
+                                     f"num_microbatches {nm}")
+                toks = tokens.reshape(b // nm, nm, s).transpose(0, 1)
+                labs = labels.reshape(b // nm, nm, s).transpose(0, 1)
+                grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)
+                         for n, p in zip(names, params)}
+                loss = nll = aux = torch.zeros((), dtype=torch.float32,
+                                               device=tokens.device)
+                for i in range(nm):
+                    (l_i, n_i, a_i), g = grads_of(model, names, params,
+                                                  toks[i], labs[i])
+                    for n in names:
+                        grads[n].add_(g.pop(n))
+                    loss, nll, aux = loss + l_i, nll + n_i, aux + a_i
+                for g in grads.values():
+                    g.div_(nm)
+                loss, nll, aux = loss / nm, nll / nm, aux / nm
+        model, opt_state, gnorm = optimizer.update(grads, opt_state, model)
+        return model, opt_state, {"loss": loss, "nll": nll, "aux": aux,
+                                  "gnorm": gnorm}
+    return train_step
 
 
 # ----------------------------------------------------------------- serve

@@ -129,21 +129,21 @@ def write_variants(source: str, out_dir: Path) -> dict[str, Path]:
 
 def bind(path: Path) -> ctypes.CDLL:
     """The library at ``path`` with ``kernel.load_library``'s argtypes."""
+    from repro_torch.kernels.flash_attention import kernel as b3
     lib = ctypes.CDLL(str(path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = (
-        [i32] * 4 + [ptr] * 4 + [i32] * 5 + [i64] * 12 + [i32] * 3
-        + [ptr, ctypes.c_float, ptr, i32, ptr])
-    lib.flash_attention_fwd.restype = i32
+    lib.flash_attention_fwd.argtypes = b3.FWD_ARGTYPES
+    lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
 
 
 def tc_registers(log_text: str) -> dict[str, str]:
-    """'registers, spill stores' of each tc_fwd_kernel<D> in a ptxas log:
-    the lines after its 'Function properties for' line."""
+    """'registers, spill stores' of each tc_fwd_kernel<D> (the inference
+    instance, without the training epilogue) in a ptxas log: the lines
+    after its 'Function properties for' line."""
     out, lines = {}, log_text.splitlines()
     for i, line in enumerate(lines):
-        if "Function properties for" in line and "tc_fwd_kernel" in line:
+        if ("Function properties for" in line and "tc_fwd_kernel" in line
+                and "Lb1E" not in line):    # the inference instances
             d = line.split("tc_fwd_kernelILi")[1].split("E")[0]
             rest = lines[i + 1:i + 4]
             spill = next(x.split("bytes stack frame, ")[1].split(",")[0]
