@@ -208,18 +208,20 @@ Phases, each of which exits non-zero when it fails:
    backward of B3 behind ``kernels/flash_attention/ops.py``'s autograd
    function) against autograd through the plain version on the same
    inputs upcast to float32, at TestFlashAttention's shapes (float32
-   within 2e-3; bfloat16 within its outputs' rounding, rtol 1.6e-2 and
-   1.6e-2 of the largest magnitude), at tinyllama's training microbatch
-   (4, 4096, 32/4 heads, causal) and mixtral's (1, 4096, 32/8, dh 128,
-   window 4096), B3's forward with its log-sum-exp bit-equal to B3's
-   without; (b) tinyllama-1.1b at its configured widths through
-   ``launch/train.py::build_step_and_state`` (random bfloat16 weights
-   from seed 0), the train_4k sequence of 4096 with the global batch cut
-   from 256 to 8 in 2 microbatches: 5 steps on one batch at a constant
-   lr lower the loss, loss/nll/gnorm finite, B3-bwd once per layer and
-   microbatch (B3 twice: the forward and the per-layer recompute); time
-   per step, tokens/s, peak memory and a profile of one step with the
-   device idle share and B3's and B3-bwd's shares; (c) the whole model's
+   through its "simt" path within 2e-3; bfloat16 through "tc" within its
+   outputs' rounding, rtol 1.6e-2 and 1.6e-2 of the largest magnitude,
+   and a second "tc" call bit-equal to the first), at tinyllama's
+   training microbatch (4, 4096, 32/4 heads, causal) and mixtral's (1,
+   4096, 32/8, dh 128, window 4096), B3's forward with its log-sum-exp
+   bit-equal to B3's without; (b) tinyllama-1.1b at its configured
+   widths through ``launch/train.py::build_step_and_state`` (random
+   bfloat16 weights from seed 0), the train_4k sequence of 4096 with the
+   global batch cut from 256 to 8 in 2 microbatches: 5 steps on one batch
+   at a constant lr lower the loss, loss/nll/gnorm finite, B3-bwd once per
+   layer and microbatch, every call through "tc" (B3 twice: the forward
+   and the per-layer recompute); time per step, tokens/s, peak memory and
+   a profile of one step with the device idle share and B3's and
+   B3-bwd's shares; (c) the whole model's
    gradient on a (1, 2048) batch with B3-bwd and with the plain attention
    backward, every parameter within a relative L2 error of 2e-2, wq, wk
    and wv nonzero; (d) the restart drill at full width with the depth cut
@@ -228,11 +230,11 @@ Phases, each of which exits non-zero when it fails:
    uninterrupted run; a save and a restore timed; (e) one step through
    the int8 error-feedback compressed path, and mixtral-8x7b at its
    widths with its depth cut to 2 of 32 layers, bfloat16 moments, (1,
-   4096): 3 steps with finite loss and aux, B3-bwd once per layer; (f)
-   B3-bwd at tinyllama's training microbatch beside its bound (10·D
-   operations a visible pair at the bfloat16 rate), its plain version and
-   the backward of ``scaled_dot_product_attention`` (a yardstick the port
-   never calls).
+   4096): 3 steps with finite loss and aux, B3-bwd once per layer through
+   "tc"; (f) B3-bwd at tinyllama's and mixtral's training shapes beside
+   its bound (10·D operations a visible pair at the bfloat16 rate), its
+   plain version and the backward of ``scaled_dot_product_attention`` (a
+   yardstick the port never calls).
 
 The line before the last is a JSON object describing each kernel (B1,
 B3, B2 and B3-bwd); the last line is ``{"ok": true, "device": {...}}``.
@@ -3956,11 +3958,18 @@ def check_b3_bwd(args, label, **kw) -> float:
     q, k, v, do = args
     plain_out = flash_attention_cuda(q, k, v, **kw)
     out, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True, **kw)
-    before = b3.bwd_launch_count
+    path = b3.b3_bwd_path(q.dtype)
+    before, counts = b3.bwd_launch_count, dict(b3.bwd_launch_counts)
     grads = flash_attention_bwd_cuda(q, k, v, o32, lse, do, **kw)
     torch.cuda.synchronize()
-    if b3.bwd_launch_count != before + 1:
-        fail(f"B3-bwd {label}: not launched once")
+    if b3.bwd_launch_count != before + 1 or \
+            b3.bwd_launch_counts != {**counts, path: counts[path] + 1}:
+        fail(f"B3-bwd {label}: not launched once through {path!r}")
+    if path == "tc":     # no atomics: a second call gives the same bits
+        again = flash_attention_bwd_cuda(q, k, v, o32, lse, do, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            fail(f"B3-bwd {label}: two \"tc\" calls differ")
+        del again
     if not torch.equal(out, plain_out) or \
             not torch.equal(o32.to(out.dtype), out):
         fail(f"B3 {label}: the output with the log-sum-exp and the float32 "
@@ -3981,7 +3990,8 @@ def check_b3_bwd(args, label, **kw) -> float:
                 fail(f"B3-bwd {label}: non-finite d{name}")
         del want
     shapes = " ".join(str(tuple(a.shape)) for a in args[:3])
-    log(f"B3-bwd {label}: q k v {shapes} {str(q.dtype)[6:]}, {kw}: "
+    log(f"B3-bwd {label}: q k v {shapes} {str(q.dtype)[6:]} via {path!r}"
+        f"{' (second call bit-equal: True)' if path == 'tc' else ''}, {kw}: "
         f"max_abs_err={err!r} (err/allowed {ratio:.3f}; "
         f"{'rtol=atol 2e-3' if f32 else 'rtol 1.6e-2, atol 1.6e-2 x max|ref|'}"
         f"); forward with its log-sum-exp and float32 output bit-equal: "
@@ -4006,8 +4016,9 @@ def check_b3_bwd_shapes(dev) -> dict:
     JAX package's TestFlashAttention (float32 and bfloat16, windows 64,
     128 and 200, the unpadded S = 200), at tinyllama's training
     microbatch (4, 4096, 32/4 heads, dh 64, causal) and at mixtral's
-    (1, 4096, 32/8, dh 128, window 4096); returns the training shape's
-    case for the times, as (args, kwargs, max abs err)."""
+    (1, 4096, 32/8, dh 128, window 4096); returns the two training
+    shapes' cases for the times, by kernels-line name, as (args, kwargs,
+    max abs err)."""
     import torch
     from repro_torch.configs import get as get_config
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -4029,11 +4040,13 @@ def check_b3_bwd_shapes(dev) -> dict:
                          torch.bfloat16)
     err = check_b3_bwd(args, "tinyllama training shape", causal=True)
     mix = get_config(MOE_ARCH)
-    check_b3_bwd(b3_bwd_inputs(dev, gen, 1, mix.n_heads, mix.n_kv_heads,
-                               MOE_TRAIN_SHAPE[1], mix.dh, torch.bfloat16),
-                 "mixtral training shape", causal=True, window=mix.window)
+    mix_args = b3_bwd_inputs(dev, gen, 1, mix.n_heads, mix.n_kv_heads,
+                             MOE_TRAIN_SHAPE[1], mix.dh, torch.bfloat16)
+    mix_kw = dict(causal=True, window=mix.window)
+    mix_err = check_b3_bwd(mix_args, "mixtral training shape", **mix_kw)
     torch.cuda.empty_cache()
-    return (args, dict(causal=True), err)
+    return {"train": (args, dict(causal=True), err),
+            "train_mixtral": (mix_args, mix_kw, mix_err)}
 
 
 def sdpa_bwd_call(q, k, v, do):
@@ -4049,17 +4062,21 @@ def sdpa_bwd_call(q, k, v, do):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def b3_bwd_entry(case, launches, card) -> dict:
+def b3_bwd_entry(case, name, label, launches, card) -> dict:
     """Phase 13 (f): B3-bwd, its plain version (batch row by batch row)
-    and SDPA's backward at tinyllama's training microbatch; the bound:
-    10·D operations a visible (query, q head, key) triple at the bfloat16
-    tensor-core rate, against the bytes of q, k, v, o, dO, the
-    log-sum-exp read and dq, dk, dv written."""
+    and SDPA's causal backward at a training shape (a window must not
+    bind there: SDPA gets no mask); the bound: 10·D operations a visible
+    (query, q head, key) triple at the bfloat16 tensor-core rate, against
+    the bytes of q, k, v, o, dO, the log-sum-exp read and dq, dk, dv
+    written."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as b3
     from repro_torch.kernels.flash_attention import (
         attention_bwd_ref, flash_attention_bwd_cuda, flash_attention_cuda)
     (q, k, v, do), kw, err = case
+    if kw.get("window") is not None and kw["window"] < k.shape[1]:
+        fail(f"B3-bwd {label}: the window binds; SDPA's causal backward is "
+             "no yardstick there")
     _, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True, **kw)
     ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o32, lse, do,
                                                   **kw), reps=5, warmup=1)
@@ -4080,7 +4097,8 @@ def b3_bwd_entry(case, launches, card) -> dict:
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_BF16_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"B3-bwd at tinyllama's training microbatch {tuple(q.shape)}: "
+    log(f"B3-bwd at {label} {tuple(q.shape)} via "
+        f"{b3.b3_bwd_path(q.dtype)!r}: "
         f"{ms!r} ms ({ops / ms / 1e9:.2f} TFLOP/s counted at 10·D); bound "
         f"{bound_ms!r} ms ({pairs} visible pairs, {ops} operations at "
         f"{PEAK_BF16_PER_S / 1e12:.0f} TFLOP/s bf16; {nbytes} B at "
@@ -4088,7 +4106,7 @@ def b3_bwd_entry(case, launches, card) -> dict:
         f"turn) {plain_ms!r} ms; scaled_dot_product_attention backward "
         f"{library_ms!r} ms ({card})")
     return {
-        "name": "flash_attention_bwd/train",
+        "name": f"flash_attention_bwd/{name}",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "XLA autodiff of src/repro/models/layers.py:47 "
@@ -4108,6 +4126,7 @@ def reset_b3_counts() -> None:
     b3.launch_count = 0
     b3.launch_counts = dict.fromkeys(b3.PATHS, 0)
     b3.bwd_launch_count = 0
+    b3.bwd_launch_counts = dict.fromkeys(b3.BWD_PATHS, 0)
 
 
 def train_steps(step, state, batch, n, label):
@@ -4141,12 +4160,13 @@ def param_grads(model, tokens, labels):
     return float(loss.detach()), dict(zip(names, grads))
 
 
-def train_phase(dev, card, bwd_case) -> list[dict]:
+def train_phase(dev, card, bwd_cases) -> list[dict]:
     """Phase 13 (b)-(f): tinyllama-1.1b trained at its widths through
     ``launch/train.py::build_step_and_state``; the whole model's gradient
     with B3-bwd against the plain attention backward; the restart drill;
-    a compressed step and mixtral-8x7b's steps; B3-bwd's times. Returns
-    B3-bwd's entry of the kernels line."""
+    a compressed step and mixtral-8x7b's steps; B3-bwd's times at the
+    training shapes of ``bwd_cases`` (``check_b3_bwd_shapes``). Returns
+    B3-bwd's entries of the kernels line."""
     import shutil
     import tempfile
     import torch
@@ -4178,6 +4198,7 @@ def train_phase(dev, card, bwd_case) -> list[dict]:
         f"{TRAIN_MICRO} microbatches, lr {TRAIN_LR})")
     torch.cuda.synchronize()
     bwd_launches, fwd_launches = b3.bwd_launch_count, b3.launch_count
+    bwd_by_path = dict(b3.bwd_launch_counts)
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in history]
     per_step = cfg.n_layers * TRAIN_MICRO
@@ -4186,7 +4207,9 @@ def train_phase(dev, card, bwd_case) -> list[dict]:
     log(f"main path (LM training): losses {losses} (falling: "
         f"{losses[-1] < losses[0]}); B3-bwd launches {bwd_launches} (= "
         f"{cfg.n_layers} layers x {TRAIN_MICRO} microbatches x {TRAIN_STEPS} "
-        f"steps: {bwd_launches == per_step * TRAIN_STEPS}); B3 launches "
+        f"steps: {bwd_launches == per_step * TRAIN_STEPS}) by path "
+        f"{bwd_by_path} (all \"tc\": {bwd_by_path['tc'] == bwd_launches});"
+        f" B3 launches "
         f"{fwd_launches} by path {b3.launch_counts} (forward and per-layer "
         f"recompute: {fwd_launches == 2 * per_step * TRAIN_STEPS})")
     log(f"time LM training step ({cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ}): "
@@ -4199,6 +4222,7 @@ def train_phase(dev, card, bwd_case) -> list[dict]:
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
     if bwd_launches != per_step * TRAIN_STEPS or \
+            bwd_by_path["tc"] != bwd_launches or \
             fwd_launches != 2 * per_step * TRAIN_STEPS or \
             b3.launch_counts["tc"] != fwd_launches:
         fail("B3 / B3-bwd launches differ from layers x microbatches x steps")
@@ -4343,22 +4367,29 @@ def train_phase(dev, card, bwd_case) -> list[dict]:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     want_bwd = MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+    moe_bwd_launches = b3.bwd_launch_counts["tc"]
     log(f"{moe_cfg.name} training: B3-bwd launches {b3.bwd_launch_count} "
-        f"(= {want_bwd}), B3 {b3.launch_count} (forward and recompute = "
+        f"(= {want_bwd}) by path {b3.bwd_launch_counts}, B3 "
+        f"{b3.launch_count} (forward and recompute = "
         f"{2 * want_bwd}); a step {sum(times[1:]) / len(times[1:])!r} ms; "
         f"peak device memory {peak} B ({card})")
     if not all(np.isfinite(m["loss"]) and np.isfinite(m["aux"])
                and m["aux"] > 0 for m in history) or \
             b3.bwd_launch_count != want_bwd or \
+            moe_bwd_launches != want_bwd or \
             b3.launch_count != 2 * want_bwd:
         fail(f"{moe_cfg.name} training")
     del step, state, batch
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------- (f) B3-bwd times
-    entry = b3_bwd_entry(bwd_case, bwd_launches, card)
+    entries = [
+        b3_bwd_entry(bwd_cases["train"], "train",
+                     "tinyllama's training microbatch", bwd_launches, card),
+        b3_bwd_entry(bwd_cases["train_mixtral"], "train_mixtral",
+                     "mixtral's training shape", moe_bwd_launches, card)]
     log(f"phase 13 (LM training): {time.perf_counter() - t_phase:.1f} s")
-    return [entry]
+    return entries
 
 
 def main() -> None:

@@ -39,10 +39,13 @@ B3-bwd (``flash_attention_bwd_cuda``, source
 gradient of the forward with respect to q, k and v: three kernels (the
 rows' ``dO . O``, then dK and dV by key tile, then dQ by query tile),
 each output row summed by one block in a fixed order, so no atomics and
-the same bits every run. It replaces no Pallas kernel (the JAX package
-differentiates its XLA attention); ``ops.attention`` reaches it through
-a ``torch.autograd.Function`` when an input requires a gradient. Its
-plain version is autograd through ``ref.attention_ref``
+the same bits every run. Two paths, chosen by ``b3_bwd_path`` from the
+dtype alone: ``"tc"`` for bfloat16 (wgmma on the tensor cores) and
+``"simt"`` for float32 (the float32 cores, which keep its precision).
+It replaces no Pallas kernel (the JAX package differentiates its XLA
+attention); ``ops.attention`` reaches it through a
+``torch.autograd.Function`` when an input requires a gradient. Its plain
+version is autograd through ``ref.attention_ref``
 (``ref.attention_bwd_ref``).
 """
 from __future__ import annotations
@@ -299,10 +302,12 @@ BWD_ARGS = _launch.Args(
     "k_sh", "v", "v_sb", "v_ss", "v_sh", "o", "o_sb", "o_ss", "o_sh", "do",
     "do_sb", "do_ss", "do_sh", "lse", "delta", "dq", "dk", "dv", "B", "Sq",
     "Skv", "Hq", "Hkv", "causal", "window", "kv_len")
+BWD_PATHS = ("simt", "tc")
 # Calls of ``flash_attention_bwd_cuda`` that launched on the card (three
-# kernels each); CPU calls of the plain version do not count. Reset by
-# assigning 0.
+# kernels each), in all and per path; CPU calls of the plain version do
+# not count. Reset by assigning 0 and ``dict.fromkeys(BWD_PATHS, 0)``.
 bwd_launch_count = 0
+bwd_launch_counts = dict.fromkeys(BWD_PATHS, 0)
 _bwd_lib = None
 
 
@@ -317,11 +322,25 @@ def load_bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
-def bwd_tiles(head_dim: int) -> dict[str, int]:
-    """B3-bwd's tiles at head size ``head_dim`` (``KvCfg``/``QCfg`` in the
-    source): ``kv_keys`` keys a dK/dV block owns, ``kv_rows`` query rows
-    a tile of its walk; ``q_rows`` rows a dQ block owns, ``q_keys`` keys
-    a tile of its walk."""
+def b3_bwd_path(dtype: torch.dtype) -> str:
+    """B3-bwd's path for inputs of this dtype: "tc" (wgmma) for bfloat16,
+    "simt" for float32, which tensor cores would round to TF32. A pure
+    function of dtype; not a fallback."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_tiles(head_dim: int, path: str = "simt") -> dict[str, int]:
+    """B3-bwd's tiles at head size ``head_dim``: ``kv_keys`` keys a dK/dV
+    block owns, ``kv_rows`` query rows (of one q head) a tile of its walk;
+    ``q_rows`` rows a dQ block owns, ``q_keys`` keys a tile of its walk.
+    "simt" (``KvCfg``/``QCfg`` in the source); "tc" (``tc::Cfg``) adds
+    ``kv_wg_keys`` and ``q_wg_rows``, a warpgroup's share of a block, and
+    its dQ rows are (query position, q head of the group) pairs, head
+    fastest, as the forward's."""
+    if path == "tc":
+        return {"kv_keys": 128, "kv_wg_keys": 64,
+                "kv_rows": 32 if head_dim == 128 else 64,
+                "q_rows": 128, "q_wg_rows": 64, "q_keys": 64}
     kv_keys = 32 if head_dim == 128 else 64
     q_rows = 32 if head_dim == 128 else 64
     return {"kv_keys": kv_keys, "kv_rows": 2048 // kv_keys,
@@ -350,7 +369,9 @@ def bwd_bound(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
     """(visible (query, q head, key) triples, operations) of B3-bwd on
     these shapes: 10·D operations a visible pair (S, dP, dV, dK and dQ,
     two each per element of D), the work a backward must do whatever it
-    recomputes."""
+    recomputes. The kernels do more: "simt" 14·D (S and dP in both of
+    its kernels), "tc" 16·D (and dQ's product twice, for dS in two
+    bfloat16 parts)."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     q_offset = skv - sq
@@ -391,9 +412,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     ``lse`` (``for_backward=True``): (dq, dk, dv) in the shapes and dtypes
     of q, k, v. q, k, v and do all float32 or all bfloat16; ``kv_len``
     None or an int (per-row lengths are a decode feature and raise). CUDA
-    tensors go to B3-bwd (or raise); CPU tensors go to the plain version,
-    autograd through ``attention_ref`` upcast to float32 (``o`` and
-    ``lse`` unused there)."""
+    tensors go to B3-bwd through the path ``b3_bwd_path`` names (or
+    raise); CPU tensors go to the plain version, autograd through
+    ``attention_ref`` upcast to float32 (``o`` and ``lse`` unused
+    there)."""
     global bwd_launch_count
     _check(q, k, v, window)
     if isinstance(kv_len, torch.Tensor):
@@ -442,8 +464,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     with _launch.device_guard(q.device):
         err = lib.flash_attention_bwd(args, 1.0 / math.sqrt(d),
                                       _launch.raw_stream(q.device))
+    path = b3_bwd_path(q.dtype)
     if err != 0:
-        raise RuntimeError(f"flash attention backward launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash attention backward launch failed (path "
+                           f"{path!r}): CUDA error {err}")
     bwd_launch_count += 1
+    bwd_launch_counts[path] += 1
     return dq, dk, dv

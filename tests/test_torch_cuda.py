@@ -1449,8 +1449,9 @@ def _b3_bwd_tol(dtype, ref):
 def test_b3_bwd_vs_plain(cuda_device, shape, window, dtype):
     """B3-bwd at TestFlashAttention's shapes and windows (and Sq < Skv)
     against autograd through the plain version on the same inputs upcast
-    to float32; the forward with its log-sum-exp gives the same output
-    bits as without it."""
+    to float32, through the path its dtype names ("tc" for bfloat16,
+    "simt" for float32); the forward with its log-sum-exp gives the same
+    output bits as without it."""
     dt = getattr(torch, dtype)
     q, k, v = _attn_inputs(cuda_device, shape, dt, seed=sum(shape) + 1)
     do = torch.randn(q.shape, generator=torch.Generator(
@@ -1458,10 +1459,13 @@ def test_b3_bwd_vs_plain(cuda_device, shape, window, dtype):
     kw = dict(causal=True, window=window)
     plain_out = b3.flash_attention_cuda(q, k, v, **kw)
     out, lse, o32 = b3.flash_attention_cuda(q, k, v, for_backward=True, **kw)
+    path = "tc" if dt == torch.bfloat16 else "simt"
     before = b3.kernel.bwd_launch_count
+    counts = dict(b3.kernel.bwd_launch_counts)
     grads = b3.flash_attention_bwd_cuda(q, k, v, o32, lse, do, **kw)
     torch.cuda.synchronize()
     assert b3.kernel.bwd_launch_count == before + 1
+    assert b3.kernel.bwd_launch_counts == {**counts, path: counts[path] + 1}
     assert torch.equal(out, plain_out)
     assert o32.dtype == torch.float32 and torch.equal(o32.to(dt), out)
     torch.testing.assert_close(lse, b3.lse_ref(q.float(), k.float(), **kw),
@@ -1491,6 +1495,42 @@ def test_b3_bwd_kv_len_and_views(cuda_device, d):
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3)
     assert float(grads[1][:, 70:].abs().max()) == 0.0
+
+
+def test_b3_bwd_tc_is_deterministic(cuda_device):
+    """Two "tc" calls on the same inputs give the same bits (every output
+    row summed by one block in a fixed order; no atomics), at a shape
+    whose blocks outnumber the card's SMs."""
+    q, k, v = _attn_inputs(cuda_device, (2, 16, 4, 1024, 1024, 64),
+                           torch.bfloat16, seed=7)
+    do = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    _, lse, o32 = b3.flash_attention_cuda(q, k, v, for_backward=True)
+    first = b3.flash_attention_bwd_cuda(q, k, v, o32, lse, do)
+    second = b3.flash_attention_bwd_cuda(q, k, v, o32, lse, do)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b3_bwd_tc_kv_len_and_unaligned_views(cuda_device, d):
+    """"tc" on views whose rows are not 16-byte aligned (loaded element by
+    element), an int kv_len (keys past it get zeros) and Sq < Skv."""
+    def view(b, s, h, seed):
+        base = torch.randn((b, s, h, d + 1), generator=torch.Generator(
+            device=cuda_device).manual_seed(seed), device=cuda_device)
+        return base.to(torch.bfloat16)[..., 1:]
+    q, do = view(2, 80, 4, 1), view(2, 80, 4, 2)
+    k, v = view(2, 144, 2, 3), view(2, 144, 2, 4)
+    _, lse, o32 = b3.flash_attention_cuda(q, k, v, kv_len=100,
+                                          for_backward=True)
+    grads = b3.flash_attention_bwd_cuda(q, k, v, o32, lse, do, kv_len=100)
+    want = b3.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
+                                kv_len=100)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w,
+                                   **_b3_bwd_tol(torch.bfloat16, w))
+    assert float(grads[1][:, 100:].abs().max()) == 0.0
+    assert float(grads[2][:, 100:].abs().max()) == 0.0
 
 
 def test_b3_bwd_rejects_what_it_cannot_take(cuda_device):

@@ -19,6 +19,15 @@ and ``chip_smoke.py`` phase 13 hold it to its plain version there). Here:
   package's ``TestFlashAttention`` (head sizes 32, 64 and 128; windows;
   unpadded S; GQA; an int ``kv_len``), and bit-equal to the same loops
   walking every tile (a skipped tile adds exact zeros);
+- ``_emulate_bwd_tc``, the "tc" path's walk in torch (dK/dV blocks of
+  128 keys in two warpgroups of 64 over q tiles of ``bwd_tiles(d,
+  "tc")["kv_rows"]`` rows; dQ blocks of 128 (query position, q head)
+  rows over 64-key tiles; masks on the boundary tiles alone, whose rule
+  is held to brute force on every tile), rounding what the kernels
+  round: P and dS to bfloat16 for dV and dK, dS in two bfloat16 parts
+  for dQ; against the plain version within ``chip_smoke.py``'s bfloat16
+  gate at the same shapes, and on keys with a large common component,
+  where dS in bfloat16 alone fails the gate on dQ;
 - ``bwd_q_tile_range`` against brute force: a q tile is walked exactly
   when one of its rows sees one of the block's keys;
 - ``bwd_launch_args`` against the source's ``enum Arg``;
@@ -46,6 +55,9 @@ from test_torch_reference import load_reference
 ref_fa = load_reference("kernels.flash_attention.ref")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# chip_smoke.py's gate for bfloat16 B3-bwd (rtol, and atol as a fraction of
+# the tensor's largest magnitude)
+B3_BF16_TOL = 1.6e-2
 
 
 def _inputs(seed, b, hq, hkv, sq, skv, d, dtype=torch.float32):
@@ -124,6 +136,111 @@ def _emulate_bwd(q, k, v, do, *, causal, window, kv_len, skip=True):
     return dq * scale, dk * scale, dv
 
 
+def _split_bf16(x):
+    """x as the "tc" dQ kernel feeds it to a product: the top 16 bits of
+    each float32 (a truncated bfloat16) plus the remainder rounded to
+    bfloat16, summed in float32."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_bwd_tc(q, k, v, do, *, causal, window, kv_len, skip=True,
+                    dq_rounding=_split_bf16):
+    """The "tc" path's two walks in torch: bfloat16 q, k, v and dO, float32
+    sums, P and dS rounded as the kernels round them (``dq_rounding`` for
+    dS in dQ's product). A tile that ``tile_needs_mask``'s rule calls full
+    is asserted to be fully visible, and is then not masked. ``skip=False``
+    walks every tile."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group, q_offset = hq // hkv, skv - sq
+    kvl = skv if kv_len is None else min(kv_len, skv)
+    tiles = kernel.bwd_tiles(d, "tc")
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    out = attention_ref(qf, kf, vf, causal=causal, window=window,
+                        kv_len=kv_len)
+    lse = lse_ref(qf, kf, causal=causal, window=window, kv_len=kv_len)
+    delta = (dof * out).sum(-1).transpose(1, 2)           # (B, Hq, Sq)
+    vis = _visible(sq, skv, causal=causal, window=window, kv_len=kv_len)
+    mask = dict(causal=causal, window=window)
+
+    def p_ds(bi, h, rows, keys, full):
+        """P and dS of query rows x keys (rows past Sq are masked)."""
+        kvh = h // group
+        inside = rows < sq
+        r = rows.clamp(max=sq - 1)
+        seen = vis[r][:, keys] & inside[:, None]
+        assert not full or bool(seen.all()), (bi, h, rows[0], keys[0])
+        s = qf[bi, r, h] @ kf[bi, keys, kvh].T
+        p = torch.exp(s * scale - lse[bi, h, r, None])
+        p = p if full else torch.where(seen, p, torch.zeros(()))
+        dp = dof[bi, r, h] @ vf[bi, keys, kvh].T
+        return p, p * (dp - delta[bi, h, r, None]), r, inside
+
+    dq, dk, dv = (torch.zeros(x.shape) for x in (q, k, v))
+    nq, wk = tiles["kv_rows"], tiles["kv_wg_keys"]
+    for bi, kvh, k0 in itertools.product(range(b), range(hkv),
+                                         range(0, skv, tiles["kv_keys"])):
+        block = kernel.bwd_q_tile_range(k0, tiles["kv_keys"], sq, q_offset,
+                                        kvl, block_q=nq, **mask)
+        for wk0 in (k0, k0 + wk):
+            if wk0 >= skv:
+                continue
+            keys = torch.arange(wk0, min(wk0 + wk, skv))
+            mine = kernel.bwd_q_tile_range(wk0, wk, sq, q_offset, kvl,
+                                           block_q=nq, **mask)
+            walk = ([t for t in block if t in mine] if skip
+                    else range(-(-sq // nq)))
+            for gi, t in itertools.product(range(group), walk):
+                h, q0 = kvh * group + gi, t * nq
+                full = q0 + nq <= sq and not kernel.tile_needs_mask(
+                    wk0, q0, q0 + nq - 1, q_offset, kvl, **mask)
+                p, ds, r, inside = p_ds(bi, h, torch.arange(q0, q0 + nq),
+                                        keys, full)
+                dv[bi, keys, kvh] += _bf16(p).T @ (dof[bi, r, h]
+                                                   * inside[:, None])
+                dk[bi, keys, kvh] += _bf16(ds).T @ (qf[bi, r, h]
+                                                    * inside[:, None])
+    nr, wr, nk = tiles["q_rows"], tiles["q_wg_rows"], tiles["q_keys"]
+    for bi, kvh, row0 in itertools.product(range(b), range(hkv),
+                                           range(0, sq * group, nr)):
+        for w0 in range(row0, min(row0 + nr, sq * group), wr):
+            rows = torch.arange(w0, min(w0 + wr, sq * group))
+            pos, heads = rows // group, kvh * group + rows % group
+            lo, hi = int(pos[0]), int(pos[-1])
+            walk = (kv_tile_range(lo, hi, q_offset, kvl, block_k=nk, **mask)
+                    if skip else range(-(-skv // nk)))
+            acc = torch.zeros(len(rows), d)
+            for t in walk:
+                keys = torch.arange(t * nk, min(t * nk + nk, skv))
+                full = not kernel.tile_needs_mask(t * nk, lo, hi, q_offset,
+                                                  kvl, **mask)
+                seen = vis[pos][:, keys]
+                assert not full or bool(seen.all())
+                s = (qf[bi, pos, heads] @ kf[bi, keys, kvh].T)
+                p = torch.exp(s * scale - lse[bi, heads, pos, None])
+                p = p if full else torch.where(seen, p, torch.zeros(()))
+                dp = dof[bi, pos, heads] @ vf[bi, keys, kvh].T
+                ds = p * (dp - delta[bi, heads, pos, None])
+                acc += dq_rounding(ds) @ kf[bi, keys, kvh]
+            dq[bi, pos, heads] = acc
+    return tuple(x.to(torch.bfloat16)
+                 for x in (dq * scale, dk * scale, dv))
+
+
+def _gate_ratio(got, want):
+    """The largest |got - want| / (1.6e-2 |want| + 1.6e-2 max|want|):
+    ``chip_smoke.py``'s bfloat16 gate for B3-bwd passes at <= 1."""
+    gap = (got.float() - want).abs()
+    return float((gap / (B3_BF16_TOL * want.abs()
+                         + B3_BF16_TOL * want.abs().max())).max())
+
+
 # the JAX package's TestFlashAttention cases, and its windowed, unpadded
 # and GQA ones; head sizes 32, 64 and 128
 SHAPES = [(1, 4, 4, 256, 64), (2, 8, 2, 128, 64), (1, 4, 1, 384, 128),
@@ -166,10 +283,68 @@ def test_emulated_tile_skips_add_exact_zeros(sq, skv, mask):
         torch.testing.assert_close(g, w, **TOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_tc_emulation_matches_plain_version(shape):
+    """The "tc" walk with the kernels' roundings, bfloat16 inputs, within
+    the bfloat16 gate of the plain version on the same inputs in
+    float32."""
+    b, hq, hkv, s, d = shape
+    q, k, v, do = _inputs(sum(shape) + 1, b, hq, hkv, s, s, d,
+                          dtype=torch.bfloat16)
+    for mask in MASKS:
+        want = attention_bwd_ref(*(x.float() for x in (q, k, v, do)), **mask)
+        got = _emulate_bwd_tc(q, k, v, do, **mask)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == torch.bfloat16
+            assert _gate_ratio(g, w) <= 1.0, (name, mask, _gate_ratio(g, w))
+
+
+@pytest.mark.parametrize("sq,skv,mask", [
+    (200, 200, dict(causal=True, window=None, kv_len=None)),
+    (70, 200, dict(causal=True, window=100, kv_len=180)),
+    (130, 90, dict(causal=False, window=None, kv_len=None))])
+def test_tc_emulated_tile_skips_add_exact_zeros(sq, skv, mask):
+    """The "tc" walks over the skipped ranges equal the walks over every
+    tile (a masked tile's P and dS are exact zeros in bfloat16)."""
+    q, k, v, do = _inputs(sq * skv, 2, 4, 2, sq, skv, 64,
+                          dtype=torch.bfloat16)
+    skipped = _emulate_bwd_tc(q, k, v, do, **mask)
+    full = _emulate_bwd_tc(q, k, v, do, skip=False, **mask)
+    for g, f in zip(skipped, full):
+        assert torch.equal(g, f)
+
+
+@pytest.mark.parametrize("d", kernel.HEAD_DIMS)
+def test_tc_rounding_survives_a_common_key_component(d):
+    """The softmax-identity trap: keys sharing a large component make dQ
+    a difference of nearly equal terms. dS in two bfloat16 parts (what
+    the dQ kernel ships) keeps Σ_j dS[i, j] = 0 and dQ inside the gate;
+    dS in bfloat16 alone breaks it by ~2^-9·‖dS_i‖ a row, which the
+    common component multiplies past the gate. dK and dV, from one
+    bfloat16 part, stay inside it either way."""
+    q, k, v, do = _inputs(12 + d, 1, 8, 2, 256, 256, d, dtype=torch.bfloat16)
+    k = (k.float() * 0.05 + 3.0).to(torch.bfloat16)
+    mask = dict(causal=True, window=None, kv_len=None)
+    want = attention_bwd_ref(*(x.float() for x in (q, k, v, do)), **mask)
+    shipped = _emulate_bwd_tc(q, k, v, do, **mask)
+    alone = _emulate_bwd_tc(q, k, v, do, dq_rounding=_bf16, **mask)
+    ratios = [_gate_ratio(g, w) for g, w in zip(shipped, want)]
+    assert max(ratios) <= 1.0, ratios
+    assert _gate_ratio(alone[0], want[0]) > 1.0
+    for g, w in zip(alone[1:], want[1:]):
+        assert _gate_ratio(g, w) <= 1.0
+
+
+def test_b3_bwd_path_is_the_dtype():
+    assert kernel.b3_bwd_path(torch.bfloat16) == "tc"
+    assert kernel.b3_bwd_path(torch.float32) == "simt"
+    assert set(kernel.bwd_launch_counts) == set(kernel.BWD_PATHS)
+
+
 def test_bwd_q_tile_range_matches_brute_force():
     for (k0, n, sq, q_offset, kv_len, causal, window,
          block_q) in itertools.product(
-            [0, 32, 64, 192], [32, 64], [64, 200], [0, 70], [130, 270],
+            [0, 32, 64, 192], [32, 64, 128], [64, 200], [0, 70], [130, 270],
             [True, False], [None, 50, 128], [32, 64]):
         skv = sq + q_offset
         if k0 >= skv:
@@ -197,6 +372,21 @@ def test_bwd_tiles_match_the_source():
         # every thread of 128 owns whole float4 groups in both sums
         assert t["kv_keys"] * d % (512 * 4) == 0
         assert t["q_rows"] * d % (512 * 4) == 0
+    # "tc": tc::Cfg and the block constants
+    for line in ("constexpr int kWGs = 2;",
+                 "constexpr int kKeys = 64;",
+                 "constexpr int kBlockKeys = kKeys * kWGs;",
+                 "constexpr int kWGRows = 64;",
+                 "constexpr int kRows = kWGRows * kWGs;",
+                 "static constexpr int kQRows = D == 128 ? 32 : 64;"):
+        assert line in src, line
+    for d in kernel.HEAD_DIMS:
+        t = kernel.bwd_tiles(d, "tc")
+        assert (t["kv_keys"], t["kv_wg_keys"]) == (128, 64)
+        assert (t["q_rows"], t["q_wg_rows"], t["q_keys"]) == (128, 64, 64)
+        assert t["kv_rows"] == (32 if d == 128 else 64)
+        # a k16 step of wgmma over q rows, and whole 8-row groups
+        assert t["kv_rows"] % 16 == 0
 
 
 def test_plain_backward_matches_jax_mha_ref():
