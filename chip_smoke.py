@@ -235,9 +235,27 @@ Phases, each of which exits non-zero when it fails:
    its bound (10·D operations a visible pair at the bfloat16 rate), its
    plain version and the backward of ``scaled_dot_product_attention`` (a
    yardstick the port never calls).
+14. MIND training at the reference's train_batch cell (B 65,536; the
+   cell's ``AdamW(lr=1e-3)``) and ``configs/mind.py``'s widths (vocab 10M,
+   d 64): kernel B2-bwd (``embedding_bag_bwd`` in
+   ``repro_torch/csrc/embedding_bag.cu``, the table's gradient behind
+   ``kernels/embedding_bag/ops.py``'s autograd function) against its
+   plain backward on TestEmbeddingBag's shapes with weights (exact sums
+   bit for bit, random float32 within rtol 1e-4, atol 1e-5), bfloat16,
+   pads and a negative id, and one row read by 300,000 ids (exact sums
+   bit for bit, random ones the CPU emulation's bits), every call twice
+   with the same bits; MIND from ``init_mind`` (seed 0) on Zipf histories
+   and targets: one step's table gradient through B2-bwd against the
+   plain backward, 5 steps on one batch (loss finite and falling, B2 and
+   B2-bwd once a step), a step repeated from the same state with the same
+   bits; ms per step, users/s, peak memory, a profiled step with B2's and
+   B2-bwd's shares, and B2-bwd beside its bound, its plain version and a
+   zeroed tensor's ``index_add_`` (a yardstick the port never calls).
 
-The line before the last is a JSON object describing each kernel (B1,
-B3, B2 and B3-bwd); the last line is ``{"ok": true, "device": {...}}``.
+Each phase's wall seconds are logged as it ends, and all of them before
+the kernels line. The line before the last is a JSON object describing
+each kernel (B1, B3, B2, B3-bwd and B2-bwd); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4392,6 +4410,359 @@ def train_phase(dev, card, bwd_cases) -> list[dict]:
     return entries
 
 
+# --------------------------------------------------------------- phase 14
+# MIND training at the reference's train_batch cell (launch/specs.py:
+# global_batch 65,536, AdamW(lr=1e-3)) and configs/mind.py's widths; 5
+# steps on one batch, as the reference's smoke test trains
+MIND_TRAIN_STEPS = 5
+MIND_TRAIN_LR = 1e-3
+B2_BWD_KERNELS = ("bwd_chunk_kernel", "bwd_combine_kernel",
+                  "bwd_zero_kernel")
+HOT_RUN = 300_000              # the hottest row's ids at train_batch
+
+
+def check_b2_bwd(dout, idx, w, v, label, tol, *, exact=False) -> float:
+    """Launch B2-bwd once (twice: the second call must give the same
+    bits), hold it against the plain backward; max abs err."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
+                                                   embedding_bag_bwd_ref)
+    grad = embedding_bag_bwd_cuda(dout, idx, w, v)
+    again = embedding_bag_bwd_cuda(dout, idx, w, v)
+    torch.cuda.synchronize()
+    ref = embedding_bag_bwd_ref(dout, idx, w, v)
+    torch.cuda.synchronize()
+    err = float((grad.float() - ref.float()).abs().max())
+    same = torch.equal(grad, again)
+    equal = torch.equal(grad, ref)
+    log(f"B2-bwd {label}: dout {tuple(dout.shape)} {str(dout.dtype)[6:]}, "
+        f"ids {tuple(idx.shape)} into V={v}, weights {w is not None}: "
+        f"max_abs_err={err!r} (rtol {tol['rtol']}, atol {tol['atol']}"
+        f"{'; bit-equal required' if exact else ''}): bit-equal {equal}; "
+        f"two calls bit-identical {same}")
+    if not same:
+        fail(f"B2-bwd {label}: two calls gave different bits")
+    if exact and not equal:
+        fail(f"B2-bwd {label}: not the plain backward's bits on exact sums")
+    torch.testing.assert_close(grad.float(), ref.float(), **tol,
+                               msg=lambda m: f"B2-bwd {label}: {m}")
+    return err
+
+
+def check_b2_bwd_shapes(dev) -> None:
+    """B2-bwd against its plain backward: TestEmbeddingBag's shapes with
+    weights on exact sums (multiples of 1/16 times multiples of 1/4: bit
+    for bit) and on random float32 (within B2_TOL), pads and a negative
+    id, a bfloat16 gradient, and one row read by HOT_RUN ids (exact sums
+    bit for bit, random ones the CPU emulation's bits)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for v, d, b, l in B2_TEST_SHAPES:
+        idx = torch.randint(-2, v + 3, (b, l), generator=gen, device=dev)
+        dout = torch.randint(-16, 17, (b, d), generator=gen,
+                             device=dev).float() / 16
+        w = torch.randint(0, 5, (b, l), generator=gen, device=dev).float() / 4
+        check_b2_bwd(dout, idx, w, v, f"TestEmbeddingBag V={v} d={d} B={b} "
+                     f"L={l}, exact sums", B2_TOL, exact=True)
+        noisy = torch.randn((b, d), generator=gen, device=dev)
+        check_b2_bwd(noisy, idx.int(), torch.rand((b, l), generator=gen,
+                                                  device=dev),
+                     v, f"TestEmbeddingBag V={v} d={d} B={b} L={l}, random",
+                     B2_TOL)
+        check_b2_bwd(noisy.bfloat16(), idx, None, v, "bfloat16 gradient",
+                     B2_BF16_TOL)
+    v = 512
+    pads = torch.tensor([[0, 1, v, v], [2, v, v, v], [-1, 3, v, v + 88]],
+                        device=dev)
+    dout = torch.randn((3, 128), generator=gen, device=dev)
+    check_b2_bwd(dout, pads, None, v, "pad ids and a negative id", B2_TOL)
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_cuda
+    from repro_torch.kernels.embedding_bag import kernel as b2_kernel
+    grad = embedding_bag_bwd_cuda(dout, pads, None, v)
+    if not (torch.allclose(grad[0], dout[0] + dout[2], rtol=1e-6)
+            and torch.equal(grad[2], dout[1])
+            and not grad[torch.arange(4, v, device=dev)].any()):
+        fail("B2-bwd pads: not the reference's gradient (row 0 from the "
+             "negative id, nothing from the pads)")
+    # one row read by HOT_RUN ids (1,172 chunks): on exact sums (|sum| <
+    # 2**20 in steps of 1/16) bit for bit; on random values, whose float32
+    # sums of 300k terms differ by ~1e-2 between orders, the CPU
+    # emulation's bits
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_emulate
+    ids = torch.randint(0, 10 ** 6, (HOT_RUN + HOT_RUN // 2, 1),
+                        generator=gen, device=dev)
+    ids[:HOT_RUN] = 123_457
+    ids = ids[torch.randperm(ids.shape[0], generator=gen, device=dev)]
+    t0 = time.perf_counter()
+    dout = torch.randint(-16, 17, (ids.shape[0], 64), generator=gen,
+                         device=dev).float() / 16
+    label = f"one row read by {HOT_RUN} ids beside {HOT_RUN // 2} random ones"
+    check_b2_bwd(dout, ids, None, 10 ** 6, f"{label}, exact sums", B2_TOL,
+                 exact=True)
+    dout = torch.randn((ids.shape[0], 64), generator=gen, device=dev)
+    grad = embedding_bag_bwd_cuda(dout, ids, None, 10 ** 6)
+    again = embedding_bag_bwd_cuda(dout, ids, None, 10 ** 6)
+    emulated = embedding_bag_bwd_emulate(dout.cpu(), ids.cpu(), None, 10 ** 6,
+                                         b2_kernel.BWD_CHUNK)
+    same = torch.equal(grad, again)
+    bits = torch.equal(grad.cpu(), emulated)
+    log(f"B2-bwd {label}, random: two calls bit-identical {same}; the CPU "
+        f"emulation's bits {bits}; {time.perf_counter() - t0:.2f} s for the "
+        "hot-run checks")
+    if not (same and bits):
+        fail("B2-bwd hot run: calls differ, or not the emulation's bits")
+
+
+def b2_bwd_entry(dout, idx, num_rows, launches, err, card) -> dict:
+    """Time B2-bwd as the train step calls it (``embedding_bag_bwd_cuda``
+    on the step's dout and one-id bags), its plain version and a zeroed
+    (V, d) tensor with ``index_add_`` of the valid rows (a yardstick the
+    port never calls); its bound from this run's ids: each valid entry's
+    dout row and each id read once, the (V, d) gradient written once."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
+                                                   embedding_bag_bwd_ref,
+                                                   sorted_keys)
+    n, d = idx.numel(), dout.shape[1]
+    flat = idx.reshape(-1)
+    valid = flat < num_rows
+    rows = dout[valid]                  # one-id bags: entry i is bag i
+    keys = flat[valid].long().clamp_min(0)
+
+    def library_call():
+        return torch.zeros((num_rows, d), dtype=dout.dtype,
+                           device=dout.device).index_add_(0, keys, rows)
+    ms = time_ms(lambda: embedding_bag_bwd_cuda(dout, idx, None, num_rows),
+                 reps=5)
+    sort_ms = time_ms(lambda: sorted_keys(idx, num_rows), reps=5)
+    plain_ms = time_ms(lambda: embedding_bag_bwd_ref(dout, idx, None,
+                                                     num_rows), reps=2)
+    library_ms = time_ms(library_call, reps=5)
+    lib_gap = float((library_call() - embedding_bag_bwd_cuda(
+        dout, idx, None, num_rows)).abs().max())
+    n_valid = int(valid.sum())
+    distinct = int(torch.unique(keys).numel())
+    nbytes = (n_valid * d * dout.element_size() + n * idx.element_size()
+              + num_rows * d * dout.element_size())
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_valid * d / PEAK_F32_PER_S * 1e3     # one add an entry, column
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"B2-bwd at train_batch: {ms!r} ms (of which the stable sort of "
+        f"the keys {sort_ms!r} ms); bound {bound_ms!r} ms ({nbytes} B for "
+        f"{n} ids, {n_valid} valid, {distinct} distinct rows, the "
+        f"({num_rows}, {d}) gradient, at {PEAK_BYTES_PER_S / 1e12} TB/s); "
+        f"plain version {plain_ms!r} ms; zeros + index_add_ {library_ms!r} "
+        f"ms (max gap to B2-bwd {lib_gap!r}) ({card})")
+    return {
+        "name": "embedding_bag_bwd/train_batch",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "none: the reference's XLA autodiff of "
+                    "src/repro/models/recsys.py:45 lookup",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "sort_ms": sort_ms,
+    }
+
+
+def mind_train_phase(dev, card) -> list[dict]:
+    """Phase 14: MIND training at train_batch and full width. B2-bwd's
+    checks; MIND from ``init_mind`` (seed 0) at vocab 10M, Zipf histories
+    and targets at B 65,536, the reference cell's ``AdamW(lr=1e-3)``: one
+    step's table gradient through B2-bwd against its CPU emulation bit
+    for bit and the plain backward within each element's summation bound,
+    its nonzero rows the rows the ids read; 5
+    steps on one batch (loss finite and falling, B2 and B2-bwd once a
+    step); a step repeated from the same state bit for bit; times, peak
+    memory, a profiled step. Returns B2-bwd's entry of the kernels line."""
+    import torch
+    from repro_torch.configs import RECSYS_SHAPES, get
+    from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_emulate,
+                                                   embedding_bag_bwd_ref)
+    from repro_torch.kernels.embedding_bag import kernel as b2
+    from repro_torch.kernels.embedding_bag import ops as b2_ops
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import _host_metrics
+    t_phase = time.perf_counter()
+    check_b2_bwd_shapes(dev)
+    cfg = get(MIND_ARCH)
+    b = {s.name: s for s in RECSYS_SHAPES}["train_batch"].global_batch
+    model = recsys.init_mind(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    hist = histories(rng, b, cfg)
+    target = zipf_ids(rng, (b,), cfg.vocab)
+    ids = np.concatenate([hist.reshape(-1), target])
+    kept = ids[ids < cfg.vocab]
+    _, counts = np.unique(kept, return_counts=True)
+    log(f"mind-train: {cfg.name} at vocab {cfg.vocab}, d {cfg.embed_dim}, "
+        f"K {cfg.n_interests}, {cfg.capsule_iters} routing iterations, "
+        f"hist_len {cfg.hist_len}; train_batch B {b}: {ids.size} lookups, "
+        f"{kept.size} valid, {counts.size} distinct rows, the hottest read "
+        f"{counts.max()} times, {int((counts >= 1000).sum())} rows >= 1000 "
+        f"times")
+    batch = {"hist": torch.from_numpy(hist).to(dev),
+             "target": torch.from_numpy(target).to(dev)}
+    opt = AdamW(lr=MIND_TRAIN_LR)
+    state = opt.init(model)
+    step = recsys.make_train_step(cfg, opt)
+
+    # ---------------- the table's gradient: B2-bwd against the plain one
+    recorded = {}
+    real_bwd = b2_ops.embedding_bag_bwd_cuda
+
+    def recording(dout, idx, w, v):
+        recorded.update(dout=dout, idx=idx, v=v)
+        return real_bwd(dout, idx, w, v)
+    b2_ops.embedding_bag_bwd_cuda = recording
+    try:
+        with model.trainable():
+            loss = recsys.mind_loss(model, cfg, batch)
+            g_table, = torch.autograd.grad(loss, model.table)
+    finally:
+        b2_ops.embedding_bag_bwd_cuda = real_bwd
+    dout, idx = recorded["dout"], recorded["idx"]
+    # dout's entries are ~|user| / B (a mean over B users), most of them
+    # far below B2_TOL's atol, so the gradient is held to the kernel's own
+    # bits (its CPU emulation), to the plain backward within each
+    # element's float32 summation bound (2 (n - 1) u sum |terms| for two
+    # orders of a row's n terms, exact for a row of one), and its nonzero
+    # rows to the distinct rows the step's ids read
+    t0 = time.perf_counter()
+    emulated = embedding_bag_bwd_emulate(dout.cpu(), idx.cpu(), None,
+                                         cfg.vocab, b2.BWD_CHUNK)
+    bits = torch.equal(g_table.cpu(), emulated)
+    del emulated
+    emulate_s = time.perf_counter() - t0
+    want = embedding_bag_bwd_ref(dout, idx, None, cfg.vocab)
+    absum = embedding_bag_bwd_ref(dout.abs(), idx, None, cfg.vocab)
+    flat = idx.reshape(-1).long()
+    rows_read = flat[flat < cfg.vocab].clamp_min(0)
+    counts = torch.bincount(rows_read, minlength=cfg.vocab)
+    bound = absum.mul_((2 * (counts - 1).clamp_min(0)
+                        * 2.0 ** -24)[:, None].float())
+    gap = (g_table - want).abs()
+    grad_err = float(gap.max())
+    over = int((gap > bound).sum())
+    distinct = int(torch.unique(rows_read).numel())
+    nonzero = int((g_table.abs().sum(1) > 0).sum())
+    torch.cuda.synchronize()
+    log(f"mind-train table gradient (one step, loss "
+        f"{float(loss.detach())!r}): B2-bwd against its CPU emulation "
+        f"bit-equal {bits} ({emulate_s:.2f} s); against the plain backward "
+        f"(index_add_ on the card) max_abs_err={grad_err!r}, elements past "
+        f"their summation bound {over} (largest bound "
+        f"{float(bound.max())!r}); max |grad| {float(want.abs().max())!r}; "
+        f"rows with a nonzero gradient {nonzero}, distinct rows read "
+        f"{distinct}")
+    if not bits:
+        fail("MIND table gradient: not the bits of B2-bwd's CPU emulation")
+    if over:
+        fail(f"MIND table gradient: {over} elements differ from the plain "
+             "backward by more than their float32 summation bound")
+    if nonzero != distinct:
+        fail(f"MIND table gradient: {nonzero} nonzero rows, but the step's "
+             f"ids read {distinct} distinct rows")
+    del absum, bound, gap, counts, rows_read, flat
+    del want, g_table, loss
+
+    # ---------------- the main path: 5 steps on one batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b2.launch_count = b2.bwd_launch_count = 0
+    history, times = [], []
+    for _ in range(MIND_TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model, state, metrics = step(model, state, batch)
+        end.record()
+        history.append(_host_metrics(metrics))     # one host read a step
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = (b2.launch_count, b2.bwd_launch_count)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in history]
+    ms = float(np.mean(times[1:]))
+    log(f"main path (MIND training): {MIND_TRAIN_STEPS} steps at B {b}: "
+        + "; ".join(f"step {i + 1} loss {m['loss']!r}, gnorm "
+                    f"{m['gnorm']!r}, {t:.2f} ms"
+                    for i, (m, t) in enumerate(zip(history, times)))
+        + f"; B2 launches {launches[0]}, B2-bwd {launches[1]} (expected "
+        f"{MIND_TRAIN_STEPS} each)")
+    if launches != (MIND_TRAIN_STEPS, MIND_TRAIN_STEPS):
+        fail("MIND training: B2 or B2-bwd not launched once a step")
+    if not all(np.isfinite(v) for m in history for v in m.values()):
+        fail("MIND training: a loss or gnorm is not finite")
+    if not losses[-1] < losses[0]:
+        fail("MIND training: the loss did not fall over 5 steps")
+    log(f"time MIND training step (B {b}, CUDA events, steps 2-"
+        f"{MIND_TRAIN_STEPS}): {ms!r} ms, {b / ms * 1e3!r} users/s; peak "
+        f"device memory {peak} B ({card})")
+
+    # ---------------- a step repeated from the same state, bit for bit
+    saved = ([p.detach().clone() for p in model.parameters()],
+             {k: t.clone() for k, t in state.mu.items()},
+             {k: t.clone() for k, t in state.nu.items()}, state.step.clone())
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), saved[0]):
+                p.copy_(s)
+        for k in state.mu:
+            state.mu[k].copy_(saved[1][k])
+            state.nu[k].copy_(saved[2][k])
+        return type(state)(saved[3].clone(), state.mu, state.nu)
+    model, state, m1 = step(model, state, batch)
+    first = [p.detach().clone() for p in model.parameters()]
+    state = restore()
+    model, state, m2 = step(model, state, batch)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, p) for a, p in zip(first, model.parameters()))
+    log(f"mind-train repeated step: parameters bit-identical {same}; loss "
+        f"{float(m1['loss'])!r} vs {float(m2['loss'])!r}")
+    if not same or not torch.equal(m1["loss"], m2["loss"]):
+        fail("MIND training: a step repeated from the same state gave "
+             "other bits")
+    del saved, first
+
+    # ---------------- a profiled step, then B2-bwd alone
+    profile_steps(lambda: step(model, state, batch), "MIND training step",
+                  card, names={"B2": ("embedding_bag_kernel",),
+                               "B2-bwd": B2_BWD_KERNELS}, steps=2)
+    torch.cuda.empty_cache()
+    entry = b2_bwd_entry(dout, idx, cfg.vocab, launches[1], grad_err, card)
+    entry["train_step_ms"] = ms
+    log(f"phase 14 (MIND training): {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return [entry]
+
+
+class PhaseClock:
+    """Wall seconds of each phase of ``main``: ``done(name)`` logs the
+    seconds since the last mark, ``summary()`` all of them."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
+        log(f"phase {name} ended: {self.seconds[name]} s of wall time")
+
+    def summary(self) -> None:
+        log(f"phase seconds: {self.seconds}; in all "
+            f"{time.perf_counter() - self.t0:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4406,6 +4777,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    clock = PhaseClock()
     card = card_line()
     log(f"card: {card} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})")
@@ -4417,27 +4789,35 @@ def main() -> None:
             f"{built.seconds:.2f} s")
         for name, props in ptxas_report(built.log):
             log(f"  ptxas {name}: {props}")
+    clock.done("1 (build)")
 
     # ---------------------------------------------------- 2. B1 checks
     check_b1_test_shapes(dev)
+    clock.done("2 (B1 checks)")
     # ---------------------------------------------------- 3-4. PageRank
     tile_entry, warp_timed, reuse = pagerank_phases(dev, card)
     torch.cuda.empty_cache()
+    clock.done("3-4 (PageRank)")
     # ---------------------------------------------------- 5. PageRank serving
     kernels = [tile_entry, serving_phase(dev, card, reuse, warp_timed)]
     torch.cuda.empty_cache()
+    clock.done("5 (PageRank serving)")
     # ---------------------------------------------------- 6. streaming
     streamed = streaming_phase(dev, card, reuse, *kernels)
     torch.cuda.empty_cache()
+    clock.done("6 (streaming)")
     # ---------------------------------------------------- 6b. reliability
     reliability_phase(dev, card, reuse, streamed, *kernels)
     torch.cuda.empty_cache()
+    clock.done("6b (reliability)")
     # ---------------------------------------------------- 6c. ingest
     ingest_phase(dev, card, *kernels)
     torch.cuda.empty_cache()
+    clock.done("6c (ingest)")
     # ---------------------------------------------------- 7. the gateway
     gateway_phase(dev, card, reuse, streamed, *kernels)
     torch.cuda.empty_cache()
+    clock.done("7 (gateway)")
     # ---------------------------------------------------- 7b. sharded
     sharded_phase(dev, card, reuse)
     # the version chain's cached plans (host arrays, and the first graph's
@@ -4446,24 +4826,33 @@ def main() -> None:
     evict_plans(reuse["g"])
     del streamed, reuse
     torch.cuda.empty_cache()
+    clock.done("7b (sharded)")
     # ---------------------------------------------------- 8. B3 checks
     b3_cases = check_b3_shapes(dev)
+    clock.done("8 (B3 checks)")
     # ---------------------------------------------------- 9-10. LM serving
     kernels += lm_phases(dev, card, b3_cases)
     torch.cuda.empty_cache()
+    clock.done("9-10 (LM serving)")
     # ---------------------------------------------------- 10b. MoE, SWA LMs
     kernels += moe_phases(dev, card, b3_cases)
     del b3_cases
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    clock.done("10b (MoE and SWA)")
     # ---------------------------------------------------- 11. B2 checks
     check_b2_shapes(dev)
     # ---------------------------------------------------- 11-12. MIND serving
     kernels += mind_phases(dev, card)
-    log(f"phases 11-12 (B2, MIND serving): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    clock.done("11-12 (B2, MIND serving)")
     # ---------------------------------------------------- 13. LM training
     kernels += train_phase(dev, card, check_b3_bwd_shapes(dev))
+    torch.cuda.empty_cache()
+    clock.done("13 (LM training)")
+    # ---------------------------------------------------- 14. MIND training
+    kernels += mind_train_phase(dev, card)
+    clock.done("14 (MIND training)")
+    clock.summary()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

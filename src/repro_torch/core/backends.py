@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..graphs.formats import Graph
+from ..graphs.formats import Graph, lexsort_order, lexsorted
 from .partition import Partitioning
 from .plan import GraphPlan, PlanConfig, shared_png
 from .png import (GatherSchedule, block_png, build_gather_schedule,
@@ -298,8 +298,7 @@ def pdpr_schedule(csc_src: np.ndarray, csc_dst: np.ndarray, *,
 
 
 def _build_pdpr(g: Graph, cfg: PlanConfig) -> GraphPlan:
-    order = np.lexsort((g.src, g.dst))
-    src, dst = g.src[order], g.dst[order]
+    dst, src = lexsorted(g.dst, g.src)
     return GraphPlan(csc_src=src, csc_dst=dst,
                      schedule=pdpr_schedule(src, dst,
                                             num_nodes=g.num_nodes,
@@ -334,7 +333,7 @@ def bvgas_schedule(bv_dst: np.ndarray, *, num_nodes: int,
     stream is the permutation putting the dst-partition-major bins in
     destination order (bins are written in scatter order and read in
     gather order, exactly the paper's bin round-trip)."""
-    gorder = np.argsort(bv_dst, kind="stable").astype(np.int32)
+    gorder = lexsort_order(bv_dst).astype(np.int32)
     eui, starts, ends, pdst = flat_gather_schedule(
         gorder, bv_dst[gorder], num_nodes=num_nodes, block=block)
     return GatherSchedule(block, len(bv_dst), eui, starts, ends, pdst)
@@ -342,9 +341,8 @@ def bvgas_schedule(bv_dst: np.ndarray, *, num_nodes: int,
 
 def _build_bvgas(g: Graph, cfg: PlanConfig) -> GraphPlan:
     dstp = g.dst.astype(np.int64) // cfg.part_size
-    order = np.lexsort((g.dst, g.src, dstp))
-    dst = g.dst[order]
-    return GraphPlan(bv_src=g.src[order], bv_dst=dst,
+    _, src, dst = lexsorted(dstp, g.src, g.dst)
+    return GraphPlan(bv_src=src, bv_dst=dst,
                      schedule=bvgas_schedule(dst, num_nodes=g.num_nodes,
                                              block=cfg.gather_block),
                      **_plan_fields(g, cfg))

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..graphs.formats import Graph
+from ..graphs.formats import Graph, lexsort_order
 from .png import flat_gather_schedule
 from .spmv import _segment_sum, pcpm_gather_blocked
 
@@ -123,7 +123,7 @@ def build_sharded_png(g: Graph, num_shards: int, *,
     d_sh = dst // shard_size
 
     # --- dedup (src, dst_shard) pairs, grouped by (src_shard, dst_shard)
-    order = np.lexsort((src, s_sh, d_sh))
+    order = lexsort_order(d_sh, s_sh, src)
     src_o, dst_o, ssh_o, dsh_o = (src[order], dst[order], s_sh[order],
                                   d_sh[order])
     pair_key = (dsh_o * num_shards + ssh_o) * g.num_nodes + src_o
@@ -162,7 +162,7 @@ def build_sharded_png(g: Graph, num_shards: int, *,
     # re-sort the gather stream by destination within each shard, so the
     # shard-local gather can use the blocked run reduction; edge_slot
     # still points at the same receive slots
-    gorder = np.lexsort((dst_o, dsh_o))
+    gorder = lexsort_order(dsh_o, dst_o)
     dsh_g = dsh_o[gorder]
     dst_g = dst_o[gorder]
     slot_g = edge_slot[gorder]

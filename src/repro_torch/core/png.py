@@ -33,7 +33,7 @@ import dataclasses
 
 import numpy as np
 
-from ..graphs.formats import Graph
+from ..graphs.formats import Graph, lexsort_order, lexsorted
 from .partition import Partitioning
 
 
@@ -78,10 +78,7 @@ def build_png(g: Graph, part: Partitioning) -> PNGLayout:
     dstp = (g.dst.astype(np.int64) // part.part_size)
     # Scan 1: sort edges by (dst_partition, src, dst) — the transposed,
     # destination-partition-major order the scatter phase streams in.
-    order = np.lexsort((g.dst, g.src, dstp))
-    src_s = g.src[order]
-    dst_s = g.dst[order]
-    dstp_s = dstp[order]
+    dstp_s, src_s, dst_s = lexsorted(dstp, g.src, g.dst)
     # Scan 2: dedup (dst_partition, src) pairs → the update stream.
     pair_key = dstp_s * np.int64(g.num_nodes) + src_s
     # pair_key is already sorted (lexsort above) → run-length dedup.
@@ -105,7 +102,7 @@ def build_png(g: Graph, part: Partitioning) -> PNGLayout:
     # stay grouped by destination partition (partition = dst // psz is
     # monotone in dst) and edge_offsets remain valid; edge_update_idx
     # still points at the same (unchanged) update stream.
-    gorder = np.argsort(dst_s, kind="stable")
+    gorder = lexsort_order(dst_s)
 
     return PNGLayout(part, update_src, update_offsets,
                      edge_update_idx[gorder],

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..device import as_device_tensor, resolve_device
-from ..graphs.formats import Graph
+from ..graphs.formats import Graph, lexsorted
 from .partition import Partitioning
 from .png import PNGLayout, build_gather_schedule, build_png
 
@@ -49,9 +49,8 @@ class DeviceCSC:
     @staticmethod
     def build(g: Graph, *, device=None) -> "DeviceCSC":
         dev = resolve_device(device)
-        order = np.lexsort((g.src, g.dst))
-        return DeviceCSC(g.num_nodes, _upload(g.src[order], dev),
-                         _upload(g.dst[order], dev))
+        dst, src = lexsorted(g.dst, g.src)
+        return DeviceCSC(g.num_nodes, _upload(src, dev), _upload(dst, dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +66,8 @@ class DeviceBVGAS:
               device=None) -> "DeviceBVGAS":
         dev = resolve_device(device)
         dstp = g.dst.astype(np.int64) // part.part_size
-        order = np.lexsort((g.dst, g.src, dstp))
-        return DeviceBVGAS(g.num_nodes, _upload(g.src[order], dev),
-                           _upload(g.dst[order], dev))
+        _, src, dst = lexsorted(dstp, g.src, g.dst)
+        return DeviceBVGAS(g.num_nodes, _upload(src, dev), _upload(dst, dev))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-// Sum-mode embedding bag (kernel B2) for NVIDIA Hopper (sm_90a).
+// Sum-mode embedding bag (kernel B2) for NVIDIA Hopper (sm_90a), and its
+// backward B2-bwd (the second half of the file, with its own note).
 //
 // Replaces the JAX package's Pallas TPU kernel
 // src/repro/kernels/embedding_bag/kernel.py::embedding_bag_pallas.
@@ -185,6 +186,295 @@ cudaError_t launch(const long long* a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------- backward
+// B2-bwd: the gradient of the bag sums with respect to the table.
+//
+//   grad[r, :] = sum over the entries (b, l) with clip(idx[b, l]) == r and
+//                idx[b, l] < V of w[b, l] * dout[b, :];  zero elsewhere
+//
+// Replaces no TPU kernel: the JAX package differentiates its XLA lookup
+// (take + clip + mask). MIND's training step needs it for every table
+// gradient, dense in (V, d) as the reference's optimizer reads it.
+//
+// Bound: bytes. A call must read each valid entry's dout row once, each id
+// once, and write the (V, d) gradient once; at MIND's train_batch the
+// gradient (2.56 GB) dominates.
+//
+// Design: deterministic, no float atomics. The wrapper sorts the entries
+// stably by key (the row an entry reads; pads get the key V and sort
+// last), so each row's entries form one run, in entry order. Then:
+//   - bwd_chunk_kernel: one group of threads (kernel.py::geometry) walks
+//     one fixed-size chunk of the sorted stream with a float32
+//     accumulator per 16-byte column chunk, w * dout rounded before the
+//     add (__fmul_rn, __fadd_rn: the CPU emulation's bits). A run that
+//     lies inside the chunk is written to its row directly; a run that
+//     crosses chunk edges leaves a partial: the chunk's first run, when it
+//     began in an earlier chunk, in the chunk's "head" slot, and its last
+//     run, when it goes on into the next chunk, in its "tail" slot. Every
+//     row it sees gets its `present` byte set.
+//   - bwd_combine_kernel: the chunk whose tail starts a crossing run adds
+//     the following chunks' head partials to it in chunk order (eight
+//     loads in flight at a time) and writes the row. A row of 300k entries
+//     at chunk 256 is 1,172 chunks summed in parallel, then 1,171 adds.
+//   - bwd_zero_kernel: writes zeros to every row whose `present` byte is
+//     unset, so each gradient row is written once.
+// The same inputs give the same bits on every call: no step depends on
+// the order in which blocks run.
+
+// one float32 chunk of kVec columns at c0 (elementwise: partials are
+// float32 whatever T is, and their rows need not be 16-byte aligned)
+template <int kVec>
+__device__ __forceinline__ void store_f32(float* p, const float* v, int c0,
+                                          int d) {
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    if (c0 + j < d) p[j] = v[j];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void write_chunk(T* p, const float* v, int c0,
+                                            int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (c0 + kVec <= d && aligned16(p)) {
+    store16(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (c0 + j < d) store_one(p + j, v[j]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void read_chunk(const T* p, float* v, int c0,
+                                           int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (c0 + kVec <= d && aligned16(p)) {
+    load16(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      v[j] = c0 + j < d ? to_float(p[j]) : 0.0f;
+    }
+  }
+}
+
+// the group and chunk of a thread: false when its slot holds no chunk
+struct Slot {
+  long long c;    // chunk (or row, for the zero kernel)
+  int t;          // thread within the group
+};
+
+__device__ __forceinline__ bool slot_of(int group, Slot* s) {
+  const int per_block = kThreads / group;
+  const int slot = threadIdx.x / group;
+  if (slot >= per_block) return false;
+  s->t = threadIdx.x - slot * group;
+  s->c = (long long)blockIdx.x * per_block + slot;
+  return true;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_chunk_kernel(const T* __restrict__ dout, const int* __restrict__ keys,
+                 const long long* __restrict__ perm,
+                 const float* __restrict__ w, long long L, long long n,
+                 long long V, int d, int group, int chunk,
+                 T* __restrict__ grad, unsigned char* __restrict__ present,
+                 float* __restrict__ partials) {
+  constexpr int kVec = 16 / sizeof(T);
+  Slot sl;
+  if (!slot_of(group, &sl)) return;
+  const long long s = sl.c * chunk;
+  if (s >= n) return;
+  const long long e_end = min(s + (long long)chunk, n);
+  const int first = keys[s];
+  if (first >= V) return;                    // pads only: they sort last
+  const bool head_continues = s > 0 && keys[s - 1] == first;
+  const int last = keys[e_end - 1];
+  const bool tail_continues = last < V && e_end < n && keys[e_end] == last;
+  float* head = partials + sl.c * 2 * (long long)d;
+  float* tail = head + d;
+
+  for (int c0 = sl.t * kVec; c0 < d; c0 += group * kVec) {
+    const bool mark = c0 == sl.t * kVec && sl.t == 0;
+    float acc[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
+    int run_key = first;
+    long long run_start = s;
+    long long e = s;
+    for (; e < e_end; ++e) {
+      const int k = keys[e];
+      if (k >= V) break;
+      if (k != run_key) {                    // the run [run_start, e) ends
+        if (run_start == s && head_continues) {
+          store_f32<kVec>(head + c0, acc, c0, d);
+        } else {
+          write_chunk(grad + (long long)run_key * d + c0, acc, c0, d);
+        }
+        if (mark) present[run_key] = 1;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
+        run_key = k;
+        run_start = e;
+      }
+      const long long p = perm[e];
+      float v[kVec];
+      read_chunk(dout + (p / L) * d + c0, v, c0, d);
+      if (w != nullptr) {
+        const float wt = w[p];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(wt, v[j]));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], v[j]);
+      }
+    }
+    // the last run, [run_start, e)
+    if (run_start == s && head_continues) {
+      store_f32<kVec>(head + c0, acc, c0, d);
+    } else if (e == e_end && tail_continues) {
+      store_f32<kVec>(tail + c0, acc, c0, d);
+    } else {
+      write_chunk(grad + (long long)run_key * d + c0, acc, c0, d);
+    }
+    if (mark) present[run_key] = 1;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_combine_kernel(const int* __restrict__ keys, long long n, long long V,
+                   int d, int group, int chunk,
+                   const float* __restrict__ partials, T* __restrict__ grad) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kAhead = 8;
+  Slot sl;
+  if (!slot_of(group, &sl)) return;
+  const long long s = sl.c * chunk;
+  if (s >= n) return;
+  const long long e_end = min(s + (long long)chunk, n);
+  const int last = keys[e_end - 1];
+  if (last >= V || e_end >= n || keys[e_end] != last) return;
+  // a chunk that is one piece of a run begun earlier holds a head partial
+  if (s > 0 && keys[s] == last && keys[s - 1] == last) return;
+  const long long n_chunks = (n + chunk - 1) / chunk;
+  const long long stride = 2 * (long long)d;
+  for (int c0 = sl.t * kVec; c0 < d; c0 += group * kVec) {
+    float acc[kVec];
+    const float* tail = partials + sl.c * stride + d + c0;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[j] = c0 + j < d ? tail[j] : 0.0f;
+    long long k = sl.c + 1;
+    bool go = true;
+    while (go) {
+      float v[kAhead][kVec];
+      bool more[kAhead];
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a) {
+        const long long kk = k + a;
+        const bool in = kk < n_chunks;
+        const float* head = partials + kk * stride + c0;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          v[a][j] = in && c0 + j < d ? head[j] : 0.0f;
+        }
+        const long long end = min((kk + 1) * chunk, n);
+        more[a] = in && end < n && keys[end] == last;
+      }
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a) {
+        if (go) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], v[a][j]);
+          go = more[a];
+        }
+      }
+      k += kAhead;
+    }
+    write_chunk(grad + (long long)last * d + c0, acc, c0, d);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_zero_kernel(const unsigned char* __restrict__ present, long long V,
+                int d, int group, T* __restrict__ grad) {
+  constexpr int kVec = 16 / sizeof(T);
+  Slot sl;
+  if (!slot_of(group, &sl)) return;
+  const long long rows_per_grid = (long long)gridDim.x * (kThreads / group);
+  float zero[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) zero[j] = 0.0f;
+  for (long long r = sl.c; r < V; r += rows_per_grid) {
+    if (present[r]) continue;
+    for (int c0 = sl.t * kVec; c0 < d; c0 += group * kVec) {
+      write_chunk(grad + r * d + c0, zero, c0, d);
+    }
+  }
+}
+
+// The backward launch's arguments, packed as int64 by
+// kernel.py::bwd_launch_args in this order.
+enum BwdArg {
+  kBTableBf16,  // 0 float32, 1 bfloat16: dout's and grad's dtype
+  kBDout,       // (B, d) contiguous
+  kBKeys,       // (n,) int32 sorted keys, pads = V
+  kBPerm,       // (n,) int64 entry positions b * L + l
+  kBW,          // (B, L) float32 contiguous, or 0 for ones
+  kBL,
+  kBN,          // entries: B * L
+  kBV,
+  kBD,
+  kBGrad,       // (V, d) contiguous
+  kBPresent,    // (V,) uint8, zeroed
+  kBPartials,   // (chunks, 2, d) float32
+  kBChunk,      // entries per chunk
+  kBGroup,      // threads per chunk or row (kernel.py::geometry)
+  kBChunkBlocks,
+  kBZeroBlocks,
+  kBNumArgs
+};
+
+template <typename T>
+cudaError_t launch_bwd(const long long* a, cudaStream_t stream) {
+  const long long n = a[kBN], V = a[kBV];
+  const int d = (int)a[kBD], group = (int)a[kBGroup];
+  const int chunk = (int)a[kBChunk];
+  const long long cb = a[kBChunkBlocks], zb = a[kBZeroBlocks];
+  if (V <= 0 || d <= 0) return cudaSuccess;
+  if (group < 1 || group > kThreads || chunk < 1 || zb < 1 ||
+      zb > 0x7fffffffLL || cb > 0x7fffffffLL || (n > 0 && cb < 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const int* keys = reinterpret_cast<const int*>(a[kBKeys]);
+  float* partials = reinterpret_cast<float*>(a[kBPartials]);
+  T* grad = reinterpret_cast<T*>(a[kBGrad]);
+  unsigned char* present = reinterpret_cast<unsigned char*>(a[kBPresent]);
+  if (n > 0) {
+    bwd_chunk_kernel<T><<<(unsigned)cb, kThreads, 0, stream>>>(
+        reinterpret_cast<const T*>(a[kBDout]), keys,
+        reinterpret_cast<const long long*>(a[kBPerm]),
+        reinterpret_cast<const float*>(a[kBW]), a[kBL], n, V, d, group,
+        chunk, grad, present, partials);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    bwd_combine_kernel<T><<<(unsigned)cb, kThreads, 0, stream>>>(
+        keys, n, V, d, group, chunk, partials, grad);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  bwd_zero_kernel<T><<<(unsigned)zb, kThreads, 0, stream>>>(present, V, d,
+                                                             group, grad);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -202,6 +492,15 @@ int embedding_bag_fwd(const long long* a, void* stream) {
                     : launch<float, int>(a, s);
   }
   return (int)err;
+}
+
+// a: kBNumArgs int64 values in the order of enum BwdArg. Launches the
+// chunk, combine and zero kernels in that order on `stream`; returns the
+// first cudaError_t that is not cudaSuccess.
+int embedding_bag_bwd(const long long* a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(a[kBTableBf16] ? launch_bwd<__nv_bfloat16>(a, s)
+                              : launch_bwd<float>(a, s));
 }
 
 }  // extern "C"

@@ -14,6 +14,64 @@ import numpy as np
 import torch
 
 
+def _packed_keys(cols, spare: int = 0
+                 ) -> tuple[np.ndarray, list[int]] | None:
+    """``cols`` (primary first) packed into one int64 key per row, each
+    column in the bits its largest value needs, ``spare`` low bits left
+    free; None when a column holds a negative value or the bits exceed
+    63."""
+    bits = []
+    for col in cols:
+        if len(col) and int(col.min()) < 0:
+            return None
+        bits.append(int(col.max(initial=0)).bit_length())
+    if sum(bits) + spare > 63:
+        return None
+    key = np.zeros(len(cols[0]), dtype=np.int64)
+    for col, nb in zip(cols, bits):
+        key <<= nb
+        key |= col.astype(np.int64, copy=False)
+    return key, bits
+
+
+def lexsort_order(*cols: np.ndarray) -> np.ndarray:
+    """The permutation ``np.lexsort(cols[::-1])`` gives (rows by
+    ``cols[0]``, then ``cols[1]``, ..., equal rows in input order). Where
+    the rows and their positions fit in 63 bits, each row is packed into
+    an int64 key with its position in the low bits: the keys are
+    distinct, so one unstable sort of the keys themselves gives the
+    order (``tools/host_sort_ab.py`` times it against ``np.lexsort`` and
+    a stable argsort of the packed rows); else ``np.lexsort``."""
+    pos_bits = max(len(cols[0]) - 1, 0).bit_length()
+    packed = _packed_keys(cols, pos_bits)
+    if packed is None:
+        return np.lexsort(cols[::-1])
+    key, _ = packed
+    key <<= pos_bits
+    key |= np.arange(len(key), dtype=np.int64)
+    key.sort()
+    return key & ((1 << pos_bits) - 1)
+
+
+def lexsorted(*cols: np.ndarray) -> tuple[np.ndarray, ...]:
+    """The columns gathered in ``lexsort_order(*cols)``, each in its own
+    dtype, for callers that need only the sorted values: the packed keys
+    are sorted themselves (the order of equal rows cannot show), then
+    unpacked. At 65M edges this is one sort of the keys in place of
+    ``np.lexsort``'s three stable passes and three gathers."""
+    packed = _packed_keys(cols)
+    if packed is None:
+        order = np.lexsort(cols[::-1])
+        return tuple(col[order] for col in cols)
+    key, bits = packed
+    key.sort()
+    out, shift = [], sum(bits)
+    for col, nb in zip(cols, bits):
+        shift -= nb
+        out.append(((key >> shift) & ((1 << nb) - 1)).astype(col.dtype))
+    return tuple(out)
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """Directed graph in COO form with lazily-built CSR/CSC views.
@@ -55,27 +113,22 @@ class Graph:
     # ---------------------------------------------------------------- CSR
     @cached_property
     def csr(self) -> tuple[np.ndarray, np.ndarray]:
-        """(offsets[n+1], indices[m]) with edges sorted by src then dst.
-        One sort of the int64 keys ``src·n + dst`` gives the indices the
-        JAX package's ``lexsort`` gives, an order of magnitude sooner (a
-        streamed graph builds it once per version: the warm update's
-        residual seed reads it)."""
+        """(offsets[n+1], indices[m]) with edges sorted by src then dst:
+        the indices the JAX package's ``lexsort`` gives, an order of
+        magnitude sooner (``lexsorted``; a streamed graph builds it once
+        per version: the warm update's residual seed reads it)."""
         offsets = np.zeros(self.num_nodes + 1, dtype=np.int64)
         np.add.at(offsets, self.src + 1, 1)
         np.cumsum(offsets, out=offsets)
-        n = np.int64(self.num_nodes)
-        keys = self.src.astype(np.int64) * n + self.dst
-        keys.sort()
-        return offsets, (keys % n).astype(np.int32)
+        return offsets, lexsorted(self.src, self.dst)[1].astype(np.int32)
 
     @cached_property
     def csc(self) -> tuple[np.ndarray, np.ndarray]:
         """(offsets[n+1], indices[m]) with edges sorted by dst then src."""
-        order = np.lexsort((self.src, self.dst))
         offsets = np.zeros(self.num_nodes + 1, dtype=np.int64)
         np.add.at(offsets, self.dst + 1, 1)
         np.cumsum(offsets, out=offsets)
-        return offsets, self.src[order].astype(np.int32)
+        return offsets, lexsorted(self.dst, self.src)[1].astype(np.int32)
 
     @cached_property
     def out_degree(self) -> np.ndarray:

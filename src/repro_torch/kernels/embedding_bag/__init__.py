@@ -1,8 +1,11 @@
-from .kernel import (embedding_bag_cuda, embedding_lookup_cuda, geometry,
-                     load_library)
-from .ops import embedding_bag, embedding_lookup
-from .ref import embedding_bag_ref
+from .kernel import (embedding_bag_bwd_cuda, embedding_bag_cuda,
+                     embedding_lookup_cuda, geometry, load_library)
+from .ops import EmbeddingBag, embedding_bag, embedding_lookup
+from .ref import (embedding_bag_bwd_emulate, embedding_bag_bwd_ref,
+                  embedding_bag_ref, sorted_keys)
 
-__all__ = ["embedding_bag", "embedding_bag_cuda", "embedding_bag_ref",
-           "embedding_lookup", "embedding_lookup_cuda", "geometry",
-           "load_library"]
+__all__ = ["EmbeddingBag", "embedding_bag", "embedding_bag_bwd_cuda",
+           "embedding_bag_bwd_emulate", "embedding_bag_bwd_ref",
+           "embedding_bag_cuda", "embedding_bag_ref", "embedding_lookup",
+           "embedding_lookup_cuda", "geometry", "load_library",
+           "sorted_keys"]

@@ -21,6 +21,17 @@ gives the rest.
 ``embedding_bag_cuda`` launches the kernel for CUDA tensors and raises on
 what it cannot take; for CPU tensors it computes the plain version
 (``ref.embedding_bag_ref``). There is no other fallback.
+
+``embedding_bag_bwd_cuda`` is the backward, B2-bwd (the same source's
+``embedding_bag_bwd``; it replaces no TPU kernel): the (V, d) gradient of
+the table, dense, summed deterministically without float atomics. The
+entries are sorted stably by the row they read (``ref.sorted_keys``, a
+``torch.sort``); one C call then runs three kernels: fixed chunks of
+``BWD_CHUNK`` sorted entries, each run of one row summed in entry order
+and written directly when it lies inside its chunk, else left as
+per-chunk partials; a combine of those partials in chunk order; and
+zeros for every row no entry reads. ``ref.embedding_bag_bwd_emulate``
+replays that order on the CPU with the kernel's bits.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ import ctypes
 import torch
 
 from .. import _build, _launch
-from .ref import embedding_bag_ref
+from .ref import embedding_bag_bwd_ref, embedding_bag_ref, sorted_keys
 
 SOURCE = _build.CSRC / "embedding_bag.cu"
 THREADS = 256             # threads per block: kThreads in the source
@@ -39,10 +50,23 @@ ID_DTYPES = (torch.int32, torch.int64)
 ARGS = _launch.Args("table_bf16", "idx_64", "table", "V", "ld", "idx",
                     "idx_sb", "idx_sl", "w", "w_sb", "w_sl", "out", "B", "L",
                     "d", "group", "blocks")
+# the backward's, in the order of ``enum BwdArg``
+BWD_ARGS = _launch.Args("table_bf16", "dout", "keys", "perm", "w", "L", "N",
+                        "V", "d", "grad", "present", "partials", "chunk",
+                        "group", "chunk_blocks", "zero_blocks")
+# sorted entries per chunk of the backward: a row read by more entries
+# is summed over several chunks, then combined
+BWD_CHUNK = 256
+# the zero kernel's grid (it strides over the rows): 32 blocks of
+# kThreads an SM of the H100's 132
+ZERO_BLOCKS = 132 * 32
 
 # Kernel launches made by ``embedding_bag_cuda`` in this process (CPU
 # calls of the plain version do not count). Reset it by assigning 0.
 launch_count = 0
+# Calls of the backward that launched it (chunk, combine and zero kernels
+# in one C call count once), likewise.
+bwd_launch_count = 0
 # What the last build did: seconds spent in nvcc (0.0 when the library
 # was already built) and the compiler's report (registers, spills).
 build_seconds = 0.0
@@ -61,6 +85,8 @@ def load_library() -> ctypes.CDLL:
     build_seconds, build_log = built.seconds, built.log
     lib.embedding_bag_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.embedding_bag_fwd.restype = ctypes.c_int
+    lib.embedding_bag_bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.embedding_bag_bwd.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -197,3 +223,72 @@ def embedding_lookup_cuda(table: torch.Tensor,
         ids = ids.contiguous()
     out = table.new_empty((*ids.shape, d))
     return _launch_bags(table, ids, (ids.numel(), 1), (1, 0), None, out)
+
+
+def bwd_launch_args(dout: torch.Tensor, keys: torch.Tensor,
+                    perm: torch.Tensor, w: torch.Tensor | None, bag_len: int,
+                    grad: torch.Tensor, present: torch.Tensor,
+                    partials: torch.Tensor, chunk: int, group: int,
+                    chunk_blocks: int, zero_blocks: int) -> bytes:
+    """The packed C arguments of one backward call (``BWD_ARGS`` order)."""
+    v, d = grad.shape
+    return BWD_ARGS.pack(int(dout.dtype == torch.bfloat16), dout.data_ptr(),
+                         keys.data_ptr(), perm.data_ptr(),
+                         0 if w is None else w.data_ptr(), bag_len,
+                         keys.numel(), v, d, grad.data_ptr(),
+                         present.data_ptr(), partials.data_ptr(), chunk,
+                         group, chunk_blocks, zero_blocks)
+
+
+def embedding_bag_bwd_cuda(dout: torch.Tensor, idx: torch.Tensor,
+                           weights: torch.Tensor | None,
+                           num_rows: int) -> torch.Tensor:
+    """dout (B, d) float32 or bfloat16 (the table's dtype); idx (B, L)
+    int32 or int64 (pad: any id >= num_rows); weights (B, L) or None ->
+    the table's (num_rows, d) gradient in dout's dtype: row r holds the
+    sum of w[b,l] · dout[b] over the entries that read it (an id < 0
+    reads row 0), every other row zero.
+
+    CUDA tensors go to B2-bwd (or raise); CPU tensors go to the plain
+    version (``ref.embedding_bag_bwd_ref``)."""
+    global bwd_launch_count
+    if dout.dim() != 2 or idx.dim() != 2 or dout.shape[0] != idx.shape[0]:
+        raise ValueError(f"dout must be (B, d) and idx (B, L); got "
+                         f"{tuple(dout.shape)}, {tuple(idx.shape)}")
+    _check(dout, idx, weights)     # dout's dtype is the table's
+    if not 1 <= num_rows < 2 ** 31:
+        raise ValueError(f"num_rows must be in [1, 2**31); got {num_rows}")
+    dev = dout.device
+    if dev.type == "cpu":
+        return embedding_bag_bwd_ref(dout, idx, weights, num_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _launch.check_hopper(dev, "embedding bag backward")
+    d = dout.shape[1]
+    n = idx.numel()
+    if n >= 2 ** 31 or d >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: {n} entries, "
+                         f"d={d}")
+    dout = dout.contiguous()
+    w = (None if weights is None
+         else weights.to(torch.float32).contiguous())
+    keys, perm = sorted_keys(idx, num_rows)
+    n_chunks = -(-n // BWD_CHUNK)
+    _, group, chunk_blocks = geometry(n_chunks, d, dout.element_size())
+    per_block = THREADS // group
+    zero_blocks = max(1, min(-(-num_rows // per_block), ZERO_BLOCKS))
+    grad = dout.new_empty((num_rows, d))
+    present = torch.zeros(num_rows, dtype=torch.uint8, device=dev)
+    partials = torch.empty((max(n_chunks, 1), 2, d), dtype=torch.float32,
+                           device=dev)
+    lib = load_library()
+    args = bwd_launch_args(dout, keys, perm, w, idx.shape[1], grad, present,
+                           partials, BWD_CHUNK, group, chunk_blocks,
+                           zero_blocks)
+    with _launch.device_guard(dev):
+        err = lib.embedding_bag_bwd(args, _launch.raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"embedding bag backward launch failed: CUDA "
+                           f"error {err}")
+    bwd_launch_count += 1
+    return grad

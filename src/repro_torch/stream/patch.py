@@ -51,7 +51,7 @@ from ..core import plan as plan_mod
 from ..core.backends import get_backend
 from ..core.plan import GraphPlan, graph_fingerprint, install_plan
 from ..core.png import PNGLayout, build_gather_schedule, block_png
-from ..graphs.formats import Graph
+from ..graphs.formats import Graph, lexsort_order, lexsorted
 from .delta import GraphDelta, gather_ranges, multiset_keep_mask
 
 # Past this fraction of dirty partitions a full rebuild is cheaper
@@ -131,8 +131,7 @@ def patch_png(png: PNGLayout, delta: GraphDelta) -> PNGLayout:
     #    scans, restricted): sort by (dstp, src, dst), dedup updates,
     #    then re-sort the edge stream by destination
     dstp2 = dst2.astype(np.int64) // psz
-    order = np.lexsort((dst2, src2, dstp2))
-    src_s, dst_s, dstp_s = src2[order], dst2[order], dstp2[order]
+    dstp_s, src_s, dst_s = lexsorted(dstp2, src2, dst2)
     pair_key = dstp_s * np.int64(n) + src_s
     new_update = np.empty(len(pair_key), dtype=bool)
     if len(pair_key):
@@ -163,7 +162,7 @@ def patch_png(png: PNGLayout, delta: GraphDelta) -> PNGLayout:
     # 4b. splice the gather stream (dst-sorted; partitions are
     #     contiguous dst ranges, so the stable per-dirty re-sort
     #     composes into the global dst order)
-    gorder = np.argsort(dst_s, kind="stable")
+    gorder = lexsort_order(dst_s)
     eui_d = upd_global[upd_of_edge[gorder]]
     dst_d = dst_s[gorder].astype(np.int32)
     new_edge_dst, new_eo, _ = _splice(
@@ -243,8 +242,7 @@ def patch_pdpr_plan(plan: GraphPlan, g_new: Graph,
     idx = gather_ranges(offsets[dirty], e_counts[dirty])
     src2, dst2 = _dirty_edges(delta, plan.csc_src[idx],
                               plan.csc_dst[idx], n)
-    order = np.lexsort((src2, dst2))     # dst-major, matches the build
-    src_d, dst_d = src2[order], dst2[order]
+    dst_d, src_d = lexsorted(dst2, src2)     # dst-major, as the build
     e_cnt_d = np.bincount(
         np.searchsorted(dirty, dst_d.astype(np.int64) // psz),
         minlength=len(dirty)).astype(np.int64)
@@ -275,9 +273,8 @@ def patch_bvgas_plan(plan: GraphPlan, g_new: Graph,
     src2, dst2 = _dirty_edges(delta, plan.bv_src[idx],
                               plan.bv_dst[idx], n)
     dstp2 = dst2.astype(np.int64) // psz
-    order = np.lexsort((dst2, src2, dstp2))
-    src_d, dst_d = src2[order], dst2[order]
-    e_cnt_d = np.bincount(np.searchsorted(dirty, dstp2[order]),
+    dstp_d, src_d, dst_d = lexsorted(dstp2, src2, dst2)
+    e_cnt_d = np.bincount(np.searchsorted(dirty, dstp_d),
                           minlength=len(dirty)).astype(np.int64)
     new_src, new_offsets, _ = _splice(plan.bv_src, offsets, dirty,
                                       src_d, e_cnt_d)
@@ -286,7 +283,7 @@ def patch_bvgas_plan(plan: GraphPlan, g_new: Graph,
     # gather permutation: recover the old one from the schedule (its
     # un-padded prefix), rebase clean segments, re-sort dirty ones
     old_perm = plan.schedule.edge_update_idx_padded[:plan.num_edges]
-    perm_local_d = np.argsort(dst_d, kind="stable").astype(np.int64)
+    perm_local_d = lexsort_order(dst_d).astype(np.int64)
     # positions within the dirty concatenation -> global bins positions
     dirty_eo = np.zeros(len(dirty) + 1, dtype=np.int64)
     np.cumsum(e_cnt_d, out=dirty_eo[1:])

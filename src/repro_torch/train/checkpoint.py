@@ -16,9 +16,11 @@ tuples, lists, NamedTuples (``AdamWState``: keys ``.step``, ``.mu``,
 forms are written as the reference's parameter tree
 (``{"embed", "final_norm", "layers": {name: (L, ...)}, "unembed"}``),
 each layer's weights stacked: an ``LM``, and a dict keyed by its
-parameter names (``layers.<i>.<name>``: gradients, optimizer moments).
-``restore`` gives back the same forms, on ``device`` (default: where
-each target leaf lies).
+parameter names (``layers.<i>.<name>``: gradients, optimizer
+moments). A ``MIND`` is written as the reference's flat tree
+(``table``, ``bilinear``, ``route_init``, ``out_proj``); its moments are
+plain dicts with those keys already. ``restore`` gives back the same
+forms, on ``device`` (default: where each target leaf lies).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import threading
 import numpy as np
 import torch
 
+from ..models import recsys
 from ..models import transformer as tf
 
 
@@ -60,6 +63,11 @@ def _walk(tree, path: tuple, leaf_fn, rebuild: bool = True):
                   for i in range(tree.cfg.n_layers)]
         return tf.LM(tree.cfg, new["embed"], new["unembed"],
                      new["final_norm"], layers)
+    if isinstance(tree, recsys.MIND):
+        new = _walk(dict(tree.named_parameters()), path, leaf_fn, rebuild)
+        if not rebuild:
+            return None
+        return recsys.MIND(tree.cfg, *(new[n] for n in recsys.PARAM_NAMES))
     if _is_named(tree):
         new = _walk(tf.param_tree(tree, stack=_Layers), path, leaf_fn,
                     rebuild)

@@ -18,7 +18,11 @@ group of 6 and a windowed "tc" prefill, the smoke LM's ``ServeEngine``
 on the card against the same run on the CPU, and the MoE smoke models'
 ``forward``, ``prefill`` and serving against the CPU; kernel B2
 against its plain version, and the smoke MIND's
-``serve_step``/``retrieval_step`` on the card against the CPU.
+``serve_step``/``retrieval_step`` on the card against the CPU; kernel
+B2-bwd against its plain backward (bit-equal on exact sums, its CPU
+emulation's bits on random ones, pads, a negative id, bfloat16, a hot
+row, two calls bit-identical) and the smoke MIND's train step on the card
+against the CPU.
 
 Every test is marked ``cuda`` and skips without a card. The file needs
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -1351,6 +1355,128 @@ def test_mind_on_the_card_matches_cpu(cuda_device):
     apart[:, 1:] &= gaps
     apart[:, :-1] &= gaps
     assert torch.equal(ids.cpu()[apart], ref_ids[apart])
+
+
+# -------------------------------------------------------- kernel B2-bwd
+def _b2_bwd_exact(dev, b, l, v, d, seed, *, hot=None, weighted=True):
+    """dout in multiples of 1/16, weights in multiples of 1/4: the sums
+    are exact in float32 in any order."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-2, v + 3, (b, l))
+    if hot is not None:
+        idx[rng.random((b, l)) < 0.6] = hot
+    dout = rng.integers(-16, 17, (b, d)).astype(np.float32) / 16
+    w = rng.integers(0, 5, (b, l)).astype(np.float32) / 4
+    return (torch.from_numpy(dout).to(dev), torch.from_numpy(idx).to(dev),
+            torch.from_numpy(w).to(dev) if weighted else None)
+
+
+def _b2_bwd(dout, idx, w, v):
+    before = b2.kernel.bwd_launch_count
+    grad = b2.embedding_bag_bwd_cuda(dout, idx, w, v)
+    torch.cuda.synchronize()
+    assert b2.kernel.bwd_launch_count == before + 1
+    assert grad.dtype == dout.dtype and grad.shape == (v, dout.shape[1])
+    return grad
+
+
+@pytest.mark.parametrize("v,d,b,l", B2_SHAPES)
+def test_b2_bwd_exact_sums_and_emulation_bits(cuda_device, v, d, b, l):
+    dout, idx, w = _b2_bwd_exact(cuda_device, b, l, v, d, v + d, hot=5)
+    grad = _b2_bwd(dout, idx, w, v)
+    assert torch.equal(grad, b2.embedding_bag_bwd_ref(dout, idx, w, v))
+    assert torch.equal(grad, _b2_bwd(dout, idx, w, v))
+    # random float32: the kernel's bits are its CPU emulation's
+    rng = np.random.default_rng(d)
+    noisy = torch.from_numpy(rng.standard_normal(dout.shape).astype(
+        np.float32)).to(cuda_device)
+    wr = torch.rand(idx.shape, device=cuda_device)
+    grad = _b2_bwd(noisy, idx, wr, v)
+    torch.testing.assert_close(grad, b2.embedding_bag_bwd_ref(noisy, idx, wr,
+                                                              v),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(grad.cpu(), b2.embedding_bag_bwd_emulate(
+        noisy.cpu(), idx.cpu(), wr.cpu(), v, b2.kernel.BWD_CHUNK))
+    assert torch.equal(grad, _b2_bwd(noisy, idx, wr, v))
+
+
+@pytest.mark.parametrize("d", [64, 6, 13, 1030])
+def test_b2_bwd_pads_negatives_and_bf16(cuda_device, d):
+    v = 300
+    dout, idx, _ = _b2_bwd_exact(cuda_device, 40, 5, v, d, d,
+                                 weighted=False)
+    idx[0] = v                                          # a bag of pads
+    idx[1, 0] = -1                                      # to row 0
+    grad = _b2_bwd(dout, idx, None, v)
+    assert torch.equal(grad, b2.embedding_bag_bwd_ref(dout, idx, None, v))
+    assert grad[0].abs().sum() > 0
+    bf = _b2_bwd(dout.bfloat16(), idx, None, v)
+    torch.testing.assert_close(bf.float(), grad, rtol=2 ** -7, atol=1e-5)
+    assert torch.equal(bf.cpu(), b2.embedding_bag_bwd_emulate(
+        dout.bfloat16().cpu(), idx.cpu(), None, v, b2.kernel.BWD_CHUNK))
+
+
+def test_b2_bwd_hot_row_and_empty(cuda_device):
+    n, v, d = 120_000, 1000, 64
+    rng = np.random.default_rng(1)
+    ids = np.where(rng.random(n) < 0.8, 7, rng.integers(0, v + 2, n))
+    idx = torch.from_numpy(ids.reshape(n, 1)).to(cuda_device)
+    dout = torch.from_numpy(rng.integers(-16, 17, (n, d)).astype(np.float32)
+                            / 16).to(cuda_device)
+    grad = _b2_bwd(dout, idx, None, v)
+    assert torch.equal(grad, b2.embedding_bag_bwd_ref(dout, idx, None, v))
+    # random values: float32 sums of ~96k terms differ by ~1e-2 between
+    # orders, so the kernel is held to its CPU emulation's bits
+    noisy = torch.randn((n, d), device=cuda_device)
+    grad = _b2_bwd(noisy, idx, None, v)
+    assert torch.equal(grad.cpu(), b2.embedding_bag_bwd_emulate(
+        noisy.cpu(), idx.cpu(), None, v, b2.kernel.BWD_CHUNK))
+    assert torch.equal(grad, _b2_bwd(noisy, idx, None, v))
+    pads = torch.full((3, 2), v, device=cuda_device)
+    assert not _b2_bwd(torch.ones((3, d), device=cuda_device), pads, None,
+                       v).any()
+
+
+def test_mind_train_step_on_the_card_matches_cpu(cuda_device, monkeypatch):
+    from repro_torch.optim import AdamW
+    monkeypatch.setattr(recsys, "LOSS_BLOCK_ROWS", 16)    # 4 blocks of 64
+    cfg = configs.get("mind").scaled()
+    cpu_model = recsys.init_mind(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    rng = np.random.default_rng(0)
+    hist = rng.integers(0, cfg.vocab, (64, cfg.hist_len)).astype(np.int32)
+    hist[:, -3:] = cfg.vocab
+    hist[0, 0] = -1
+    batch = {"hist": torch.from_numpy(hist),
+             "target": torch.from_numpy(rng.integers(0, cfg.vocab, 64)
+                                        .astype(np.int32))}
+    gpu_batch = {k: t.to(cuda_device) for k, t in batch.items()}
+
+    def table_grad(model, b):
+        with model.trainable():
+            loss = recsys.mind_loss(model, cfg, b)
+            return torch.autograd.grad(loss, model.table)[0]
+    before = (b2.kernel.launch_count, b2.kernel.bwd_launch_count)
+    g = table_grad(gpu_model, gpu_batch)
+    torch.cuda.synchronize()
+    assert (b2.kernel.launch_count, b2.kernel.bwd_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    want = table_grad(cpu_model, batch)
+    assert g.abs().sum() > 0
+    torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=1e-6)
+    opt = AdamW(lr=1e-2)
+    states = [opt.init(m) for m in (cpu_model, gpu_model)]
+    step = recsys.make_train_step(cfg, opt)
+    for _ in range(3):
+        _, states[0], m_cpu = step(cpu_model, states[0], batch)
+        _, states[1], m_gpu = step(gpu_model, states[1], gpu_batch)
+        torch.testing.assert_close(m_gpu["loss"].cpu(), m_cpu["loss"],
+                                   rtol=1e-5, atol=1e-6)
+    for name in recsys.PARAM_NAMES:
+        torch.testing.assert_close(getattr(gpu_model, name).cpu(),
+                                   getattr(cpu_model, name), rtol=1e-4,
+                                   atol=1e-5)
 
 
 # ------------------------------------------------- the sharded path (A10)

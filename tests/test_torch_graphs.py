@@ -109,3 +109,32 @@ def test_device_coo_is_int32_on_request():
     assert src.dtype == dst.dtype and str(src.dtype) == "torch.int32"
     np.testing.assert_array_equal(src.numpy(), g.src)
     np.testing.assert_array_equal(dst.numpy(), g.dst)
+
+
+@pytest.mark.parametrize("case", ["packed", "one value", "empty",
+                                  "negative", "no room for positions",
+                                  "wide"])
+def test_lexsort_helpers_equal_numpy_lexsort(case):
+    """``lexsort_order`` and ``lexsorted`` (the plan builders' sorts)
+    give ``np.lexsort``'s order and values: with duplicate rows, on
+    columns of one value, on no rows, and through the fallback for a
+    negative value, for more than 63 bits of keys, and for rows that fit
+    in 63 bits while their positions do not."""
+    rng = np.random.default_rng(7)
+    m = {"empty": 0}.get(case, 5000)
+    cols = [rng.integers(0, 40, m).astype(np.int64),
+            rng.integers(0, 300, m).astype(np.int32),
+            rng.integers(0, 9, m).astype(np.int32)]
+    if case == "one value":
+        cols[0][:] = 0
+    if case == "negative":
+        cols[1][3] = -5
+    if case == "no room for positions":
+        cols[0] = rng.integers(0, 2 ** 45, m).astype(np.int64)
+    if case == "wide":
+        cols[0] = rng.integers(0, 2 ** 60, m).astype(np.int64)
+    want = np.lexsort(cols[::-1])
+    np.testing.assert_array_equal(formats.lexsort_order(*cols), want)
+    for got, col in zip(formats.lexsorted(*cols), cols):
+        assert got.dtype == col.dtype
+        np.testing.assert_array_equal(got, col[want])
