@@ -251,11 +251,33 @@ Phases, each of which exits non-zero when it fails:
    bits; ms per step, users/s, peak memory, a profiled step with B2's and
    B2-bwd's shares, and B2-bwd beside its bound, its plain version and a
    zeroed tensor's ``index_add_`` (a yardstick the port never calls).
+15. GNN training (``models/gnn.py``): kernels B2 and B2-bwd at the
+   GNNs' message widths (graphcast d 512, nequip 288, mace 1152,
+   equiformer-v2 6272, bfloat16; the edge softmax's (E, 8) float32) on
+   each cell's real edge lists, as the models call them (B2 gathering
+   rows and, weighted by the edge mask, a segment-sum's gradient; B2-bwd
+   summing rows by destination): exact sums bit for bit, random values
+   within each element's summation bound, second calls bit-identical;
+   the four GNNs at their published widths and depths in bfloat16
+   messages with float32 masters (the reference's production cells,
+   ``launch/specs.py:210-216``: ``AdamW(lr=1e-3)``, n_out = n_vars or 16)
+   for 5 steps on one ``data.batch_for_shape`` batch at full_graph_sm
+   and molecule, and graphcast at ogb_products with nodes and edges cut
+   by GNN_OGB_CUT: losses finite and falling, B2 and B2-bwd launched as
+   ``gnn.kernel_calls`` counts from the model's structure, a repeated
+   step bit-identical, the ogb step's peak under 70 GB; at depth 2, full
+   width, float32 without TF32, the card's loss and every gradient leaf
+   within 1e-4 of the CPU path's; ms a step, edges/s and peak memory of
+   every cell, profiles of graphcast's ogb cell and equiformer-v2's
+   full_graph_sm (idle share, top kernels, B2's and B2-bwd's shares),
+   and B2 and B2-bwd at those two cells beside their bounds, their plain
+   versions, ``index_select`` and a zeroed tensor's ``index_add_`` (the
+   yardsticks, never called by the port).
 
 Each phase's wall seconds are logged as it ends, and all of them before
 the kernels line. The line before the last is a JSON object describing
-each kernel (B1, B3, B2, B3-bwd and B2-bwd); the last line is
-``{"ok": true, "device": {...}}``.
+each kernel (B1, B3, B2, B3-bwd and B2-bwd, and B2's and B2-bwd's GNN
+entries); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -297,6 +319,9 @@ CONSISTENCY_LEN = 256
 # a greedy token can flip only where the top-2 margin is below twice it
 DECODE_TOL = 0.2
 PROFILE_STEPS = 16
+# characters of a kernel's name in a profile's top-kernel lines: enough to
+# tell torch's elementwise kernels apart (copy, add, cast)
+PROFILE_NAME_CHARS = 160
 # phase 10b, the MoE and sliding-window LMs at their published widths with
 # the depth cut to fit one 80 GB card in bfloat16: mixtral-8x7b 8 of 32
 # layers (~2.90 GB a layer; all 32 would be ~93 GB), grok-1-314b 2 of 64
@@ -3173,7 +3198,7 @@ def profile_steps(step, label, card, names=(),
         f"{100 * (1 - busy_us / wall_us):.1f}% ({card})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / steps:9.1f} us/step "
-            f"x{e.count / steps:<5.1f} {e.key[:90]}")
+            f"x{e.count / steps:<5.1f} {e.key[:PROFILE_NAME_CHARS]}")
     groups = names if isinstance(names, dict) else (
         {"/".join(names): names} if names else {})
     for group, keys in groups.items():
@@ -4421,6 +4446,25 @@ B2_BWD_KERNELS = ("bwd_chunk_kernel", "bwd_combine_kernel",
 HOT_RUN = 300_000              # the hottest row's ids at train_batch
 
 
+def summation_bound(values, idx, w, num_rows):
+    """Each element's bound on |B2-bwd - its plain version| for the sums
+    of w · values into the rows ``idx`` reads (an id < 0 reads row 0, as
+    B2-bwd's): 2 (n - 1) u sum |terms| for two float32 orders of a row's
+    n terms, plus two roundings to bfloat16 (2**-7 of the sum) when
+    ``values`` are bfloat16 (the output's dtype)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_ref
+    absum = embedding_bag_bwd_ref(values.float().abs(), idx,
+                                  None if w is None else w.abs(), num_rows)
+    flat = idx.reshape(-1).long()
+    counts = torch.bincount(flat[flat < num_rows].clamp_min(0),
+                            minlength=num_rows)
+    scale = 2 * (counts - 1).clamp_min(0) * 2.0 ** -24
+    if values.dtype == torch.bfloat16:
+        scale = scale + 2.0 ** -7
+    return absum.mul_(scale[:, None].float())
+
+
 def check_b2_bwd(dout, idx, w, v, label, tol, *, exact=False) -> float:
     """Launch B2-bwd once (twice: the second call must give the same
     bits), hold it against the plain backward; max abs err."""
@@ -4570,6 +4614,29 @@ def b2_bwd_entry(dout, idx, num_rows, launches, err, card) -> dict:
     }
 
 
+def repeated_step(step, model, state, batch):
+    """``step`` run twice from the same parameters and AdamW moments (the
+    first run's result undone in place before the second): (model, state,
+    the two runs' metrics, whether both left bit-identical parameters)."""
+    import torch
+    saved = ([p.detach().clone() for p in model.parameters()],
+             {k: t.clone() for k, t in state.mu.items()},
+             {k: t.clone() for k, t in state.nu.items()}, state.step.clone())
+    model, state, m1 = step(model, state, batch)
+    first = [p.detach().clone() for p in model.parameters()]
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), saved[0]):
+            p.copy_(s)
+    for k in state.mu:
+        state.mu[k].copy_(saved[1][k])
+        state.nu[k].copy_(saved[2][k])
+    state = type(state)(saved[3], state.mu, state.nu)
+    model, state, m2 = step(model, state, batch)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, p) for a, p in zip(first, model.parameters()))
+    return model, state, m1, m2, same
+
+
 def mind_train_phase(dev, card) -> list[dict]:
     """Phase 14: MIND training at train_batch and full width. B2-bwd's
     checks; MIND from ``init_mind`` (seed 0) at vocab 10M, Zipf histories
@@ -4641,12 +4708,9 @@ def mind_train_phase(dev, card) -> list[dict]:
     del emulated
     emulate_s = time.perf_counter() - t0
     want = embedding_bag_bwd_ref(dout, idx, None, cfg.vocab)
-    absum = embedding_bag_bwd_ref(dout.abs(), idx, None, cfg.vocab)
+    bound = summation_bound(dout, idx, None, cfg.vocab)
     flat = idx.reshape(-1).long()
     rows_read = flat[flat < cfg.vocab].clamp_min(0)
-    counts = torch.bincount(rows_read, minlength=cfg.vocab)
-    bound = absum.mul_((2 * (counts - 1).clamp_min(0)
-                        * 2.0 ** -24)[:, None].float())
     gap = (g_table - want).abs()
     grad_err = float(gap.max())
     over = int((gap > bound).sum())
@@ -4669,7 +4733,7 @@ def mind_train_phase(dev, card) -> list[dict]:
     if nonzero != distinct:
         fail(f"MIND table gradient: {nonzero} nonzero rows, but the step's "
              f"ids read {distinct} distinct rows")
-    del absum, bound, gap, counts, rows_read, flat
+    del bound, gap, rows_read, flat
     del want, g_table, loss
 
     # ---------------- the main path: 5 steps on one batch
@@ -4707,30 +4771,12 @@ def mind_train_phase(dev, card) -> list[dict]:
         f"device memory {peak} B ({card})")
 
     # ---------------- a step repeated from the same state, bit for bit
-    saved = ([p.detach().clone() for p in model.parameters()],
-             {k: t.clone() for k, t in state.mu.items()},
-             {k: t.clone() for k, t in state.nu.items()}, state.step.clone())
-
-    def restore():
-        with torch.no_grad():
-            for p, s in zip(model.parameters(), saved[0]):
-                p.copy_(s)
-        for k in state.mu:
-            state.mu[k].copy_(saved[1][k])
-            state.nu[k].copy_(saved[2][k])
-        return type(state)(saved[3].clone(), state.mu, state.nu)
-    model, state, m1 = step(model, state, batch)
-    first = [p.detach().clone() for p in model.parameters()]
-    state = restore()
-    model, state, m2 = step(model, state, batch)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, p) for a, p in zip(first, model.parameters()))
+    model, state, m1, m2, same = repeated_step(step, model, state, batch)
     log(f"mind-train repeated step: parameters bit-identical {same}; loss "
         f"{float(m1['loss'])!r} vs {float(m2['loss'])!r}")
     if not same or not torch.equal(m1["loss"], m2["loss"]):
         fail("MIND training: a step repeated from the same state gave "
              "other bits")
-    del saved, first
 
     # ---------------- a profiled step, then B2-bwd alone
     profile_steps(lambda: step(model, state, batch), "MIND training step",
@@ -4742,6 +4788,396 @@ def mind_train_phase(dev, card) -> list[dict]:
     log(f"phase 14 (MIND training): {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
     return [entry]
+
+
+# --------------------------------------------------------------- phase 15
+# GNN training: configs/graphcast.py, nequip.py, mace.py and
+# equiformer_v2.py at their published widths and depths, as the
+# reference's production cells train them (launch/specs.py:210-216):
+# bfloat16 messages with float32 masters, AdamW(lr=1e-3), n_out = n_vars
+# or 16; 5 steps on one data.batch_for_shape batch of each cell
+GNN_ARCHS = ("graphcast", "nequip", "mace", "equiformer-v2")
+GNN_SHAPE_NAMES = ("full_graph_sm", "molecule")
+GNN_TRAIN_STEPS = 5
+GNN_TRAIN_LR = 1e-3
+# graphcast at ogb_products with its nodes and edges divided by the same
+# power of two, the largest fraction whose step peaks at or under
+# GNN_PEAK_LIMIT bytes (PERF.md §4)
+GNN_OGB_CUT = 32
+GNN_PEAK_LIMIT = 70e9
+# the card against the port's CPU path on the same parameters: depth cut
+# to 2, float32 without TF32, full_graph_sm; each gradient leaf within a
+# relative L2 error of 1e-4 of the larger of its norm and 1e-6 of the
+# whole gradient's; the leaves whose gradient is zero in exact arithmetic
+# (``gnn.ZERO_GRADIENT_LEAVES``) are rounding noise on both sides (on an
+# H100, mace's ``b3.1`` read 3.2e-4 apart on that measure), so they are
+# held to norms below 1e-8 of the whole gradient's instead
+GNN_GATE_LAYERS = 2
+GNN_GATE_REL_L2 = 1e-4
+GNN_GATE_FLOOR = 1e-6
+GNN_ZERO_GRAD_NORM = 1e-8
+B2_KERNELS = ("embedding_bag_kernel",)
+
+
+def gnn_shapes():
+    """{name: ShapeSpec} of phase 15's cells: GNN_SHAPE_NAMES and
+    ogb_products cut by GNN_OGB_CUT."""
+    from repro_torch.configs import GNN_SHAPES
+    shapes = {s.name: s for s in GNN_SHAPES}
+    ogb = shapes["ogb_products"]
+    cut = dataclasses.replace(
+        ogb, name=f"ogb_products/{GNN_OGB_CUT}",
+        n_nodes=ogb.n_nodes // GNN_OGB_CUT,
+        n_edges=ogb.n_edges // GNN_OGB_CUT)
+    return {**{n: shapes[n] for n in GNN_SHAPE_NAMES}, cut.name: cut}
+
+
+def message_width(cfg) -> int:
+    """The width of a GNN's node gathers and aggregates: d_hidden
+    (graphcast) or d_hidden · sum over l of (2l+1) (the equivariant
+    models' concatenated irreps; mace gathers d_hidden and aggregates
+    this)."""
+    if cfg.flavor == "mpnn":
+        return cfg.d_hidden
+    return cfg.d_hidden * (cfg.l_max + 1) ** 2
+
+
+def check_gnn_kernels(dev, label, ids, n, d, dtype, *, weighted) -> float:
+    """B2 and B2-bwd at one GNN shape, as the GNN calls them: B2 gathers
+    rows ``ids`` of an (n, d) table (one-id bags, and, for a segment-sum's
+    gradient, weighted by an edge mask); B2-bwd sums (E, d) rows into the
+    n rows ``ids`` names (weighted by the mask). Exact sums (multiples of
+    1/4 times weights in {0, 1/2, 1}) must give the plain version's bits,
+    random values stay within each element's summation bound, and a
+    second call gives the same bits. Returns B2-bwd's largest error on
+    random values."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
+                                                   embedding_bag_bwd_ref,
+                                                   embedding_bag_cuda,
+                                                   embedding_bag_ref,
+                                                   embedding_lookup_cuda)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    e = ids.numel()
+    bags = ids[:, None]
+    w = ((torch.randint(0, 3, (e, 1), generator=gen, device=dev) / 2.0)
+         if weighted else None)
+    table = (torch.randint(-4, 5, (n, d), generator=gen, device=dev)
+             / 4.0).to(dtype)
+    values = (torch.randint(-4, 5, (e, d), generator=gen, device=dev)
+              / 4.0).to(dtype)
+    rows = embedding_lookup_cuda(table, ids)
+    gathered = torch.equal(rows, embedding_bag_ref(table, bags))
+    weighted_rows = embedding_bag_cuda(table, bags, w)
+    weighted_ok = torch.equal(weighted_rows, embedding_bag_ref(table, bags,
+                                                               w))
+    sums = embedding_bag_bwd_cuda(values, bags, w, n)
+    exact = torch.equal(sums, embedding_bag_bwd_ref(values, bags, w, n))
+    again = torch.equal(sums, embedding_bag_bwd_cuda(values, bags, w, n))
+    del rows, weighted_rows, sums, table
+    noisy = torch.randn((e, d), generator=gen, device=dev).to(dtype)
+    got = embedding_bag_bwd_cuda(noisy, bags, w, n)
+    want = embedding_bag_bwd_ref(noisy, bags, w, n)
+    gap = (got.float() - want.float()).abs()
+    bound = summation_bound(noisy, bags, w, n)
+    over = int((gap > bound).sum())
+    err = float(gap.max())
+    same = torch.equal(got, embedding_bag_bwd_cuda(noisy, bags, w, n))
+    torch.cuda.synchronize()
+    log(f"B2/B2-bwd at {label}: ids ({e},) into ({n}, {d}) "
+        f"{str(dtype)[6:]}, mask weights {weighted}: B2 gather bit-equal "
+        f"{gathered}, B2 weighted (a segment-sum's gradient) bit-equal "
+        f"{weighted_ok}; B2-bwd on exact sums bit-equal {exact}, random "
+        f"max_abs_err={err!r}, elements past their summation bound {over} "
+        f"(largest bound {float(bound.max())!r}); two calls bit-identical "
+        f"{again and same}")
+    if not (gathered and weighted_ok and exact):
+        fail(f"B2/B2-bwd at {label}: not the plain version's bits on exact "
+             "inputs")
+    if over:
+        fail(f"B2-bwd at {label}: {over} elements past their summation "
+             "bound")
+    if not (again and same):
+        fail(f"B2-bwd at {label}: two calls gave different bits")
+    return err
+
+
+def gnn_kernel_entries(dev, label, ids, n, d, dtype, launches, err,
+                       card) -> list[dict]:
+    """Time B2 (the gather) and B2-bwd (the segment-sum with the mask's
+    weights) at one GNN shape, as the GNN calls them, beside their plain
+    versions, ``index_select`` and a zeroed tensor's ``index_add_`` (the
+    yardsticks, which the port never calls); bounds from this run's ids.
+    Returns the two entries of the kernels line."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
+                                                   embedding_bag_bwd_ref,
+                                                   embedding_bag_ref,
+                                                   embedding_lookup_cuda)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    e = ids.numel()
+    bags = ids[:, None]
+    mask = torch.ones((e, 1), dtype=torch.float32, device=dev)
+    table = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    values = torch.randn((e, d), generator=gen, device=dev).to(dtype)
+    long_ids = ids.long()
+    es = table.element_size()
+    distinct = int(torch.unique(ids).numel())
+    reps = 20 if e * d < 10 ** 8 else 5
+    fwd_ms = time_ms(lambda: embedding_lookup_cuda(table, ids), reps=reps)
+    fwd_plain = time_ms(lambda: embedding_bag_ref(table, bags), reps=3)
+    fwd_lib = time_ms(lambda: table.index_select(0, long_ids), reps=reps)
+    fwd_bytes = e * ids.element_size() + distinct * d * es + e * d * es
+    fwd_bound = fwd_bytes / PEAK_BYTES_PER_S * 1e3
+    bwd_ms = time_ms(lambda: embedding_bag_bwd_cuda(values, bags, mask, n),
+                     reps=reps)
+    bwd_plain = time_ms(
+        lambda: embedding_bag_bwd_ref(values, bags, mask, n), reps=3)
+    bwd_lib = time_ms(lambda: torch.zeros((n, d), dtype=dtype, device=dev)
+                      .index_add_(0, long_ids, values), reps=reps)
+    bwd_bytes = e * d * es + e * (ids.element_size() + 4) + n * d * es
+    bwd_bytes_ms = bwd_bytes / PEAK_BYTES_PER_S * 1e3
+    bwd_ops_ms = e * d / PEAK_F32_PER_S * 1e3
+    bwd_bound = max(bwd_bytes_ms, bwd_ops_ms)
+    log(f"B2 gather at {label} (ids ({e},) of ({n}, {d}) {str(dtype)[6:]}, "
+        f"{distinct} distinct): {fwd_ms!r} ms; bound {fwd_bound!r} ms "
+        f"({fwd_bytes} B at {PEAK_BYTES_PER_S / 1e12} TB/s); plain version "
+        f"{fwd_plain!r} ms; index_select {fwd_lib!r} ms ({card})")
+    log(f"B2-bwd segment-sum at {label} ((E, d) = ({e}, {d}) into {n} "
+        f"rows, mask weights): {bwd_ms!r} ms; bound {bwd_bound!r} ms "
+        f"({bwd_bytes} B); plain version {bwd_plain!r} ms; zeros + "
+        f"index_add_ {bwd_lib!r} ms ({card})")
+    common = {"route": "cuda",
+              "source": "src/repro_torch/csrc/embedding_bag.cu"}
+    return [
+        {"name": f"embedding_bag/gnn_{label}", **common,
+         "replaces": "src/repro/kernels/embedding_bag/kernel.py:49",
+         "launches": launches[0], "max_abs_err": 0.0, "ms": fwd_ms,
+         "plain_ms": fwd_plain, "bound_ms": fwd_bound,
+         "bound_by": "bytes", "library_ms": fwd_lib},
+        {"name": f"embedding_bag_bwd/gnn_{label}", **common,
+         "replaces": "none: the reference's jax.ops.segment_sum in "
+                     "src/repro/models/gnn.py:85 aggregate",
+         "launches": launches[1], "max_abs_err": err, "ms": bwd_ms,
+         "plain_ms": bwd_plain, "bound_ms": bwd_bound,
+         "bound_by": ("bytes" if bwd_bytes_ms >= bwd_ops_ms
+                      else "operations"),
+         "library_ms": bwd_lib},
+    ]
+
+
+def gnn_train_cell(dev, card, arch, shape, batch, *, profile=0) -> dict:
+    """One phase-15 cell: ``arch`` at its published widths and depth in
+    bfloat16 messages (float32 masters) from ``init_gnn`` (seed 0),
+    GNN_TRAIN_STEPS steps of AdamW(lr=1e-3) on ``batch``. Gates: losses
+    finite and falling, B2 and B2-bwd launched as ``gnn.kernel_calls``
+    counts a step, a step repeated from the same state with the same
+    bits, and (ogb) the peak under GNN_PEAK_LIMIT; ``profile`` steps
+    profiled after. Returns the cell's numbers."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.embedding_bag import kernel as b2
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import _host_metrics
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(arch), act_dtype="bfloat16")
+    n_out = cfg.n_vars or 16
+    e = batch.edge_src.shape[0]
+    model = gnn.init_gnn(
+        cfg, shape.d_feat, n_out, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(lr=GNN_TRAIN_LR)
+    state = opt.init(model)
+    step = gnn.make_gnn_train_step(cfg, opt, n_out=n_out)
+    label = f"{arch} at {shape.name}"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b2.launch_count = b2.bwd_launch_count = 0
+    history, times = [], []
+    for _ in range(GNN_TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        model, state, metrics = step(model, state, batch)
+        end.record()
+        history.append(_host_metrics(metrics))     # one host read a step
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = (b2.launch_count, b2.bwd_launch_count)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = gnn.kernel_calls(cfg, e)
+    want = (GNN_TRAIN_STEPS * per_step["B2"],
+            GNN_TRAIN_STEPS * per_step["B2-bwd"])
+    losses = [m["loss"] for m in history]
+    ms = float(np.mean(times[1:]))
+    log(f"gnn-train {label}: N {batch.num_nodes}, E {e}, d_feat "
+        f"{shape.d_feat}, {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, "
+        f"n_out {n_out}, {n_params} parameters; "
+        + "; ".join(f"step {i + 1} loss {m['loss']!r}, gnorm "
+                    f"{m['gnorm']!r}, {t:.2f} ms"
+                    for i, (m, t) in enumerate(zip(history, times)))
+        + f"; B2 launches {launches[0]}, B2-bwd {launches[1]} (from the "
+        f"structure {want[0]} and {want[1]}: {per_step} a step)")
+    log(f"time gnn-train {label} (CUDA events, steps 2-{GNN_TRAIN_STEPS}): "
+        f"{ms!r} ms a step, {e / ms * 1e3!r} edges/s; peak device memory "
+        f"{peak} B ({card})")
+    if launches != want:
+        fail(f"GNN training {label}: B2/B2-bwd launches {launches}, the "
+             f"structure gives {want}")
+    if not all(np.isfinite(v) for m in history for v in m.values()):
+        fail(f"GNN training {label}: a loss or gnorm is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"GNN training {label}: the loss did not fall over "
+             f"{GNN_TRAIN_STEPS} steps")
+    if shape.name.startswith("ogb") and peak > GNN_PEAK_LIMIT:
+        fail(f"GNN training {label}: peak {peak} B above {GNN_PEAK_LIMIT}")
+
+    # a step repeated from the same state, bit for bit
+    model, state, m1, m2, same = repeated_step(step, model, state, batch)
+    same = same and torch.equal(m1["loss"], m2["loss"])
+    log(f"gnn-train {label} repeated step: parameters and loss "
+        f"bit-identical {same} (loss {float(m1['loss'])!r})")
+    if not same:
+        fail(f"GNN training {label}: a step repeated from the same state "
+             "gave other bits")
+    if profile:
+        profile_steps(lambda: step(model, state, batch),
+                      f"gnn-train {label}", card,
+                      names={"B2": B2_KERNELS, "B2-bwd": B2_BWD_KERNELS},
+                      steps=profile)
+    log(f"gnn-train {label}: {time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "edges_per_s": e / ms * 1e3, "peak": peak,
+            "launches": launches, "losses": losses}
+
+
+def gnn_cpu_gate(dev) -> None:
+    """Each GNN at its published widths with its depth cut to
+    GNN_GATE_LAYERS, float32 (TF32 off), at full_graph_sm: the card's
+    loss and every gradient leaf against the port's CPU path (the plain
+    versions of B2 and B2-bwd) on the same parameters."""
+    import copy
+    import torch
+    from repro_torch import data
+    from repro_torch.configs import get
+    from repro_torch.models import gnn
+    shape = gnn_shapes()["full_graph_sm"]
+    g_cpu = data.batch_for_shape(shape, seed=1, device="cpu")
+    g_dev = g_cpu.to(dev)
+    for arch in GNN_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get(arch), n_layers=GNN_GATE_LAYERS)
+        n_out = cfg.n_vars or 16
+        cpu = gnn.init_gnn(cfg, shape.d_feat, n_out, device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+        card = copy.deepcopy(cpu).to(dev)
+        results = []
+        for model, g in ((card, g_dev), (cpu, g_cpu)):
+            names, tensors = zip(*model.named_parameters())
+            with model.trainable():
+                loss = gnn.gnn_loss(model, cfg, g, n_out=n_out)
+                grads = torch.autograd.grad(
+                    loss, tensors, allow_unused=True, materialize_grads=True)
+            results.append((float(loss.detach()), {n: x.detach().cpu()
+                                          for n, x in zip(names, grads)}))
+        (loss_d, grads_d), (loss_c, grads_c) = results
+        total = float(torch.sqrt(sum(x.double().square().sum()
+                                     for x in grads_c.values())))
+        worst, worst_name, noise = 0.0, "", {}
+        zero = gnn.ZERO_GRADIENT_LEAVES.get(arch, ())
+        for name, x in grads_c.items():
+            if zero and name.endswith(zero):
+                noise[name] = (float(grads_d[name].norm()) / total,
+                               float(x.norm()) / total)
+                continue
+            gap = float((grads_d[name] - x).norm()) / max(
+                float(x.norm()), GNN_GATE_FLOOR * total)
+            if gap > worst:
+                worst, worst_name = gap, name
+        loss_gap = abs(loss_d - loss_c) / abs(loss_c)
+        log(f"gnn {arch} card vs CPU (depth {GNN_GATE_LAYERS}, full width, "
+            f"float32, full_graph_sm): loss {loss_d!r} vs {loss_c!r} (gap "
+            f"{loss_gap!r}); largest gradient gap {worst!r} ({worst_name}) "
+            f"of {len(grads_c)} leaves; zero-gradient leaves' norms over "
+            f"the whole gradient's (card, CPU) {noise}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if loss_gap > GNN_GATE_REL_L2 or worst > GNN_GATE_REL_L2:
+            fail(f"GNN {arch}: the card's loss or gradients are more than "
+                 f"{GNN_GATE_REL_L2} from the CPU path's")
+        if any(max(v) > GNN_ZERO_GRAD_NORM for v in noise.values()):
+            fail(f"GNN {arch}: a gradient that is zero in exact arithmetic "
+                 f"is above {GNN_ZERO_GRAD_NORM} of the whole")
+        del card, cpu, results, grads_d, grads_c
+        torch.cuda.empty_cache()
+
+
+def gnn_train_phase(dev, card) -> list[dict]:
+    """Phase 15: B2 and B2-bwd at the GNNs' shapes against their plain
+    versions; the four GNNs trained at full width and depth at
+    full_graph_sm and molecule, graphcast at the ogb_products cut; the
+    card against the CPU at depth 2; times. Returns the kernels line's
+    GNN entries (B2 and B2-bwd at graphcast's ogb cut and at
+    equiformer-v2's full_graph_sm)."""
+    import torch
+    from repro_torch import data
+    from repro_torch.configs import get
+    t_phase = time.perf_counter()
+    shapes = gnn_shapes()
+    ogb = f"ogb_products/{GNN_OGB_CUT}"
+    batches = {name: data.batch_for_shape(s, seed=0, device=dev)
+               for name, s in shapes.items()}
+    # the kernels at the widths each model gathers and aggregates
+    checks = [("graphcast", name) for name in (*GNN_SHAPE_NAMES, ogb)]
+    checks += [(arch, name) for arch in GNN_ARCHS[1:]
+               for name in GNN_SHAPE_NAMES]
+    errs = {}
+    for arch, name in checks:
+        g = batches[name]
+        d = message_width(get(arch))
+        errs[arch, name] = check_gnn_kernels(
+            dev, f"{arch} {name} (d {d})", g.edge_dst, g.num_nodes, d,
+            torch.bfloat16, weighted=True)
+    g = batches["full_graph_sm"]
+    nh = get("equiformer-v2").n_heads
+    check_gnn_kernels(dev, f"the edge softmax, full_graph_sm (d {nh})",
+                      g.edge_dst, g.num_nodes, nh, torch.float32,
+                      weighted=False)
+    log(f"phase 15 kernel checks: {time.perf_counter() - t_phase:.1f} s")
+
+    cells = {}
+    for arch in GNN_ARCHS:
+        for name in GNN_SHAPE_NAMES:
+            cells[arch, name] = gnn_train_cell(
+                dev, card, arch, shapes[name], batches[name],
+                # one step: its tens of thousands of launches a step make
+                # the profiler's post-processing take about a minute for
+                # two
+                profile=int((arch, name) == ("equiformer-v2",
+                                             "full_graph_sm")))
+            torch.cuda.empty_cache()
+    cells["graphcast", ogb] = gnn_train_cell(dev, card, "graphcast",
+                                             shapes[ogb], batches[ogb],
+                                             profile=2)
+    torch.cuda.empty_cache()
+    log("gnn-train summary (ms a step, edges/s, peak B): " + "; ".join(
+        f"{a} {n}: {c['ms']:.2f}, {c['edges_per_s']:.4g}, {c['peak']}"
+        for (a, n), c in cells.items()))
+    gnn_cpu_gate(dev)
+
+    entries = []
+    for arch, name in (("graphcast", ogb), ("equiformer-v2",
+                                            "full_graph_sm")):
+        g = batches[name]
+        entries += gnn_kernel_entries(
+            dev, f"{arch}_{name.split('/')[0]}", g.edge_dst, g.num_nodes,
+            message_width(get(arch)), torch.bfloat16,
+            cells[arch, name]["launches"], errs[arch, name], card)
+    del batches
+    log(f"phase 15 (GNN training): {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return entries
 
 
 class PhaseClock:
@@ -4851,7 +5287,11 @@ def main() -> None:
     clock.done("13 (LM training)")
     # ---------------------------------------------------- 14. MIND training
     kernels += mind_train_phase(dev, card)
+    torch.cuda.empty_cache()
     clock.done("14 (MIND training)")
+    # ---------------------------------------------------- 15. GNN training
+    kernels += gnn_train_phase(dev, card)
+    clock.done("15 (GNN training)")
     clock.summary()
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,9 @@
 """Configurations, input shapes and the ``--arch`` registry.
 
-A copy of the LM and recsys parts of the JAX package's ``configs/base.py``
-(``ShapeSpec``, ``LM_SHAPES``, ``RECSYS_SHAPES``, ``LMConfig``,
-``RecSysConfig``, ``register``, ``get``): the port imports nothing of that
-package. The GNN configurations and their shape set come with their
-slice.
+A copy of the JAX package's ``configs/base.py`` (``ShapeSpec``,
+``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``, ``LMConfig``,
+``GNNConfig``, ``RecSysConfig``, ``register``, ``get``): the port imports
+nothing of that package.
 """
 from __future__ import annotations
 
@@ -58,6 +57,18 @@ LM_SHAPES = (
     ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
     ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
     ShapeSpec("long_500k", "long_decode", seq_len=524288, global_batch=1),
+)
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "full_graph", n_nodes=2708, n_edges=10556,
+              d_feat=1433),
+    ShapeSpec("minibatch_lg", "minibatch", n_nodes=232965,
+              n_edges=114_615_892, batch_nodes=1024, fanout=(15, 10),
+              d_feat=602),
+    ShapeSpec("ogb_products", "full_graph", n_nodes=2_449_029,
+              n_edges=61_859_140, d_feat=100),
+    ShapeSpec("molecule", "batched_graphs", n_nodes=30, n_edges=64,
+              global_batch=128, d_feat=32),
 )
 
 RECSYS_SHAPES = (
@@ -139,6 +150,44 @@ class LMConfig:
             capacity_factor=8.0,   # no token drops at smoke-test scale
             window=window if window is not None else
             (64 if self.window else None))
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    family: str = "gnn"
+    flavor: str = "mpnn"           # mpnn | equivariant | escn
+    # graphcast
+    mesh_refinement: int = 0
+    aggregator: str = "sum"
+    n_vars: int = 0
+    # equivariant
+    l_max: int = 0
+    m_max: int = 0
+    n_rbf: int = 0
+    cutoff: float = 0.0
+    correlation_order: int = 1
+    n_heads: int = 0
+    act_dtype: str = "float32"     # activation/message dtype (mixed
+                                   # precision: bf16 on the big cells)
+    source: str = ""
+
+    @property
+    def shapes(self):
+        return GNN_SHAPES
+
+    def scaled(self, **kw):
+        """Reduced config of the same family for CPU smoke tests."""
+        return dataclasses.replace(
+            self, name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 2),
+            d_hidden=min(self.d_hidden, 32),
+            l_max=min(self.l_max, 2), m_max=min(self.m_max, 1),
+            mesh_refinement=min(self.mesh_refinement, 2),
+            n_vars=min(self.n_vars, 8) if self.n_vars else 0,
+            n_heads=min(self.n_heads, 2) if self.n_heads else 0, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

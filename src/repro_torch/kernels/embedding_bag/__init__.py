@@ -1,6 +1,7 @@
 from .kernel import (embedding_bag_bwd_cuda, embedding_bag_cuda,
                      embedding_lookup_cuda, geometry, load_library)
-from .ops import EmbeddingBag, embedding_bag, embedding_lookup
+from .ops import (EmbeddingBag, SegmentSum, embedding_bag, embedding_lookup,
+                  segment_sum)
 from .ref import (embedding_bag_bwd_emulate, embedding_bag_bwd_ref,
                   embedding_bag_ref, sorted_keys)
 
@@ -8,4 +9,4 @@ __all__ = ["EmbeddingBag", "embedding_bag", "embedding_bag_bwd_cuda",
            "embedding_bag_bwd_emulate", "embedding_bag_bwd_ref",
            "embedding_bag_cuda", "embedding_bag_ref", "embedding_lookup",
            "embedding_lookup_cuda", "geometry", "load_library",
-           "sorted_keys"]
+           "segment_sum", "SegmentSum", "sorted_keys"]

@@ -22,7 +22,10 @@ against its plain version, and the smoke MIND's
 B2-bwd against its plain backward (bit-equal on exact sums, its CPU
 emulation's bits on random ones, pads, a negative id, bfloat16, a hot
 row, two calls bit-identical) and the smoke MIND's train step on the card
-against the CPU.
+against the CPU; ``segment_sum`` (B2-bwd forward, B2 backward) against
+its CPU path, and each smoke GNN's gradients and train steps on the card
+against the CPU, with B2 and B2-bwd launched as ``gnn.kernel_calls``
+counts and a repeated step bit for bit.
 
 Every test is marked ``cuda`` and skips without a card. The file needs
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -1477,6 +1480,111 @@ def test_mind_train_step_on_the_card_matches_cpu(cuda_device, monkeypatch):
         torch.testing.assert_close(getattr(gpu_model, name).cpu(),
                                    getattr(cpu_model, name), rtol=1e-4,
                                    atol=1e-5)
+
+
+# ------------------------------------------------------- the GNNs (A11.4)
+def test_segment_sum_on_the_card(cuda_device):
+    """``segment_sum``: B2-bwd forward, B2 backward, one launch each;
+    exact sums bit-equal to the CPU path, out-of-range ids dropped,
+    random float32 and bfloat16 within each element's summation bound,
+    two calls with the same bits."""
+    rng = np.random.default_rng(0)
+    e, n, d = 5000, 300, 72
+    values = torch.from_numpy(rng.integers(-16, 17, (e, 3, d // 3))
+                              / 16.0).float()
+    seg = torch.from_numpy(rng.integers(-3, n + 3, e).astype(np.int32))
+    w = torch.from_numpy(rng.integers(0, 5, e) / 4.0).float()
+    want = b2.segment_sum(values, seg, n, w)
+    v_dev = values.to(cuda_device).requires_grad_(True)
+    before = (b2.kernel.launch_count, b2.kernel.bwd_launch_count)
+    out = b2.segment_sum(v_dev, seg.to(cuda_device), n, w.to(cuda_device))
+    gout = torch.from_numpy(rng.integers(-8, 9, (n, 3, d // 3)) / 8.0).float()
+    g, = torch.autograd.grad(out, v_dev, gout.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (b2.kernel.launch_count, b2.kernel.bwd_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out.detach().cpu(), want)
+    v_cpu = values.clone().requires_grad_(True)
+    g_cpu, = torch.autograd.grad(b2.segment_sum(v_cpu, seg, n, w), v_cpu,
+                                 gout)
+    assert torch.equal(g.cpu(), g_cpu)
+    assert not g.cpu()[(seg < 0) | (seg >= n)].any()
+    # random values, float32 and bfloat16: within each element's bound
+    # against the CPU path on the same inputs (two float32 orders of a
+    # row's n terms, 2 n u sum |terms|, and two roundings to bfloat16)
+    noisy = torch.randn((e, d), device=cuda_device)
+    ids = seg.to(cuda_device)
+    kept = seg[(seg >= 0) & (seg < n)].long()
+    count = torch.bincount(kept, minlength=n)[:, None]
+    for x, rounding in ((noisy, 0.0), (noisy.bfloat16(), 2.0 ** -7)):
+        got = b2.segment_sum(x, ids, n)
+        assert got.dtype == x.dtype
+        assert torch.equal(got, b2.segment_sum(x, ids, n))
+        want = b2.segment_sum(x.cpu(), seg, n).float()
+        absum = b2.segment_sum(x.cpu().float().abs(), seg, n)
+        bound = (2 * count * 2.0 ** -24 + rounding) * absum
+        assert ((got.cpu().float() - want).abs() <= bound).all()
+
+
+GNN_CARD_ARCHS = ["graphcast", "nequip", "mace", "equiformer-v2"]
+
+
+@pytest.mark.parametrize("arch", GNN_CARD_ARCHS)
+def test_gnn_train_step_on_the_card_matches_cpu(cuda_device, arch):
+    """A smoke GNN's gradients and two train steps on the card against
+    the CPU path on the same parameters (float32 without TF32; the card
+    sums in other orders), B2 and B2-bwd launched as ``kernel_calls``
+    counts, and a step repeated from the same state bit for bit."""
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamW
+    cfg = configs.get(arch).scaled()
+    cpu_model = gnn.init_gnn(cfg, 12, 8, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    g = gnn.random_graph_batch(np.random.default_rng(0), 40, 160, 12,
+                               device="cpu")
+    g_dev = g.to(cuda_device)
+
+    def grads(model, batch):
+        names, tensors = zip(*model.named_parameters())
+        with model.trainable():
+            loss = gnn.gnn_loss(model, cfg, batch, n_out=8)
+            gs = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                     materialize_grads=True)
+        return loss.detach(), dict(zip(names, gs))
+    loss_c, grads_c = grads(cpu_model, g)
+    loss_g, grads_g = grads(gpu_model, g_dev)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-6)
+    total = float(torch.sqrt(sum(x.square().sum() for x in grads_c.values())))
+    zero = gnn.ZERO_GRADIENT_LEAVES.get(arch, ())
+    for name, x in grads_c.items():
+        if zero and name.endswith(zero):      # rounding noise on both sides
+            assert float(grads_g[name].norm()) <= 1e-8 * total, name
+            assert float(x.norm()) <= 1e-8 * total, name
+            continue
+        gap = float((grads_g[name].cpu() - x).norm())
+        assert gap <= 1e-4 * max(float(x.norm()), 1e-6 * total), name
+    opt = AdamW(lr=1e-3)
+    step = gnn.make_gnn_train_step(cfg, opt, n_out=8)
+    states = [opt.init(m) for m in (cpu_model, gpu_model)]
+    for _ in range(2):
+        _, states[0], m_cpu = step(cpu_model, states[0], g)
+        before = (b2.kernel.launch_count, b2.kernel.bwd_launch_count)
+        _, states[1], m_gpu = step(gpu_model, states[1], g_dev)
+        torch.cuda.synchronize()
+        want = gnn.kernel_calls(cfg, 160)
+        assert (b2.kernel.launch_count - before[0],
+                b2.kernel.bwd_launch_count - before[1]) == (
+            want["B2"], want["B2-bwd"])
+        torch.testing.assert_close(m_gpu["loss"].cpu(), m_cpu["loss"],
+                                   rtol=1e-5, atol=1e-6)
+    saved = copy.deepcopy(gpu_model), copy.deepcopy(states[1])
+    _, _, m1 = step(gpu_model, states[1], g_dev)
+    first = [p.detach().clone() for p in gpu_model.parameters()]
+    model2, state2 = saved
+    _, _, m2 = step(model2, state2, g_dev)
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(first, model2.parameters()))
 
 
 # ------------------------------------------------- the sharded path (A10)

@@ -79,9 +79,6 @@ def test_chip_smoke_refuses_without_cuda():
 # names of the JAX package's ``__all__`` lists that the port does not
 # have yet, each with the ROADMAP item that brings it
 LATER = {
-    "configs": {"GNNConfig": "A11.4", "GNN_SHAPES": "A11.4"},
-    "data": {"graph_for_shape": "A11.4", "batch_for_shape": "A11.4"},
-    "graphs": {"sampler": "A11.4"},
     "launch": dict.fromkeys(
         ("make_production_mesh", "make_host_mesh", "sharding",
          "PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW_PER_LINK", "HBM_BYTES"),

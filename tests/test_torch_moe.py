@@ -110,9 +110,8 @@ def test_counts_and_shapes_equal_the_reference(arch):
 def test_lm_shapes_and_arch_order_equal_the_reference():
     assert ([dataclasses.asdict(s) for s in configs.LM_SHAPES]
             == [dataclasses.asdict(s) for s in ref_configs.LM_SHAPES])
-    # the reference's order, less its GNN configurations (A11.4)
-    ref_names = [c.name for c in ref_configs.ALL_ARCHS
-                 if c.family != "gnn"]
+    # the reference's order, its GNN configurations included
+    ref_names = [c.name for c in ref_configs.ALL_ARCHS]
     assert [c.name for c in configs.ALL_ARCHS] == ref_names
     assert [n for n in LMS if configs.get(n).sub_quadratic] == [
         "mixtral-8x7b"]
