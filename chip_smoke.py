@@ -185,8 +185,12 @@ Phases, each of which exits non-zero when it fails:
    against its plain version on the card: the shapes of the JAX
    package's ``TestEmbeddingBag`` with weights (rtol 1e-4, atol 1e-5),
    in float32 and with a bfloat16 table, pad ids and a negative id (row
-   0); then MIND's lookups (one-id bags) on its 10M-row table at the
-   shapes of phase 12, which must give the plain version's rows exactly;
+   0); lookups with the plain version's values and, where a row was
+   read, its bits: contiguous tables and unaligned views, d 64, 512,
+   6272, 13, 3 and 4, int32 and int64 ids, pads and a negative id, then
+   mask weights and L 8 at exact sums; then MIND's lookups (one-id bags)
+   on its 10M-row table at the shapes of phase 12, which must give the
+   plain version's rows exactly;
 12. the MIND serving path: ``configs/mind.py`` as it stands (vocab 10M,
    embed_dim 64, 4 interests, 3 routing iterations, hist_len 50),
    float32 parameters from a seeded generator; ``serve_step`` at
@@ -256,8 +260,9 @@ Phases, each of which exits non-zero when it fails:
    equiformer-v2 6272, bfloat16; the edge softmax's (E, 8) float32) on
    each cell's real edge lists, as the models call them (B2 gathering
    rows and, weighted by the edge mask, a segment-sum's gradient; B2-bwd
-   summing rows by destination): exact sums bit for bit, random values
-   within each element's summation bound, second calls bit-identical;
+   summing rows by destination, its walk split into column slabs):
+   exact sums bit for bit, random values within each element's summation
+   bound, second calls bit-identical;
    the four GNNs at their published widths and depths in bfloat16
    messages with float32 masters (the reference's production cells,
    ``launch/specs.py:210-216``: ``AdamW(lr=1e-3)``, n_out = n_vars or 16)
@@ -272,12 +277,14 @@ Phases, each of which exits non-zero when it fails:
    full_graph_sm (idle share, top kernels, B2's and B2-bwd's shares),
    and B2 and B2-bwd at those two cells beside their bounds, their plain
    versions, ``index_select`` and a zeroed tensor's ``index_add_`` (the
-   yardsticks, never called by the port).
+   yardsticks, never called by the port), B2 at the destinations and, in
+   a log line, at the sources (rows read out of order).
 
 Each phase's wall seconds are logged as it ends, and all of them before
 the kernels line. The line before the last is a JSON object describing
 each kernel (B1, B3, B2, B3-bwd and B2-bwd, and B2's and B2-bwd's GNN
-entries); the last line is ``{"ok": true, "device": {...}}``.
+entries; B2-bwd's with the form of its walk that the timed calls
+launched); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3721,6 +3728,68 @@ def check_b2_shapes(dev) -> None:
         fail("B2 negative id: not row 0 (the reference's clip)")
 
 
+def check_b2_views(dev) -> None:
+    """B2 held to the plain version: equal values everywhere, the same
+    bits wherever a row was read, a pad's row zeros and an id < 0 row 0;
+    contiguous tables and unaligned views, odd widths, equiformer-v2's d
+    6272 bfloat16, int32 and int64 ids; then weights and L > 1 at exact
+    sums. Each call launches the kernel once."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_ref,
+                                                   embedding_lookup_cuda)
+    from repro_torch.kernels.embedding_bag import kernel as b2
+    gen = torch.Generator(device=dev).manual_seed(11)
+    v, n = 300, 4000
+    ids = torch.randint(-2, v + 3, (n,), generator=gen, device=dev)
+    ids[0], ids[1] = v, -1                    # a pad, a negative id
+    read = ids < v
+    calls = 0
+
+    def one(label, table, idx, w=None):
+        nonlocal calls
+        before = b2.launch_count
+        out = (embedding_lookup_cuda(table, idx) if idx.dim() == 1
+               else embedding_bag_cuda(table, idx, w))
+        torch.cuda.synchronize()
+        bags = idx.reshape(-1, 1) if idx.dim() == 1 else idx
+        want = embedding_bag_ref(table, bags, w)
+        ok = b2.launch_count == before + 1 and torch.equal(out, want)
+        if idx.dim() == 1:
+            bits = torch.int16 if table.dtype == torch.bfloat16 else (
+                torch.int32)
+            ok = ok and torch.equal(out[read].view(bits),
+                                    want[read].view(bits))
+            ok = ok and not out[0].any() and torch.equal(out[1], table[0])
+        if not ok:
+            fail(f"B2 at {label}: not one launch, or not the plain "
+                 "version's values and bits")
+        calls += 1
+
+    for d, dtype in ((64, torch.float32), (512, torch.bfloat16),
+                     (6272, torch.bfloat16), (13, torch.float32),
+                     (3, torch.float32), (4, torch.bfloat16)):
+        base = torch.randn((v, d + 8), generator=gen, device=dev).to(dtype)
+        for view, table in (("contiguous", base[:, :d].contiguous()),
+                            ("a view 1 column in", base[:, 1:1 + d])):
+            for id_dtype in (torch.int32, torch.int64):
+                one(f"d {d} {str(dtype)[6:]}, {view}, ids "
+                    f"{str(id_dtype)[6:]}", table, ids.to(id_dtype))
+    # weights (a segment-sum's gradient with the edge mask) and L > 1:
+    # multiples of 1/4 by weights in {0, 1/2, 1}, exact in any order
+    table = (torch.randint(-4, 5, (v, 512), generator=gen, device=dev)
+             / 4.0).bfloat16()
+    mask = torch.randint(0, 3, (n, 1), generator=gen, device=dev) / 2.0
+    one("d 512 bfloat16, mask weights", table, ids[:, None], mask)
+    one("d 512 bfloat16, L 8", table, ids.view(-1, 8))
+    one("d 512 bfloat16, L 8, weights", table, ids.view(-1, 8).int(),
+        mask.view(-1, 8))
+    log(f"B2 views: {calls} calls (contiguous tables and unaligned views, "
+        f"d 64, 512, 6272, 13, 3, 4, int32 and int64 ids, pads, a negative "
+        f"id; weights and L 8): the plain version's values and, where a "
+        f"row was read, its bits")
+
+
 # --------------------------------------------------------------- phase 12
 def zipf_ids(rng, shape, vocab) -> np.ndarray:
     """int32 item ids in [0, vocab) whose popularity follows Zipf(ZIPF_A)."""
@@ -4557,6 +4626,22 @@ def check_b2_bwd_shapes(dev) -> None:
         fail("B2-bwd hot run: calls differ, or not the emulation's bits")
 
 
+def timed_walk_form(b2, timing, aligned):
+    """``timing()`` (a timed series of B2-bwd calls) with the per-form
+    launch counts reset before it, and the form of the walk those calls
+    launched, read from the counts after it: fails unless every call took
+    one form and it is the one ``bwd_form`` names for dout's alignment.
+    Returns (``timing()``'s result, the form)."""
+    b2.bwd_launch_counts = dict.fromkeys(b2.BWD_FORMS, 0)
+    result = timing()
+    ran = [f for f, c in b2.bwd_launch_counts.items() if c]
+    if ran != [b2.bwd_form(aligned)]:
+        fail(f"B2-bwd's timed calls launched the walk's forms "
+             f"{b2.bwd_launch_counts}; expected only "
+             f"{b2.bwd_form(aligned)!r}")
+    return result, ran[0]
+
+
 def b2_bwd_entry(dout, idx, num_rows, launches, err, card) -> dict:
     """Time B2-bwd as the train step calls it (``embedding_bag_bwd_cuda``
     on the step's dout and one-id bags), its plain version and a zeroed
@@ -4576,8 +4661,12 @@ def b2_bwd_entry(dout, idx, num_rows, launches, err, card) -> dict:
     def library_call():
         return torch.zeros((num_rows, d), dtype=dout.dtype,
                            device=dout.device).index_add_(0, keys, rows)
-    ms = time_ms(lambda: embedding_bag_bwd_cuda(dout, idx, None, num_rows),
-                 reps=5)
+    from repro_torch.kernels.embedding_bag import kernel as b2
+    ms, form = timed_walk_form(
+        b2, lambda: time_ms(
+            lambda: embedding_bag_bwd_cuda(dout, idx, None, num_rows),
+            reps=5),
+        dout.data_ptr() % 16 == 0 and d * dout.element_size() % 16 == 0)
     sort_ms = time_ms(lambda: sorted_keys(idx, num_rows), reps=5)
     plain_ms = time_ms(lambda: embedding_bag_bwd_ref(dout, idx, None,
                                                      num_rows), reps=2)
@@ -4603,6 +4692,7 @@ def b2_bwd_entry(dout, idx, num_rows, launches, err, card) -> dict:
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "none: the reference's XLA autodiff of "
                     "src/repro/models/recsys.py:45 lookup",
+        "path": form,
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
@@ -4902,18 +4992,21 @@ def check_gnn_kernels(dev, label, ids, n, d, dtype, *, weighted) -> float:
     return err
 
 
-def gnn_kernel_entries(dev, label, ids, n, d, dtype, launches, err,
-                       card) -> list[dict]:
-    """Time B2 (the gather) and B2-bwd (the segment-sum with the mask's
-    weights) at one GNN shape, as the GNN calls them, beside their plain
-    versions, ``index_select`` and a zeroed tensor's ``index_add_`` (the
-    yardsticks, which the port never calls); bounds from this run's ids.
+def gnn_kernel_entries(dev, label, ids, src_ids, n, d, dtype, launches,
+                       err, card) -> list[dict]:
+    """Time B2 (the gather of the destinations ``ids``) and B2-bwd (the
+    segment-sum by destination with the mask's weights) at one GNN shape,
+    as the GNN calls them, beside their plain versions, ``index_select``
+    and a zeroed tensor's ``index_add_`` (the yardsticks, which the port
+    never calls); bounds from this run's ids. B2 at the sources
+    ``src_ids`` (rows read out of order) is timed and logged beside it.
     Returns the two entries of the kernels line."""
     import torch
     from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
                                                    embedding_bag_bwd_ref,
                                                    embedding_bag_ref,
                                                    embedding_lookup_cuda)
+    from repro_torch.kernels.embedding_bag import kernel as b2
     gen = torch.Generator(device=dev).manual_seed(16)
     e = ids.numel()
     bags = ids[:, None]
@@ -4929,8 +5022,20 @@ def gnn_kernel_entries(dev, label, ids, n, d, dtype, launches, err,
     fwd_lib = time_ms(lambda: table.index_select(0, long_ids), reps=reps)
     fwd_bytes = e * ids.element_size() + distinct * d * es + e * d * es
     fwd_bound = fwd_bytes / PEAK_BYTES_PER_S * 1e3
-    bwd_ms = time_ms(lambda: embedding_bag_bwd_cuda(values, bags, mask, n),
+    src_long = src_ids.long()
+    src_ms = time_ms(lambda: embedding_lookup_cuda(table, src_ids),
                      reps=reps)
+    src_lib = time_ms(lambda: table.index_select(0, src_long), reps=reps)
+    src_distinct = int(torch.unique(src_ids).numel())
+    src_bytes = (e * src_ids.element_size() + src_distinct * d * es
+                 + e * d * es)
+    src_bound = src_bytes / PEAK_BYTES_PER_S * 1e3
+    src_same = torch.equal(embedding_lookup_cuda(table, src_ids),
+                           table.index_select(0, src_long))
+    bwd_ms, form = timed_walk_form(
+        b2, lambda: time_ms(
+            lambda: embedding_bag_bwd_cuda(values, bags, mask, n), reps=reps),
+        values.data_ptr() % 16 == 0 and d * es % 16 == 0)
     bwd_plain = time_ms(
         lambda: embedding_bag_bwd_ref(values, bags, mask, n), reps=3)
     bwd_lib = time_ms(lambda: torch.zeros((n, d), dtype=dtype, device=dev)
@@ -4943,9 +5048,15 @@ def gnn_kernel_entries(dev, label, ids, n, d, dtype, launches, err,
         f"{distinct} distinct): {fwd_ms!r} ms; bound {fwd_bound!r} ms "
         f"({fwd_bytes} B at {PEAK_BYTES_PER_S / 1e12} TB/s); plain version "
         f"{fwd_plain!r} ms; index_select {fwd_lib!r} ms ({card})")
+    log(f"B2 source gather at {label} (edge_src, rows read out of order, "
+        f"{src_distinct} distinct): {src_ms!r} ms; bound {src_bound!r} "
+        f"ms; index_select {src_lib!r} ms; its rows bit-equal {src_same} "
+        f"({card})")
+    if not src_same:
+        fail(f"B2 at {label}'s sources: not index_select's rows")
     log(f"B2-bwd segment-sum at {label} ((E, d) = ({e}, {d}) into {n} "
-        f"rows, mask weights): {bwd_ms!r} ms; bound {bwd_bound!r} ms "
-        f"({bwd_bytes} B); plain version {bwd_plain!r} ms; zeros + "
+        f"rows, mask weights, walk {form!r}): {bwd_ms!r} ms; bound "
+        f"{bwd_bound!r} ms ({bwd_bytes} B); plain version {bwd_plain!r} ms; zeros + "
         f"index_add_ {bwd_lib!r} ms ({card})")
     common = {"route": "cuda",
               "source": "src/repro_torch/csrc/embedding_bag.cu"}
@@ -4958,7 +5069,8 @@ def gnn_kernel_entries(dev, label, ids, n, d, dtype, launches, err,
         {"name": f"embedding_bag_bwd/gnn_{label}", **common,
          "replaces": "none: the reference's jax.ops.segment_sum in "
                      "src/repro/models/gnn.py:85 aggregate",
-         "launches": launches[1], "max_abs_err": err, "ms": bwd_ms,
+         "path": form, "launches": launches[1], "max_abs_err": err,
+         "ms": bwd_ms,
          "plain_ms": bwd_plain, "bound_ms": bwd_bound,
          "bound_by": ("bytes" if bwd_bytes_ms >= bwd_ops_ms
                       else "operations"),
@@ -5171,8 +5283,8 @@ def gnn_train_phase(dev, card) -> list[dict]:
                                             "full_graph_sm")):
         g = batches[name]
         entries += gnn_kernel_entries(
-            dev, f"{arch}_{name.split('/')[0]}", g.edge_dst, g.num_nodes,
-            message_width(get(arch)), torch.bfloat16,
+            dev, f"{arch}_{name.split('/')[0]}", g.edge_dst, g.edge_src,
+            g.num_nodes, message_width(get(arch)), torch.bfloat16,
             cells[arch, name]["launches"], errs[arch, name], card)
     del batches
     log(f"phase 15 (GNN training): {time.perf_counter() - t_phase:.1f} s "
@@ -5277,6 +5389,7 @@ def main() -> None:
     clock.done("10b (MoE and SWA)")
     # ---------------------------------------------------- 11. B2 checks
     check_b2_shapes(dev)
+    check_b2_views(dev)
     # ---------------------------------------------------- 11-12. MIND serving
     kernels += mind_phases(dev, card)
     torch.cuda.empty_cache()

@@ -15,28 +15,27 @@
 //
 // Bound: bytes. A call must read each id once, each distinct valid row
 // once and write the output once; there is one multiply-add per id and
-// column, far below the card's arithmetic rate. MIND's lookups are
-// one-id bags (L = 1), so the output (4 B per id and column) dominates.
+// column, far below the card's arithmetic rate. MIND's lookups and the
+// GNNs' gathers are one-id bags (L = 1), so the output dominates.
 //
 // Design. The TPU kernel tiles the vocabulary through VMEM and turns the
 // gather into a one-hot matrix product, and its wrapper pads V to 512, B
-// to 8 and d to 128 (twice MIND's bytes at d = 64). Here rows are read
-// by index directly and nothing is padded:
-//   - one group of G = min(ceil(d / kVec), kThreads) threads owns one
-//     bag, kVec = 16 / sizeof(T) columns per thread (4 float32, 8
-//     bfloat16), so several bags share a warp when d <= 64 (float32);
-//     for d > G * kVec a thread walks further column chunks;
-//   - each thread keeps a float32 accumulator for its chunk, walks the
-//     bag's L ids, skips an id >= V without reading its row, clips an id
-//     < 0 to row 0 (as the reference's clip does), multiplies by the
-//     weight when there is one, and writes its chunk in the table's dtype;
-//   - a full chunk at a 16-byte aligned address is one 16-byte load (and
-//     one 16-byte store); a partial chunk (d % kVec != 0) or an unaligned
-//     row (odd d, a table view at an odd offset) goes value by value;
-//   - every offset is 64-bit: MIND's 10M x 64 float32 table is 2.56 GB
-//     and its serve_bulk output 838,860,800 values.
-// The launch geometry is computed by the wrapper (kernel.py::geometry),
-// which the CPU tests hold against a torch emulation of this loop.
+// to 8 and d to 128. Here rows are read by index directly and nothing is
+// padded. A group of G = min(ceil(d / kVec), kThreads) threads owns a
+// bag, kVec = 16 / sizeof(T) columns per thread, several bags to a warp
+// when d <= 64 (float32); persistent blocks (as many as are resident)
+// stride over the bags. A thread loads kSimtBatch ids (and weights), then
+// requests their rows, before its first add (for L = 1, the ids of
+// kSimtBatch bags), so neither an id nor a row load waits on the one
+// before it; it sums in float32 in order of l with fmaf (weights) or
+// adds. Full aligned chunks are one 16-byte load and store, a partial
+// chunk (d % kVec != 0) or an unaligned row goes value by value. An id
+// >= V is skipped without reading its row. Every offset is 64-bit:
+// MIND's 10M x 64 float32 table is 2.56 GB and its serve_bulk output
+// 838,860,800 values.
+// The launch geometry is computed by the wrapper (kernel.py::geometry,
+// persistent_blocks), which the CPU tests hold against a torch emulation
+// of this loop.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,27 +49,54 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// 16 bytes at a 16-byte aligned p into v[0..kVec)
-__device__ __forceinline__ void load16(const float* p, float* v) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+// 16 raw bytes as kVec values: float32 as they are, bfloat16 with the
+// lower half of each word the first value
+__device__ __forceinline__ void unpack16(const uint4 x, float* v,
+                                         const float*) {
+  v[0] = __uint_as_float(x.x); v[1] = __uint_as_float(x.y);
+  v[2] = __uint_as_float(x.z); v[3] = __uint_as_float(x.w);
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* v) {
-  const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ void unpack16(const uint4 x, float* v,
+                                         const __nv_bfloat16*) {
   const unsigned words[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {   // the lower half holds the first value
+  for (int i = 0; i < 4; ++i) {
     v[2 * i] = __uint_as_float(words[i] << 16);
     v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
+}
+
+// the 16 bytes of columns [c0, c0 + kVec) of a row (p = row + c0): one
+// load when they are all in the row and 16-byte aligned, else value by
+// value, zeros past d
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* p, int c0, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (c0 + kVec <= d && aligned16(p)) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  if constexpr (sizeof(T) == 4) {
+    unsigned f[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + j < d) f[j] = __ldg(reinterpret_cast<const unsigned*>(p) + j);
+    }
+    return make_uint4(f[0], f[1], f[2], f[3]);
+  } else {
+    unsigned h[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (c0 + j < d) {
+        h[j] = __ldg(reinterpret_cast<const unsigned short*>(p) + j);
+      }
+    }
+    return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                      h[4] | (h[5] << 16), h[6] | (h[7] << 16));
   }
 }
 
@@ -89,6 +115,59 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
                                             words[3]);
 }
 
+// kVec values at p = row + c0 in T: one 16-byte store when full and
+// aligned, else value by value up to d
+template <typename T>
+__device__ __forceinline__ void write_chunk(T* p, const float* v, int c0,
+                                            int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (c0 + kVec <= d && aligned16(p)) {
+    store16(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (c0 + j < d) store_one(p + j, v[j]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void read_chunk(const T* p, float* v, int c0,
+                                           int d) {
+  unpack16(load_raw(p, c0, d), v, p);
+}
+
+// ----------------------------------------- asynchronous copies (sm_90)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Dynamic shared memory above 48 KB, opted into once per kernel and
+// process (the attribute stays set; a second call would only cost host
+// time on every launch).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool* done) {
+  if (*done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
+
+constexpr int kSimtBatch = 4;     // ids, and their rows, in flight a thread
+
 template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const T* __restrict__ table, long long V, long long ld,
@@ -101,48 +180,91 @@ embedding_bag_kernel(const T* __restrict__ table, long long V, long long ld,
   const int slot = threadIdx.x / group;
   const int t = threadIdx.x - slot * group;
   if (slot >= bags_per_block) return;
-  const long long b = (long long)blockIdx.x * bags_per_block + slot;
-  if (b >= B) return;
-  const I* bag_idx = idx + b * idx_sb;
-  const float* bag_w = w == nullptr ? nullptr : w + b * w_sb;
-  T* out_row = out + b * (long long)d;
+  const long long first = (long long)blockIdx.x * bags_per_block + slot;
+  const long long stride = (long long)gridDim.x * bags_per_block;
 
   for (int c0 = t * kVec; c0 < d; c0 += group * kVec) {
-    const bool full = c0 + kVec <= d;
-    float acc[kVec];
+    if (L == 1) {
+      // one id a bag: kSimtBatch bags' ids, then their rows, in flight
+      for (long long b0 = first; b0 < B; b0 += kSimtBatch * stride) {
+        long long id[kSimtBatch];
+        float wt[kSimtBatch];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      long long id = (long long)bag_idx[(long long)l * idx_sl];
-      if (id >= V) continue;                 // pad: its row is never read
-      if (id < 0) id = 0;
-      const T* row = table + id * ld + c0;
-      float v[kVec];
-      if (full && aligned16(row)) {
-        load16(row, v);
-      } else {
+        for (int j = 0; j < kSimtBatch; ++j) {
+          const long long b = b0 + j * stride;
+          id[j] = b < B ? (long long)idx[b * idx_sb] : V;
+          wt[j] = (w != nullptr && id[j] < V) ? w[b * w_sb] : 1.0f;
+        }
+        uint4 raw[kSimtBatch];
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          v[j] = c0 + j < d ? to_float(row[j]) : 0.0f;
+        for (int j = 0; j < kSimtBatch; ++j) {
+          raw[j] = make_uint4(0u, 0u, 0u, 0u);
+          if (id[j] < V) {
+            raw[j] = load_raw(table + max(id[j], 0LL) * ld + c0, c0, d);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSimtBatch; ++j) {
+          const long long b = b0 + j * stride;
+          if (b >= B) break;
+          float acc[kVec];
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) acc[k] = 0.0f;
+          if (id[j] < V) {
+            float v[kVec];
+            unpack16(raw[j], v, table);
+            if (w != nullptr) {
+#pragma unroll
+              for (int k = 0; k < kVec; ++k) acc[k] = fmaf(wt[j], v[k], acc[k]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < kVec; ++k) acc[k] += v[k];
+            }
+          }
+          write_chunk(out + b * (long long)d + c0, acc, c0, d);
         }
       }
-      if (bag_w != nullptr) {
-        const float wt = bag_w[(long long)l * w_sl];
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] = fmaf(wt, v[j], acc[j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] += v[j];
-      }
+      continue;
     }
-    T* o = out_row + c0;
-    if (full && aligned16(o)) {
-      store16(o, acc);
-    } else {
+    for (long long b = first; b < B; b += stride) {
+      const I* bag_idx = idx + b * idx_sb;
+      const float* bag_w = w == nullptr ? nullptr : w + b * w_sb;
+      float acc[kVec];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        if (c0 + j < d) store_one(o + j, acc[j]);
+      for (int k = 0; k < kVec; ++k) acc[k] = 0.0f;
+      for (int l0 = 0; l0 < L; l0 += kSimtBatch) {
+        long long id[kSimtBatch];
+        float wt[kSimtBatch];
+#pragma unroll
+        for (int j = 0; j < kSimtBatch; ++j) {
+          const int l = l0 + j;
+          id[j] = l < L ? (long long)bag_idx[(long long)l * idx_sl] : V;
+          wt[j] = (bag_w != nullptr && id[j] < V)
+                      ? bag_w[(long long)l * w_sl] : 1.0f;
+        }
+        uint4 raw[kSimtBatch];
+#pragma unroll
+        for (int j = 0; j < kSimtBatch; ++j) {
+          raw[j] = make_uint4(0u, 0u, 0u, 0u);
+          if (id[j] < V) {                   // pad: its row is never read
+            raw[j] = load_raw(table + max(id[j], 0LL) * ld + c0, c0, d);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSimtBatch; ++j) {
+          if (id[j] >= V) continue;
+          float v[kVec];
+          unpack16(raw[j], v, table);
+          if (bag_w != nullptr) {
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) acc[k] = fmaf(wt[j], v[k], acc[k]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) acc[k] += v[k];
+          }
+        }
       }
+      write_chunk(out + b * (long long)d + c0, acc, c0, d);
     }
   }
 }
@@ -166,7 +288,7 @@ enum Arg {
   kL,
   kD,
   kGroup,       // threads per bag (kernel.py::geometry)
-  kBlocks,      // blocks of kThreads
+  kBlocks,      // persistent blocks (kernel.py::persistent_blocks)
   kNumArgs
 };
 
@@ -186,7 +308,6 @@ cudaError_t launch(const long long* a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-
 // ------------------------------------------------------------- backward
 // B2-bwd: the gradient of the bag sums with respect to the table.
 //
@@ -194,33 +315,48 @@ cudaError_t launch(const long long* a, cudaStream_t stream) {
 //                idx[b, l] < V of w[b, l] * dout[b, :];  zero elsewhere
 //
 // Replaces no TPU kernel: the JAX package differentiates its XLA lookup
-// (take + clip + mask). MIND's training step needs it for every table
-// gradient, dense in (V, d) as the reference's optimizer reads it.
+// (take + clip + mask), and its GNNs sum messages with
+// jax.ops.segment_sum. MIND's training step needs it for every table
+// gradient, dense in (V, d) as the reference's optimizer reads it; the
+// GNNs for every aggregate and every gather's gradient.
 //
 // Bound: bytes. A call must read each valid entry's dout row once, each id
-// once, and write the (V, d) gradient once; at MIND's train_batch the
-// gradient (2.56 GB) dominates.
+// once, and write the (V, d) gradient once.
 //
 // Design: deterministic, no float atomics. The wrapper sorts the entries
 // stably by key (the row an entry reads; pads get the key V and sort
-// last), so each row's entries form one run, in entry order. Then:
-//   - bwd_chunk_kernel: one group of threads (kernel.py::geometry) walks
-//     one fixed-size chunk of the sorted stream with a float32
-//     accumulator per 16-byte column chunk, w * dout rounded before the
+// last), so each row's entries form one run, in entry order. The sorted
+// stream is cut into chunks of `chunk` entries, and the columns into
+// slabs: a team of threads, one 16-byte column chunk each, owns one
+// (chunk, slab). A slab is what one warp covers (256 bfloat16 or 128
+// float32 columns); where d is narrower, a team is ceil(d / kVec) threads
+// and several chunks share a warp. A block holds `cpb` chunks x `spb`
+// slabs (kernel.py::bwd_geometry), a grid of chunk groups x slab groups.
+//   - bwd_chunk_kernel: the block first copies its chunks' keys, the dout
+//     row of each entry (perm / L) and its weight into shared memory, in
+//     coalesced loads; each team then finds its chunk's valid end (pads
+//     sort last: a binary search) and walks the entries in order, every
+//     key and row index from shared memory, so no load of the walk waits
+//     on another. The entries' dout slabs stream through a ring of kRing
+//     slots in shared memory, kRing entries in flight, by 16-byte cp.async
+//     copies per thread ("cp.async"), or, for rows that are not 16-byte
+//     aligned, by synchronous loads ("sync"). Each column sums in float32, w * dout rounded before the
 //     add (__fmul_rn, __fadd_rn: the CPU emulation's bits). A run that
 //     lies inside the chunk is written to its row directly; a run that
 //     crosses chunk edges leaves a partial: the chunk's first run, when it
 //     began in an earlier chunk, in the chunk's "head" slot, and its last
-//     run, when it goes on into the next chunk, in its "tail" slot. Every
-//     row it sees gets its `present` byte set.
+//     run, when it goes on into the next chunk, in its "tail" slot. Slab
+//     0 sets the `present` byte of every row it sees.
 //   - bwd_combine_kernel: the chunk whose tail starts a crossing run adds
 //     the following chunks' head partials to it in chunk order (eight
-//     loads in flight at a time) and writes the row. A row of 300k entries
-//     at chunk 256 is 1,172 chunks summed in parallel, then 1,171 adds.
+//     loads in flight at a time) and writes the row, slab by slab.
 //   - bwd_zero_kernel: writes zeros to every row whose `present` byte is
 //     unset, so each gradient row is written once.
-// The same inputs give the same bits on every call: no step depends on
-// the order in which blocks run.
+// Splitting a chunk's columns over teams changes no column's order of
+// sums. The same inputs give the same bits on every call: no step depends
+// on the order in which blocks run.
+
+constexpr int kRing = 8;      // ring slots of the walk: entries in flight
 
 // one float32 chunk of kVec columns at c0 (elementwise: partials are
 // float32 whatever T is, and their rows need not be 16-byte aligned)
@@ -233,99 +369,173 @@ __device__ __forceinline__ void store_f32(float* p, const float* v, int c0,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void write_chunk(T* p, const float* v, int c0,
-                                            int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (c0 + kVec <= d && aligned16(p)) {
-    store16(p, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      if (c0 + j < d) store_one(p + j, v[j]);
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void read_chunk(const T* p, float* v, int c0,
-                                           int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (c0 + kVec <= d && aligned16(p)) {
-    load16(p, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      v[j] = c0 + j < d ? to_float(p[j]) : 0.0f;
-    }
-  }
-}
-
-// the group and chunk of a thread: false when its slot holds no chunk
-struct Slot {
-  long long c;    // chunk (or row, for the zero kernel)
-  int t;          // thread within the group
+struct BwdParams {
+  const void* dout;             // (B, d) contiguous
+  const int* keys;              // (n,) sorted keys, pads = V
+  const long long* perm;        // (n,) entry positions b * L + l
+  const float* w;               // (B, L) contiguous, or null for ones
+  long long L, n, V;
+  int d;
+  int chunk;                    // entries a chunk
+  int team;                     // threads a (chunk, slab)
+  int slab_cols;                // columns a slab: team * kVec
+  int cpb, spb;                 // chunks and slabs a block
+  void* grad;                   // (V, d) contiguous
+  unsigned char* present;       // (V,) zeroed
+  float* partials;              // (chunks, 2, d) float32
 };
 
-__device__ __forceinline__ bool slot_of(int group, Slot* s) {
-  const int per_block = kThreads / group;
-  const int slot = threadIdx.x / group;
-  if (slot >= per_block) return false;
-  s->t = threadIdx.x - slot * group;
-  s->c = (long long)blockIdx.x * per_block + slot;
-  return true;
+// the team of this thread: its chunk (or row) slot in the block, its
+// slab, and its lane in the team; false for threads past the block's teams
+struct Team {
+  int cl;                       // chunk (row) slot within the block
+  int slab;
+  int lane;
+};
+
+__device__ __forceinline__ bool team_of(const BwdParams& p, Team* m) {
+  const int tm = threadIdx.x / p.team;
+  if (tm >= p.cpb * p.spb) return false;
+  m->lane = threadIdx.x - tm * p.team;
+  m->cl = tm / p.spb;
+  m->slab = blockIdx.y * p.spb + tm % p.spb;
+  return (long long)m->slab * p.slab_cols < p.d;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_chunk_kernel(const T* __restrict__ dout, const int* __restrict__ keys,
-                 const long long* __restrict__ perm,
-                 const float* __restrict__ w, long long L, long long n,
-                 long long V, int d, int group, int chunk,
-                 T* __restrict__ grad, unsigned char* __restrict__ present,
-                 float* __restrict__ partials) {
-  constexpr int kVec = 16 / sizeof(T);
-  Slot sl;
-  if (!slot_of(group, &sl)) return;
-  const long long s = sl.c * chunk;
-  if (s >= n) return;
-  const long long e_end = min(s + (long long)chunk, n);
-  const int first = keys[s];
-  if (first >= V) return;                    // pads only: they sort last
-  const bool head_continues = s > 0 && keys[s - 1] == first;
-  const int last = keys[e_end - 1];
-  const bool tail_continues = last < V && e_end < n && keys[e_end] == last;
-  float* head = partials + sl.c * 2 * (long long)d;
-  float* tail = head + d;
+// shared memory of the chunk kernel: the staged keys (span + 2: the key
+// before the block's first entry and after its last, or -1), row indices,
+// weights, then the ring
+struct BwdSmem {
+  int span;
+  size_t rows, weights, ring, total;
+};
 
-  for (int c0 = sl.t * kVec; c0 < d; c0 += group * kVec) {
-    const bool mark = c0 == sl.t * kVec && sl.t == 0;
-    float acc[kVec];
+__host__ __device__ inline size_t round_up(size_t x, size_t m) {
+  return (x + m - 1) / m * m;
+}
+
+__host__ __device__ inline BwdSmem bwd_smem(int span, bool weighted,
+                                            int form, int threads) {
+  BwdSmem s;
+  s.span = span;
+  s.rows = round_up((size_t)(span + 2) * 4, 16);
+  s.weights = s.rows + round_up((size_t)span * 4, 16);
+  s.ring = round_up(s.weights + (weighted ? (size_t)span * 4 : 0), 128);
+  s.total = s.ring + (form ? (size_t)kRing * threads * 16 : 0);
+  return s;
+}
+
+enum Form { kSync = 0, kCpAsync = 1 };
+
+template <typename T, int kForm>
+__global__ void __launch_bounds__(kThreads)
+bwd_chunk_kernel(const BwdParams p) {
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int span = p.cpb * p.chunk;
+  const BwdSmem sm = bwd_smem(span, p.w != nullptr, kForm, blockDim.x);
+  int* ks = reinterpret_cast<int*>(smem);
+  int* rows_s = reinterpret_cast<int*>(smem + sm.rows);
+  float* ws = reinterpret_cast<float*>(smem + sm.weights);
+  unsigned char* ring = smem + sm.ring;
+
+  // stage the block's entries [S0, S1)
+  const long long S0 = (long long)blockIdx.x * span;
+  const long long S1 = min(S0 + span, p.n);
+  for (int i = threadIdx.x; i < span + 2; i += blockDim.x) {
+    const long long e = S0 - 1 + i;
+    ks[i] = (e >= 0 && e < p.n && e <= S1) ? p.keys[e] : -1;
+  }
+  for (int i = threadIdx.x; i < (int)(S1 - S0); i += blockDim.x) {
+    const long long pe = p.perm[S0 + i];
+    rows_s[i] = (int)(pe / p.L);
+    if (p.w != nullptr) ws[i] = p.w[pe];
+  }
+  __syncthreads();
+
+  Team m;
+  if (!team_of(p, &m)) return;
+  const long long c = (long long)blockIdx.x * p.cpb + m.cl;
+  const long long s = c * p.chunk;
+  if (s >= p.n) return;
+  const int base = (int)(s - S0);            // the chunk's first slot
+  const int cnt = (int)(min(s + p.chunk, p.n) - s);
+  const int first = ks[base + 1];
+  if (first >= p.V) return;                  // pads only: they sort last
+  int lo = 0, hi = cnt;                      // the first pad, or cnt
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ks[base + 1 + mid] < p.V) lo = mid + 1; else hi = mid;
+  }
+  const int nv = lo;
+  const bool head_continues = ks[base] == first;
+  const int last = ks[base + cnt];
+  const bool tail_continues = last < p.V && ks[base + cnt + 1] == last;
+
+  const int d = p.d;
+  const int slab0 = m.slab * p.slab_cols;
+  const int c0 = slab0 + m.lane * kVec;
+  const bool active = c0 < d;
+  const T* dout = static_cast<const T*>(p.dout);
+  T* grad = static_cast<T*>(p.grad);
+  float* head = p.partials + c * 2 * (long long)d;
+  float* tail = head + d;
+  const bool mark = m.slab == 0 && m.lane == 0;
+
+  auto issue = [&](int e) {
+    if constexpr (kForm == kCpAsync) {
+      if (active && e < nv) {
+        cp_async16(smem_u32(ring) +
+                       16u * ((e % kRing) * blockDim.x + threadIdx.x),
+                   dout + (long long)rows_s[base + e] * d + c0);
+      }
+      cp_async_commit();
+    }
+  };
+
+  float acc[kVec];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
-    int run_key = first;
-    long long run_start = s;
-    long long e = s;
-    for (; e < e_end; ++e) {
-      const int k = keys[e];
-      if (k >= V) break;
-      if (k != run_key) {                    // the run [run_start, e) ends
-        if (run_start == s && head_continues) {
+  for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
+  int run_key = first;
+  int run_start = 0;
+  for (int k = 0; k < kRing - 1; ++k) issue(k);
+  for (int e = 0; e < nv; ++e) {
+    float v[kVec];
+    if constexpr (kForm == kSync) {
+      if (active) {
+        read_chunk(dout + (long long)rows_s[base + e] * d + c0, v, c0, d);
+      }
+    } else {
+      issue(e + kRing - 1);
+      cp_async_wait<kRing - 1>();            // entry e has landed
+      if (active) {
+        uint4 x;
+        const uint32_t a = smem_u32(ring) +
+                           16u * ((e % kRing) * blockDim.x + threadIdx.x);
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+                     : "r"(a));
+        unpack16(x, v, dout);
+      }
+    }
+    const int k = ks[base + 1 + e];
+    if (k != run_key) {                      // the run [run_start, e) ends
+      if (active) {
+        if (run_start == 0 && head_continues) {
           store_f32<kVec>(head + c0, acc, c0, d);
         } else {
           write_chunk(grad + (long long)run_key * d + c0, acc, c0, d);
         }
-        if (mark) present[run_key] = 1;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
-        run_key = k;
-        run_start = e;
       }
-      const long long p = perm[e];
-      float v[kVec];
-      read_chunk(dout + (p / L) * d + c0, v, c0, d);
-      if (w != nullptr) {
-        const float wt = w[p];
+      if (mark) p.present[run_key] = 1;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
+      run_key = k;
+      run_start = e;
+    }
+    if (active) {
+      if (p.w != nullptr) {
+        const float wt = ws[base + e];
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
           acc[j] = __fadd_rn(acc[j], __fmul_rn(wt, v[j]));
@@ -335,88 +545,94 @@ bwd_chunk_kernel(const T* __restrict__ dout, const int* __restrict__ keys,
         for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], v[j]);
       }
     }
-    // the last run, [run_start, e)
-    if (run_start == s && head_continues) {
+  }
+  if constexpr (kForm == kCpAsync) cp_async_wait<0>();
+  // the last run, [run_start, nv)
+  if (active) {
+    if (run_start == 0 && head_continues) {
       store_f32<kVec>(head + c0, acc, c0, d);
-    } else if (e == e_end && tail_continues) {
+    } else if (tail_continues) {
       store_f32<kVec>(tail + c0, acc, c0, d);
     } else {
       write_chunk(grad + (long long)run_key * d + c0, acc, c0, d);
     }
-    if (mark) present[run_key] = 1;
   }
+  if (mark) p.present[run_key] = 1;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_combine_kernel(const int* __restrict__ keys, long long n, long long V,
-                   int d, int group, int chunk,
-                   const float* __restrict__ partials, T* __restrict__ grad) {
+bwd_combine_kernel(const BwdParams p) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kAhead = 8;
-  Slot sl;
-  if (!slot_of(group, &sl)) return;
-  const long long s = sl.c * chunk;
+  Team m;
+  if (!team_of(p, &m)) return;
+  const long long c = (long long)blockIdx.x * p.cpb + m.cl;
+  const long long n = p.n;
+  const int chunk = p.chunk, d = p.d;
+  const long long s = c * chunk;
   if (s >= n) return;
   const long long e_end = min(s + (long long)chunk, n);
-  const int last = keys[e_end - 1];
-  if (last >= V || e_end >= n || keys[e_end] != last) return;
+  const int last = p.keys[e_end - 1];
+  if (last >= p.V || e_end >= n || p.keys[e_end] != last) return;
   // a chunk that is one piece of a run begun earlier holds a head partial
-  if (s > 0 && keys[s] == last && keys[s - 1] == last) return;
+  if (s > 0 && p.keys[s] == last && p.keys[s - 1] == last) return;
+  const int c0 = m.slab * p.slab_cols + m.lane * kVec;
+  if (c0 >= d) return;
   const long long n_chunks = (n + chunk - 1) / chunk;
   const long long stride = 2 * (long long)d;
-  for (int c0 = sl.t * kVec; c0 < d; c0 += group * kVec) {
-    float acc[kVec];
-    const float* tail = partials + sl.c * stride + d + c0;
+  float acc[kVec];
+  const float* tail = p.partials + c * stride + d + c0;
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[j] = c0 + j < d ? tail[j] : 0.0f;
-    long long k = sl.c + 1;
-    bool go = true;
-    while (go) {
-      float v[kAhead][kVec];
-      bool more[kAhead];
+  for (int j = 0; j < kVec; ++j) acc[j] = c0 + j < d ? tail[j] : 0.0f;
+  long long k = c + 1;
+  bool go = true;
+  while (go) {
+    float v[kAhead][kVec];
+    bool more[kAhead];
 #pragma unroll
-      for (int a = 0; a < kAhead; ++a) {
-        const long long kk = k + a;
-        const bool in = kk < n_chunks;
-        const float* head = partials + kk * stride + c0;
+    for (int a = 0; a < kAhead; ++a) {
+      const long long kk = k + a;
+      const bool in = kk < n_chunks;
+      const float* head = p.partials + kk * stride + c0;
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          v[a][j] = in && c0 + j < d ? head[j] : 0.0f;
-        }
-        const long long end = min((kk + 1) * chunk, n);
-        more[a] = in && end < n && keys[end] == last;
+      for (int j = 0; j < kVec; ++j) {
+        v[a][j] = in && c0 + j < d ? head[j] : 0.0f;
       }
-#pragma unroll
-      for (int a = 0; a < kAhead; ++a) {
-        if (go) {
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], v[a][j]);
-          go = more[a];
-        }
-      }
-      k += kAhead;
+      const long long end = min((kk + 1) * chunk, n);
+      more[a] = in && end < n && p.keys[end] == last;
     }
-    write_chunk(grad + (long long)last * d + c0, acc, c0, d);
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      if (go) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], v[a][j]);
+        go = more[a];
+      }
+    }
+    k += kAhead;
   }
+  write_chunk(static_cast<T*>(p.grad) + (long long)last * d + c0, acc, c0,
+              d);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_zero_kernel(const unsigned char* __restrict__ present, long long V,
-                int d, int group, T* __restrict__ grad) {
+bwd_zero_kernel(const BwdParams p) {
   constexpr int kVec = 16 / sizeof(T);
-  Slot sl;
-  if (!slot_of(group, &sl)) return;
-  const long long rows_per_grid = (long long)gridDim.x * (kThreads / group);
+  Team m;
+  if (!team_of(p, &m)) return;
+  const int c0 = m.slab * p.slab_cols + m.lane * kVec;
+  if (c0 >= p.d) return;
+  const long long rows_per_grid = (long long)gridDim.x * p.cpb;
   float zero[kVec];
 #pragma unroll
   for (int j = 0; j < kVec; ++j) zero[j] = 0.0f;
-  for (long long r = sl.c; r < V; r += rows_per_grid) {
-    if (present[r]) continue;
-    for (int c0 = sl.t * kVec; c0 < d; c0 += group * kVec) {
-      write_chunk(grad + r * d + c0, zero, c0, d);
-    }
+  T* grad = static_cast<T*>(p.grad);
+  for (long long r = (long long)blockIdx.x * p.cpb + m.cl; r < p.V;
+       r += rows_per_grid) {
+    if (p.present[r]) continue;
+    write_chunk(grad + r * p.d + c0, zero, c0, p.d);
   }
 }
 
@@ -436,42 +652,76 @@ enum BwdArg {
   kBPresent,    // (V,) uint8, zeroed
   kBPartials,   // (chunks, 2, d) float32
   kBChunk,      // entries per chunk
-  kBGroup,      // threads per chunk or row (kernel.py::geometry)
-  kBChunkBlocks,
-  kBZeroBlocks,
+  kBTeam,       // threads a (chunk, slab): one 16-byte column chunk each
+  kBSlabCols,   // columns a slab
+  kBChunksPerBlock,
+  kBSlabsPerBlock,
+  kBThreads,    // threads a block (a multiple of 32, <= kThreads)
+  kBChunkBlocks,  // grid x of the chunk and combine kernels
+  kBSlabBlocks,   // grid y of all three
+  kBZeroBlocks,   // grid x of the zero kernel
+  kBForm,       // 0 sync, 1 cp.async (kernel.py::bwd_form)
   kBNumArgs
 };
 
+template <typename T, int kForm>
+cudaError_t launch_chunk(const BwdParams& p, dim3 grid, int threads,
+                         cudaStream_t stream) {
+  static bool opted_in = false;
+  const size_t smem =
+      bwd_smem(p.cpb * p.chunk, p.w != nullptr, kForm, threads).total;
+  cudaError_t err = allow_smem(bwd_chunk_kernel<T, kForm>, &opted_in);
+  if (err != cudaSuccess) return err;
+  bwd_chunk_kernel<T, kForm><<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const long long* a, cudaStream_t stream) {
-  const long long n = a[kBN], V = a[kBV];
-  const int d = (int)a[kBD], group = (int)a[kBGroup];
-  const int chunk = (int)a[kBChunk];
-  const long long cb = a[kBChunkBlocks], zb = a[kBZeroBlocks];
-  if (V <= 0 || d <= 0) return cudaSuccess;
-  if (group < 1 || group > kThreads || chunk < 1 || zb < 1 ||
-      zb > 0x7fffffffLL || cb > 0x7fffffffLL || (n > 0 && cb < 1)) {
+  constexpr int kVec = 16 / sizeof(T);
+  BwdParams p;
+  p.dout = reinterpret_cast<const void*>(a[kBDout]);
+  p.keys = reinterpret_cast<const int*>(a[kBKeys]);
+  p.perm = reinterpret_cast<const long long*>(a[kBPerm]);
+  p.w = reinterpret_cast<const float*>(a[kBW]);
+  p.L = a[kBL];
+  p.n = a[kBN];
+  p.V = a[kBV];
+  p.d = (int)a[kBD];
+  p.chunk = (int)a[kBChunk];
+  p.team = (int)a[kBTeam];
+  p.slab_cols = (int)a[kBSlabCols];
+  p.cpb = (int)a[kBChunksPerBlock];
+  p.spb = (int)a[kBSlabsPerBlock];
+  p.grad = reinterpret_cast<void*>(a[kBGrad]);
+  p.present = reinterpret_cast<unsigned char*>(a[kBPresent]);
+  p.partials = reinterpret_cast<float*>(a[kBPartials]);
+  const int threads = (int)a[kBThreads], form = (int)a[kBForm];
+  const long long cb = a[kBChunkBlocks], sb = a[kBSlabBlocks],
+                  zb = a[kBZeroBlocks];
+  if (p.V <= 0 || p.d <= 0) return cudaSuccess;
+  if (p.team < 1 || p.team > 32 || p.slab_cols != p.team * kVec ||
+      p.cpb < 1 || p.spb < 1 || p.chunk < 1 || p.L < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 ||
+      p.cpb * p.spb * p.team > threads || form < kSync ||
+      form > kCpAsync || sb < 1 ||
+      sb > 65535 || (long long)p.spb * sb * p.slab_cols < p.d || zb < 1 ||
+      zb > 0x7fffffffLL || cb > 0x7fffffffLL || (p.n > 0 && cb < 1)) {
     return cudaErrorInvalidValue;
   }
-  const int* keys = reinterpret_cast<const int*>(a[kBKeys]);
-  float* partials = reinterpret_cast<float*>(a[kBPartials]);
-  T* grad = reinterpret_cast<T*>(a[kBGrad]);
-  unsigned char* present = reinterpret_cast<unsigned char*>(a[kBPresent]);
-  if (n > 0) {
-    bwd_chunk_kernel<T><<<(unsigned)cb, kThreads, 0, stream>>>(
-        reinterpret_cast<const T*>(a[kBDout]), keys,
-        reinterpret_cast<const long long*>(a[kBPerm]),
-        reinterpret_cast<const float*>(a[kBW]), a[kBL], n, V, d, group,
-        chunk, grad, present, partials);
-    cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (p.n > 0) {
+    const dim3 grid((unsigned)cb, (unsigned)sb);
+    err = form == kCpAsync
+              ? launch_chunk<T, kCpAsync>(p, grid, threads, stream)
+              : launch_chunk<T, kSync>(p, grid, threads, stream);
     if (err != cudaSuccess) return err;
-    bwd_combine_kernel<T><<<(unsigned)cb, kThreads, 0, stream>>>(
-        keys, n, V, d, group, chunk, partials, grad);
+    bwd_combine_kernel<T><<<grid, threads, 0, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  bwd_zero_kernel<T><<<(unsigned)zb, kThreads, 0, stream>>>(present, V, d,
-                                                             group, grad);
+  bwd_zero_kernel<T><<<dim3((unsigned)zb, (unsigned)sb), threads, 0,
+                       stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -12,11 +12,12 @@ wrapper's Python sets the time of a call).
 Bound: bytes. A call must read each id once, each distinct valid row once
 and write the (B, d) output once. The design reads rows by index (no
 vocabulary tiling, no one-hot product, no padding of V, B or d, all TPU
-devices): a group of threads owns one bag, each thread a 16-byte chunk
-of columns with a float32 accumulator; ids >= V are skipped without a
-read, ids < 0 read row 0, as the plain version clips. ``geometry`` gives
-the launch shape the kernel assumes; the source note in the ``.cu`` file
-gives the rest.
+devices): a group of threads owns a bag, each thread a 16-byte chunk of
+columns with a float32 accumulator, a few ids and rows in flight before
+the first add, on persistent blocks (``geometry``,
+``persistent_blocks``). Ids >= V give zeros and are never read; ids < 0
+read row 0, as the plain version clips. The source note in the ``.cu``
+file gives the rest.
 
 ``embedding_bag_cuda`` launches the kernel for CUDA tensors and raises on
 what it cannot take; for CPU tensors it computes the plain version
@@ -26,16 +27,21 @@ what it cannot take; for CPU tensors it computes the plain version
 ``embedding_bag_bwd``; it replaces no TPU kernel): the (V, d) gradient of
 the table, dense, summed deterministically without float atomics. The
 entries are sorted stably by the row they read (``ref.sorted_keys``, a
-``torch.sort``); one C call then runs three kernels: fixed chunks of
-``BWD_CHUNK`` sorted entries, each run of one row summed in entry order
-and written directly when it lies inside its chunk, else left as
-per-chunk partials; a combine of those partials in chunk order; and
-zeros for every row no entry reads. ``ref.embedding_bag_bwd_emulate``
-replays that order on the CPU with the kernel's bits.
+``torch.sort``); one C call then runs three kernels over a grid of
+chunks of ``BWD_CHUNK`` sorted entries by column slabs
+(``bwd_geometry``): each run of one row summed in entry order, its keys,
+rows and weights staged in shared memory and its dout slabs streamed
+through a ``cp.async`` ring (``bwd_form``), and written directly when it
+lies inside its chunk, else left as per-chunk partials; a combine of
+those partials in chunk order; and zeros for every row no entry reads.
+``ref.embedding_bag_bwd_emulate`` replays that order on the CPU with the
+kernel's bits.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -53,26 +59,50 @@ ARGS = _launch.Args("table_bf16", "idx_64", "table", "V", "ld", "idx",
 # the backward's, in the order of ``enum BwdArg``
 BWD_ARGS = _launch.Args("table_bf16", "dout", "keys", "perm", "w", "L", "N",
                         "V", "d", "grad", "present", "partials", "chunk",
-                        "group", "chunk_blocks", "zero_blocks")
+                        "team", "slab_cols", "chunks_per_block",
+                        "slabs_per_block", "threads", "chunk_blocks",
+                        "slab_blocks", "zero_blocks", "form")
+# resident blocks of THREADS an SM (2,048 threads)
+BLOCKS_PER_SM = 2048 // THREADS
 # sorted entries per chunk of the backward: a row read by more entries
 # is summed over several chunks, then combined
 BWD_CHUNK = 256
+# the backward's chunks a block, at most (their keys, rows and weights
+# are staged in shared memory), slabs a block, at most (a warp each), and
+# ring slots of a walk (kRing)
+BWD_MAX_CHUNKS_PER_BLOCK = 16
+BWD_MAX_SLABS_PER_BLOCK = 8
+BWD_RING = 8
+# how a walk reads its dout slabs: plain loads, or 16-byte cp.async
+# copies through the ring (``bwd_form``; the order of ``enum Form``)
+BWD_FORMS = ("sync", "cp.async")
 # the zero kernel's grid (it strides over the rows): 32 blocks of
 # kThreads an SM of the H100's 132
 ZERO_BLOCKS = 132 * 32
 
-# Kernel launches made by ``embedding_bag_cuda`` in this process (CPU
-# calls of the plain version do not count). Reset it by assigning 0.
+# Kernel launches made by ``embedding_bag_cuda`` and
+# ``embedding_lookup_cuda`` in this process (CPU calls of the plain
+# version do not count). Reset it by assigning 0.
 launch_count = 0
 # Calls of the backward that launched it (chunk, combine and zero kernels
-# in one C call count once), likewise.
+# in one C call count once), likewise, in all and per form of the walk
+# (reset with ``dict.fromkeys(BWD_FORMS, 0)``).
 bwd_launch_count = 0
+bwd_launch_counts = dict.fromkeys(BWD_FORMS, 0)
 # What the last build did: seconds spent in nvcc (0.0 when the library
 # was already built) and the compiler's report (registers, spills).
 build_seconds = 0.0
 build_log = ""
 
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C functions' argument types on a loaded B2 library."""
+    for fn in (lib.embedding_bag_fwd, lib.embedding_bag_bwd):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -83,23 +113,33 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib, built = _build.load(SOURCE)
     build_seconds, build_log = built.seconds, built.log
-    lib.embedding_bag_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.embedding_bag_fwd.restype = ctypes.c_int
-    lib.embedding_bag_bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.embedding_bag_bwd.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    _lib = bind(lib)
+    return _lib
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a card, asked once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def geometry(num_bags: int, d: int, element_size: int
              ) -> tuple[int, int, int]:
-    """(columns per thread, threads per bag, blocks) of a launch: each
-    thread loads 16 bytes of a row (4 float32 or 8 bfloat16 columns), a
-    bag takes ceil(d / columns) threads up to a whole block, and a block
-    of ``THREADS`` holds ``THREADS // group`` bags."""
+    """(columns per thread, threads per bag, blocks) of a launch with
+    one bag per group: each thread loads 16 bytes of a row (4
+    float32 or 8 bfloat16 columns), a bag takes ceil(d / columns) threads
+    up to a whole block, and a block of ``THREADS`` holds ``THREADS //
+    group`` bags. ``persistent_blocks`` caps the blocks to the resident
+    ones; each then strides over the bags."""
     vec = 16 // element_size
     group = min(-(-d // vec), THREADS)
     return vec, group, -(-num_bags // (THREADS // group))
+
+
+def persistent_blocks(blocks: int, sms: int) -> int:
+    """The persistent grid of a launch: ``geometry``'s blocks, at most
+    the card's resident blocks."""
+    return max(1, min(blocks, sms * BLOCKS_PER_SM))
 
 
 def _check_table(table: torch.Tensor) -> None:
@@ -172,12 +212,10 @@ def _launch_bags(table: torch.Tensor, idx: torch.Tensor,
     if b == 0 or d == 0:
         return out
     _, group, blocks = geometry(b, d, table.element_size())
-    if blocks >= 2 ** 31:
-        raise ValueError(f"{b} bags need {blocks} blocks, above the grid's "
-                         "2**31 - 1")
+    blocks = persistent_blocks(blocks, sm_count(dev))
     w = None if weights is None else weights.to(torch.float32)
-    lib = load_library()
     args = launch_args(table, idx, bags, idx_strides, w, out, group, blocks)
+    lib = load_library()
     with _launch.device_guard(dev):
         err = lib.embedding_bag_fwd(args, _launch.raw_stream(dev))
     if err != 0:
@@ -225,11 +263,61 @@ def embedding_lookup_cuda(table: torch.Tensor,
     return _launch_bags(table, ids, (ids.numel(), 1), (1, 0), None, out)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdGeometry:
+    """The backward's grid. A team of ``team`` threads, one 16-byte
+    column chunk each, owns one (chunk, slab) of ``slab_cols`` columns;
+    a block of ``threads`` holds ``cpb`` chunks x ``spb`` slabs; the grid
+    is ``grid_x`` chunk groups x ``grid_y`` slab groups."""
+    team: int
+    slab_cols: int
+    slabs: int
+    cpb: int
+    spb: int
+    threads: int
+    grid_x: int
+    grid_y: int
+
+
+def bwd_geometry(n_chunks: int, d: int, element_size: int) -> BwdGeometry:
+    """A slab is what one warp covers at 16 bytes a thread (256 bfloat16
+    or 128 float32 columns). Where d is no wider, one team of ceil(d /
+    kVec) threads covers the row and ``THREADS // team`` chunks (at most
+    ``BWD_MAX_CHUNKS_PER_BLOCK``) share a block: several chunks a warp,
+    in a block of ``THREADS`` whatever the teams take: every thread
+    stages the block's keys, rows and weights (``tools/b2_variants.py``
+    times the fewest warps beside it). Wider rows take ceil(cols / 32)
+    slabs, spread over as few slab groups of at most
+    ``BWD_MAX_SLABS_PER_BLOCK`` as can hold them, and a block takes as
+    many chunks as leave it within ``THREADS``."""
+    vec = 16 // element_size
+    cols = -(-d // vec)                       # 16-byte column chunks
+    if cols <= 32:
+        team, slabs, spb = cols, 1, 1
+        cpb = min(THREADS // team, BWD_MAX_CHUNKS_PER_BLOCK)
+    else:
+        team, slabs = 32, -(-cols // 32)
+        groups = -(-slabs // BWD_MAX_SLABS_PER_BLOCK)
+        spb = -(-slabs // groups)
+        cpb = max(1, BWD_MAX_SLABS_PER_BLOCK // spb)
+    threads = (THREADS if slabs == 1
+               else -(-(cpb * spb * team) // 32) * 32)
+    return BwdGeometry(team, team * vec, slabs, cpb, spb, threads,
+                       max(1, -(-n_chunks // cpb)), -(-slabs // spb))
+
+
+def bwd_form(aligned: bool) -> str:
+    """How the walk reads its dout slabs: "cp.async" (16-byte copies
+    through the ring) where dout's base and rows are 16-byte aligned,
+    else "sync" (plain loads)."""
+    return "cp.async" if aligned else "sync"
+
+
 def bwd_launch_args(dout: torch.Tensor, keys: torch.Tensor,
                     perm: torch.Tensor, w: torch.Tensor | None, bag_len: int,
                     grad: torch.Tensor, present: torch.Tensor,
-                    partials: torch.Tensor, chunk: int, group: int,
-                    chunk_blocks: int, zero_blocks: int) -> bytes:
+                    partials: torch.Tensor, chunk: int, geo: BwdGeometry,
+                    zero_blocks: int, form: str) -> bytes:
     """The packed C arguments of one backward call (``BWD_ARGS`` order)."""
     v, d = grad.shape
     return BWD_ARGS.pack(int(dout.dtype == torch.bfloat16), dout.data_ptr(),
@@ -237,7 +325,9 @@ def bwd_launch_args(dout: torch.Tensor, keys: torch.Tensor,
                          0 if w is None else w.data_ptr(), bag_len,
                          keys.numel(), v, d, grad.data_ptr(),
                          present.data_ptr(), partials.data_ptr(), chunk,
-                         group, chunk_blocks, zero_blocks)
+                         geo.team, geo.slab_cols, geo.cpb, geo.spb,
+                         geo.threads, geo.grid_x, geo.grid_y, zero_blocks,
+                         BWD_FORMS.index(form))
 
 
 def embedding_bag_bwd_cuda(dout: torch.Tensor, idx: torch.Tensor,
@@ -269,26 +359,30 @@ def embedding_bag_bwd_cuda(dout: torch.Tensor, idx: torch.Tensor,
     if n >= 2 ** 31 or d >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: {n} entries, "
                          f"d={d}")
+    es = dout.element_size()
+    n_chunks = -(-n // BWD_CHUNK)
+    geo = bwd_geometry(n_chunks, d, es)
+    if geo.grid_y > 65535:
+        raise ValueError(f"d={d} needs {geo.grid_y} slab groups, above the "
+                         "grid's 65,535")
     dout = dout.contiguous()
     w = (None if weights is None
          else weights.to(torch.float32).contiguous())
     keys, perm = sorted_keys(idx, num_rows)
-    n_chunks = -(-n // BWD_CHUNK)
-    _, group, chunk_blocks = geometry(n_chunks, d, dout.element_size())
-    per_block = THREADS // group
-    zero_blocks = max(1, min(-(-num_rows // per_block), ZERO_BLOCKS))
+    zero_blocks = max(1, min(-(-num_rows // geo.cpb), ZERO_BLOCKS))
+    form = bwd_form(dout.data_ptr() % 16 == 0 and d * es % 16 == 0)
     grad = dout.new_empty((num_rows, d))
     present = torch.zeros(num_rows, dtype=torch.uint8, device=dev)
     partials = torch.empty((max(n_chunks, 1), 2, d), dtype=torch.float32,
                            device=dev)
     lib = load_library()
     args = bwd_launch_args(dout, keys, perm, w, idx.shape[1], grad, present,
-                           partials, BWD_CHUNK, group, chunk_blocks,
-                           zero_blocks)
+                           partials, BWD_CHUNK, geo, zero_blocks, form)
     with _launch.device_guard(dev):
         err = lib.embedding_bag_bwd(args, _launch.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"embedding bag backward launch failed: CUDA "
                            f"error {err}")
     bwd_launch_count += 1
+    bwd_launch_counts[form] += 1
     return grad

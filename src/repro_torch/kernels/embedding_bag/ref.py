@@ -30,8 +30,7 @@ def sorted_keys(idx: torch.Tensor, num_rows: int
     A key is the row an entry reads (an id < 0 reads row 0) and a pad (id
     >= V) takes the key V, so pads sort last; the stable sort keeps each
     row's entries in entry order."""
-    flat = idx.reshape(-1).to(torch.int64)
-    keys = torch.where(flat >= num_rows, num_rows, flat.clamp_min(0))
+    keys = idx.reshape(-1).clamp(0, num_rows)
     return torch.sort(keys.to(torch.int32), stable=True)
 
 

@@ -17,11 +17,13 @@ through each of its paths ("tc", "simt", "split"), with grok-1's GQA
 group of 6 and a windowed "tc" prefill, the smoke LM's ``ServeEngine``
 on the card against the same run on the CPU, and the MoE smoke models'
 ``forward``, ``prefill`` and serving against the CPU; kernel B2
-against its plain version, and the smoke MIND's
+against its plain version (lookups bit for bit: widths, unaligned
+views, int32 and int64 ids, a persistent grid over 13M bags), and the
+smoke MIND's
 ``serve_step``/``retrieval_step`` on the card against the CPU; kernel
 B2-bwd against its plain backward (bit-equal on exact sums, its CPU
 emulation's bits on random ones, pads, a negative id, bfloat16, a hot
-row, two calls bit-identical) and the smoke MIND's train step on the card
+row, d 6272 through its slab walk, two calls bit-identical) and the smoke MIND's train step on the card
 against the CPU; ``segment_sum`` (B2-bwd forward, B2 backward) against
 its CPU path, and each smoke GNN's gradients and train steps on the card
 against the CPU, with B2 and B2-bwd launched as ``gnn.kernel_calls``
@@ -1327,6 +1329,94 @@ def test_b2_lookup_writes_the_ids_shape(cuda_device):
             table, view.reshape(-1, 1)).reshape(rows.shape))
 
 
+# ------------------------------------- B2: lookups and bags bit for bit
+def _b2_call(table, ids, *, weights=None, lookup=False):
+    """One B2 call (one launch, by the count), held to the plain version:
+    equal values everywhere and the same bits wherever a row was read (a
+    pad's zeros are +0.0)."""
+    before = b2.kernel.launch_count
+    if lookup:
+        out = b2.embedding_lookup_cuda(table, ids)
+        bags = ids.reshape(-1, 1)
+    else:
+        out = b2.embedding_bag_cuda(table, ids, weights)
+        bags = ids
+    torch.cuda.synchronize()
+    assert b2.kernel.launch_count == before + 1
+    want = b2.embedding_bag_ref(table, bags, weights).reshape(out.shape)
+    assert torch.equal(out, want)
+    bits = torch.int16 if table.dtype == torch.bfloat16 else torch.int32
+    read = (bags < table.shape[0]).all(1).reshape(out.shape[:-1])
+    if weights is None and bags.shape[1] == 1:
+        assert torch.equal(out[read].view(bits), want[read].view(bits))
+    return out
+
+
+B2_LOOKUP_CASES = [  # (V, d, n, dtype)
+    (300, 64, 5000, torch.float32),                     # MIND's width
+    (200, 512, 3000, torch.bfloat16),                   # graphcast's
+    (60, 6272, 500, torch.bfloat16),                    # equiformer-v2's
+    (100, 4, 9000, torch.float32),                      # 16-byte rows
+    (100, 100, 777, torch.float32),
+]
+
+
+@pytest.mark.parametrize("v,d,n,dtype", B2_LOOKUP_CASES)
+def test_b2_lookup_bit_for_bit(cuda_device, v, d, n, dtype):
+    rng = np.random.default_rng(v + d + n)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ids = torch.from_numpy(rng.integers(-2, v + 3, n)).to(cuda_device)
+    ids[0], ids[1] = v, -1                   # a pad, a negative id
+    for id_dtype in (torch.int64, torch.int32):
+        x = ids.to(id_dtype)
+        out = _b2_call(table, x, lookup=True)
+        assert not out[0].any() and torch.equal(out[1], table[0])
+        _b2_call(table, x.view(-1, 1))
+        # ids read through a stride: column 0 of (n, 3)
+        wide = torch.stack([x, x + 1, x + 2], 1)
+        _b2_call(table, wide[:, :1])
+    _b2_call(table, ids[:n - n % 10].view(10, -1).t(), lookup=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_views_and_widths_bit_for_bit(cuda_device, dtype):
+    rng = np.random.default_rng(3)
+    v, n = 300, 4000
+    ids = torch.from_numpy(rng.integers(-2, v + 3, n)).to(cuda_device)
+    ids[0], ids[1] = v, -1
+    for d in (64, 13, 3, 512):
+        base = torch.from_numpy(rng.standard_normal((v, d + 8)).astype(
+            np.float32)).to(cuda_device, dtype)
+        for table in (base[:, 1:1 + d], base[:, :d].contiguous()):
+            for id_dtype in (torch.int64, torch.int32):
+                out = _b2_call(table, ids.to(id_dtype), lookup=True)
+                assert not out[0].any()
+                assert torch.equal(out[1], table[0])
+    # weights (a segment-sum's gradient with an edge mask) and L > 1:
+    # exact sums (multiples of 1/4 by weights in {0, 1/2, 1}) bit for bit
+    table = (torch.from_numpy(rng.integers(-4, 5, (v, 512)) / 4.0)
+             .to(cuda_device, dtype))
+    mask = torch.from_numpy(rng.integers(0, 3, (n, 1)) / 2.0).float().to(
+        cuda_device)
+    _b2_call(table, ids[:, None], weights=mask)
+    bags = ids.view(-1, 8)
+    _b2_call(table, bags)
+    _b2_call(table, bags.int(), weights=mask.view(-1, 8))
+
+
+def test_b2_persistent_grid_strides_over_many_bags(cuda_device):
+    """More bags than the resident blocks hold: the blocks stride over
+    them (13,107,200 one-id bags, MIND's serve_bulk count), at 16-byte
+    and at 24-byte rows."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((1000, 8)).astype(
+        np.float32)).to(cuda_device)
+    ids = torch.randint(-1, 1002, (13_107_200,), device=cuda_device)
+    _b2_call(table[:, :4].contiguous(), ids, lookup=True)
+    _b2_call(table[:, :6], ids, lookup=True)
+
+
 def test_mind_on_the_card_matches_cpu(cuda_device):
     cfg = configs.get("mind").scaled()
     cpu_model = recsys.init_mind(
@@ -1438,6 +1528,30 @@ def test_b2_bwd_hot_row_and_empty(cuda_device):
     pads = torch.full((3, 2), v, device=cuda_device)
     assert not _b2_bwd(torch.ones((3, d), device=cuda_device), pads, None,
                        v).any()
+
+
+def test_b2_bwd_wide_slabs_emulation_bits(cuda_device):
+    """B2-bwd at equiformer-v2's width (d 6272 bfloat16: 25 slabs), mask
+    weights, a hot row across chunks: the emulation's bits, each call's
+    walk "cp.async" (by the per-form counts), and a second call
+    bit-identical."""
+    rng = np.random.default_rng(27)
+    e, v, d = 3000, 400, 6272
+    ids = rng.integers(-1, v + 2, e)
+    ids[rng.random(e) < 0.3] = 7
+    idx = torch.from_numpy(ids).view(-1, 1).to(cuda_device)
+    dout = torch.randn((e, d), device=cuda_device).bfloat16()
+    mask = torch.from_numpy(rng.integers(0, 3, (e, 1)) / 2.0).float().to(
+        cuda_device)
+    for w in (mask, None):
+        before = dict(b2.kernel.bwd_launch_counts)
+        grad = _b2_bwd(dout, idx, w, v)
+        assert b2.kernel.bwd_launch_counts == {
+            **before, "cp.async": before["cp.async"] + 1}
+        assert torch.equal(grad, _b2_bwd(dout, idx, w, v))
+        assert torch.equal(grad.cpu(), b2.embedding_bag_bwd_emulate(
+            dout.cpu(), idx.cpu(), None if w is None else w.cpu(), v,
+            b2.kernel.BWD_CHUNK))
 
 
 def test_mind_train_step_on_the_card_matches_cpu(cuda_device, monkeypatch):
