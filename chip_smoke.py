@@ -279,6 +279,22 @@ Phases, each of which exits non-zero when it fails:
    versions, ``index_select`` and a zeroed tensor's ``index_add_`` (the
    yardsticks, never called by the port), B2 at the destinations and, in
    a log line, at the sources (rows read out of order).
+16. the PCPM-distributed GraphCast (``models/gnn_dist.py``) on phase 15's
+   ogb_products cut in a one-rank NCCL group (one shard; every exchange
+   a real NCCL all-to-all): ``build_sharded_png`` timed on the host; at
+   depth 2, full width, float32 without TF32, the distributed forward
+   within the reference test's rtol 2e-4 / atol 2e-5 of
+   ``graphcast_forward`` on the same edges in the layout's order and
+   each gradient leaf within 1e-4; graphcast at its published widths
+   and depth in bfloat16 messages for 4 steps of ``AdamW(lr=1e-3)``:
+   step 1's loss, gnorm and parameter updates within 1e-4 of the
+   single-device step's on the same edges from the same parameters,
+   losses finite and falling, B2 and B2-bwd launched and the mesh's
+   collectives called as ``dist_kernel_calls`` and
+   ``dist_collective_calls`` count them, a repeated step bit-identical,
+   the peak under 70 GB; ms a step and edges/s beside phase 15's
+   graphcast step, and the step's model-flops share of the bfloat16
+   peak (the reference's 6·E·d²·L proxy, ``launch/specs.py``).
 
 Each phase's wall seconds are logged as it ends, and all of them before
 the kernels line. The line before the last is a JSON object describing
@@ -302,11 +318,13 @@ import numpy as np
 # its scale cut from 25 to SCALE, because host preprocessing is numpy
 SCALE = 21
 METHODS = ("pdpr", "bvgas", "pcpm", "pcpm_pallas")
-# H100 SXM, NVIDIA data sheet: HBM3 bandwidth, float32 (non-tensor) rate,
-# bfloat16 dense tensor-core rate
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM, NVIDIA data sheet: HBM3 bandwidth and bfloat16 dense
+# tensor-core rate from the port (``repro_torch/launch/__init__.py``),
+# float32 (non-tensor) rate
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
+PEAK_BYTES_PER_S, PEAK_BF16_PER_S = HBM_BW, PEAK_FLOPS_BF16
 PEAK_F32_PER_S = 67e12
-PEAK_BF16_PER_S = 989e12
 B1_ENTRY = {"name": "pcpm_gather", "route": "cuda",
             "source": "src/repro_torch/csrc/pcpm_gather.cu",
             "replaces": "src/repro/kernels/pcpm_spmv/kernel.py:96"}
@@ -5225,13 +5243,14 @@ def gnn_cpu_gate(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def gnn_train_phase(dev, card) -> list[dict]:
+def gnn_train_phase(dev, card) -> tuple[list[dict], float]:
     """Phase 15: B2 and B2-bwd at the GNNs' shapes against their plain
     versions; the four GNNs trained at full width and depth at
     full_graph_sm and molecule, graphcast at the ogb_products cut; the
     card against the CPU at depth 2; times. Returns the kernels line's
     GNN entries (B2 and B2-bwd at graphcast's ogb cut and at
-    equiformer-v2's full_graph_sm)."""
+    equiformer-v2's full_graph_sm) and graphcast's ms a step at the ogb
+    cut."""
     import torch
     from repro_torch import data
     from repro_torch.configs import get
@@ -5289,7 +5308,256 @@ def gnn_train_phase(dev, card) -> list[dict]:
     del batches
     log(f"phase 15 (GNN training): {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
-    return entries
+    return entries, cells["graphcast", ogb]["ms"]
+
+
+# --------------------------------------------------------------- phase 16
+# the PCPM-distributed GraphCast (models/gnn_dist.py) on phase 15's ogb
+# cut graph, in a one-rank NCCL group (S = 1: every exchange a real NCCL
+# all-to-all): (a) depth GNN_GATE_LAYERS, float32 without TF32, against
+# graphcast_forward on the same edges in the layout's order, the forward
+# within the reference test's tolerance and each gradient leaf within
+# GNN_GATE_REL_L2; (b) graphcast at its published widths and depth in
+# bfloat16 messages (float32 masters), DIST_TRAIN_STEPS steps of
+# AdamW(lr=1e-3), step 1 held against the single-device step within
+# GNN_GATE_REL_L2 (the losses are near 1e14 at this depth and width, so
+# that they fall shows little)
+DIST_TRAIN_STEPS = 4
+DIST_FWD_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def layout_batch(layout, batch):
+    """A ``GraphBatch`` of ``batch``'s nodes over a one-shard layout's
+    edges in the layout's order (source ``send_ids[0, 0][edge_upd]``), so
+    that ``graphcast_forward`` sums each destination's edges in the order
+    the distributed forward does."""
+    import torch
+    if not (layout.num_shards == 1 and (layout.edge_dst[0]
+                                        < layout.shard_size).all()):
+        fail("gnn-dist: the layout is not one shard without pad edges")
+    dev = batch.edge_src.device
+    src = layout.send_ids[0, 0][layout.edge_upd[0]]
+    e = src.shape[0]
+    return dataclasses.replace(
+        batch, edge_src=torch.from_numpy(src).to(dev),
+        edge_dst=torch.from_numpy(layout.edge_dst[0].copy()).to(dev),
+        edge_mask=torch.ones(e, dtype=torch.float32, device=dev))
+
+
+def gnn_dist_gate(dev, layout, dg, mesh, batch) -> None:
+    """Part (a): the distributed forward, loss and gradients against
+    ``graphcast_forward`` and ``gnn_loss`` on the same edges, at depth
+    GNN_GATE_LAYERS, published width, float32."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import gnn, gnn_dist
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get("graphcast"), n_layers=GNN_GATE_LAYERS)
+    n_out = cfg.n_vars or 16
+    model = gnn.init_gnn(cfg, batch.node_feat.shape[1], n_out, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    gb = layout_batch(layout, batch)
+    with torch.no_grad():
+        got = gnn_dist.graphcast_dist_forward(model, cfg, dg, mesh)
+        want = gnn.graphcast_forward(model.tree, cfg, gb)
+    gap = float((got - want).abs().max())
+    same = torch.equal(got, want)
+    close = torch.allclose(got, want, **DIST_FWD_TOL)
+    scale = float(want.abs().max())
+    del got, want
+    names, tensors = zip(*model.named_parameters())
+    with model.trainable():
+        loss_s = gnn.gnn_loss(model, cfg, gb, n_out=n_out)
+        grads_s = torch.autograd.grad(loss_s, tensors)
+    loss_s, grads_s = loss_s.detach(), dict(zip(names, grads_s))
+    loss_d, grads_d = gnn_dist.dist_loss_and_grads(model, cfg, dg, mesh)
+    total = float(torch.sqrt(sum(x.double().square().sum()
+                                 for x in grads_s.values())))
+    worst, worst_name = 0.0, ""
+    for name, x in grads_s.items():
+        rel = float((grads_d[name] - x).norm()) / max(
+            float(x.norm()), GNN_GATE_FLOOR * total)
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_gap = abs(float(loss_d) - float(loss_s)) / abs(float(loss_s))
+    log(f"gnn-dist gate (depth {GNN_GATE_LAYERS}, d {cfg.d_hidden}, "
+        f"float32, one rank): forward max_abs_err {gap!r} on outputs up to "
+        f"{scale!r} (bit-equal {same}, within rtol "
+        f"{DIST_FWD_TOL['rtol']} atol {DIST_FWD_TOL['atol']}: {close}); "
+        f"loss {float(loss_d)!r} vs {float(loss_s)!r} (gap {loss_gap!r}); "
+        f"largest gradient gap {worst!r} ({worst_name}) of {len(names)} "
+        f"leaves; {time.perf_counter() - t0:.1f} s")
+    if not close:
+        fail("gnn-dist: the distributed forward is not within the "
+             "reference test's tolerance of graphcast_forward")
+    if loss_gap > GNN_GATE_REL_L2 or worst > GNN_GATE_REL_L2:
+        fail(f"gnn-dist: the loss or a gradient leaf is more than "
+             f"{GNN_GATE_REL_L2} from the single-device path's")
+
+
+def step_one_gaps(model, single, init, m_dist, m_single) -> tuple:
+    """Step 1 of the distributed path against the single-device step on
+    the same edges from the same parameters and moments: (bit-equal,
+    the loss's and gnorm's relative gaps, the largest of the parameter
+    updates' relative L2 gaps and its leaf). ``init`` holds the
+    parameters before the step."""
+    import torch
+    rel = {k: abs(float(m_dist[k]) - float(m_single[k]))
+           / abs(float(m_single[k])) for k in ("loss", "gnorm")}
+    same = all(torch.equal(m_dist[k], m_single[k]) for k in rel)
+    worst, worst_name = 0.0, ""
+    dist_p = dict(model.named_parameters())
+    for name, p in single.named_parameters():
+        same = same and torch.equal(dist_p[name], p)
+        want = p.detach() - init[name]
+        gap = float((dist_p[name].detach() - init[name] - want).norm()) / max(
+            float(want.norm()), 1e-30)
+        if gap > worst:
+            worst, worst_name = gap, name
+    return same, rel, worst, worst_name
+
+
+def gnn_dist_phase(dev, card, ogb_ms) -> None:
+    """Phase 16: the PCPM-distributed GraphCast in a one-rank NCCL group
+    on phase 15's ogb cut graph. (a) ``gnn_dist_gate``; (b) graphcast at
+    its published widths and depth, bfloat16 messages, DIST_TRAIN_STEPS
+    steps: step 1 against the single-device step (``step_one_gaps``),
+    losses finite and falling, a repeated step bit-identical, B2
+    and B2-bwd launches and the mesh's collectives as
+    ``dist_kernel_calls`` and ``dist_collective_calls`` count them, the
+    peak under GNN_PEAK_LIMIT. Prints ms a step and edges/s beside phase
+    15's graphcast step at the same cut (``ogb_ms``), the host seconds of
+    ``build_sharded_png`` and the model-flops rate."""
+    import torch
+    from repro_torch import data
+    from repro_torch.configs import get
+    from repro_torch.core.distributed import (build_mesh,
+                                              build_sharded_png)
+    from repro_torch.graphs.formats import Graph
+    from repro_torch.kernels.embedding_bag import kernel as b2
+    from repro_torch.launch.specs import gnn_model_flops
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import _host_metrics
+    t_phase = time.perf_counter()
+    shape = gnn_shapes()[f"ogb_products/{GNN_OGB_CUT}"]
+    batch = data.batch_for_shape(shape, seed=0, device=dev)
+    n, e = batch.num_nodes, batch.edge_src.shape[0]
+    g = Graph(n, batch.edge_src.cpu().numpy(), batch.edge_dst.cpu().numpy())
+    with OneRankGroup(dev):
+        t0 = time.perf_counter()
+        layout = build_sharded_png(g, 1)
+        png_s = time.perf_counter() - t0
+        mesh = build_mesh(1, device=dev)
+        dg = gnn_dist.DistGraph.from_png(
+            layout, batch.node_feat.cpu().numpy(),
+            batch.positions.cpu().numpy(), batch.labels.cpu().numpy(),
+            mesh=mesh)
+        log(f"gnn-dist at ogb_products/{GNN_OGB_CUT} (N {n}, E {e}): "
+            f"build_sharded_png {png_s!r} s on the host (one shard: U "
+            f"{dg.u_max}, E_max {dg.e_max}); mesh {mesh.num_shards} rank, "
+            f"NCCL")
+        gnn_dist_gate(dev, layout, dg, mesh, batch)
+        torch.cuda.empty_cache()
+
+        # (b) full width and depth, bfloat16 messages
+        cfg = dataclasses.replace(get("graphcast"), act_dtype="bfloat16")
+        n_out = cfg.n_vars or 16
+        model = gnn.init_gnn(
+            cfg, shape.d_feat, n_out, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        opt = AdamW(lr=GNN_TRAIN_LR)
+        state = opt.init(model)
+        step = gnn_dist.make_dist_train_step(cfg, opt, mesh, n_out=n_out)
+        # step 1 of the single-device path on the same edges, from the
+        # same parameters (seed 0) and moments: at S = 1 the exchange is a
+        # copy, so the distributed step 1 must give the same loss, gnorm
+        # and parameters
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        single = gnn.init_gnn(
+            cfg, shape.d_feat, n_out, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        single, _, m_single = gnn.make_gnn_train_step(cfg, opt, n_out=n_out)(
+            single, opt.init(single), layout_batch(layout, batch))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        b2.launch_count = b2.bwd_launch_count = 0
+        mesh.counts.clear()
+        history, times = [], []
+        for _ in range(DIST_TRAIN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            model, state, metrics = step(model, state, dg)
+            end.record()
+            history.append(_host_metrics(metrics))   # one host read a step
+            times.append(start.elapsed_time(end))
+            if single is not None:
+                held = step_one_gaps(model, single, init, metrics, m_single)
+                single = init = None
+        torch.cuda.synchronize()
+        launches = {"B2": b2.launch_count, "B2-bwd": b2.bwd_launch_count}
+        counts = dict(mesh.counts)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: DIST_TRAIN_STEPS * v for k, v in
+                gnn_dist.dist_kernel_calls(cfg).items()}
+        want_counts = {k: DIST_TRAIN_STEPS * v for k, v in
+                       gnn_dist.dist_collective_calls(cfg).items() if v}
+        losses = [m["loss"] for m in history]
+        ms = float(np.mean(times[1:]))
+        flops = gnn_model_flops(cfg, e)
+        log(f"gnn-dist train graphcast at ogb_products/{GNN_OGB_CUT}: "
+            f"{cfg.n_layers} layers, d_hidden {cfg.d_hidden}, n_out {n_out}, "
+            f"bfloat16 messages; "
+            + "; ".join(f"step {i + 1} loss {m['loss']!r}, gnorm "
+                        f"{m['gnorm']!r}, {t:.2f} ms"
+                        for i, (m, t) in enumerate(zip(history, times)))
+            + f"; launches {launches} (from the structure {want}); "
+            f"collectives {counts} (from the structure {want_counts})")
+        same1, rel1, worst1, worst1_name = held
+        log(f"gnn-dist step 1 against the single-device step on the same "
+            f"edges (full width and depth, bfloat16 messages): bit-equal "
+            f"{same1}; loss {history[0]['loss']!r} vs "
+            f"{float(m_single['loss'])!r} (relative gap {rel1['loss']!r}), "
+            f"gnorm {history[0]['gnorm']!r} vs {float(m_single['gnorm'])!r} "
+            f"(relative gap {rel1['gnorm']!r}); largest parameter update "
+            f"gap {worst1!r} (relative L2, {worst1_name})")
+        log(f"time gnn-dist train graphcast ogb_products/{GNN_OGB_CUT} (CUDA "
+            f"events, steps 2-{DIST_TRAIN_STEPS}): {ms!r} ms a step, "
+            f"{e / ms * 1e3!r} edges/s (phase 15's graphcast step at the "
+            f"same cut: {ogb_ms!r} ms); peak device memory {peak} B; model "
+            f"flops 6·E·d²·L = {flops!r} a step, {flops / ms * 1e3!r} "
+            f"FLOP/s, {flops / ms * 1e3 / PEAK_BF16_PER_S!r} of the "
+            f"bfloat16 peak {PEAK_BF16_PER_S!r} ({card})")
+        if launches != want:
+            fail(f"gnn-dist: B2/B2-bwd launches {launches}, the structure "
+                 f"gives {want}")
+        if counts != want_counts:
+            fail(f"gnn-dist: collectives {counts}, the structure gives "
+                 f"{want_counts}")
+        if max(*rel1.values(), worst1) > GNN_GATE_REL_L2:
+            fail(f"gnn-dist: step 1's loss, gnorm or a parameter update is "
+                 f"more than {GNN_GATE_REL_L2} from the single-device "
+                 f"step's")
+        if not all(np.isfinite(v) for m in history for v in m.values()):
+            fail("gnn-dist: a loss or gnorm is not finite")
+        if not losses[-1] < losses[0]:
+            fail(f"gnn-dist: the loss did not fall over {DIST_TRAIN_STEPS} "
+                 "steps")
+        if peak > GNN_PEAK_LIMIT:
+            fail(f"gnn-dist: peak {peak} B above {GNN_PEAK_LIMIT}")
+        model, state, m1, m2, same = repeated_step(step, model, state, dg)
+        same = same and torch.equal(m1["loss"], m2["loss"])
+        log(f"gnn-dist repeated step: parameters and loss bit-identical "
+            f"{same} (loss {float(m1['loss'])!r})")
+        if not same:
+            fail("gnn-dist: a step repeated from the same state gave other "
+                 "bits")
+        del model, state, step, dg, layout
+    torch.cuda.empty_cache()
+    log(f"phase 16 (PCPM-distributed GraphCast): "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 class PhaseClock:
@@ -5316,11 +5584,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs on a "
              "CUDA card")
-    root = Path(__file__).resolve().parent
-    if not (root / "src" / "repro_torch" / "__init__.py").is_file():
-        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
-             "a checkout of the repository")
-    sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import build_all
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5403,8 +5666,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     clock.done("14 (MIND training)")
     # ---------------------------------------------------- 15. GNN training
-    kernels += gnn_train_phase(dev, card)
+    gnn_entries, ogb_ms = gnn_train_phase(dev, card)
+    kernels += gnn_entries
+    torch.cuda.empty_cache()
     clock.done("15 (GNN training)")
+    # ---------------------------------------------------- 16. gnn_dist
+    gnn_dist_phase(dev, card, ogb_ms)
+    clock.done("16 (PCPM-distributed GraphCast)")
     clock.summary()
 
     print(json.dumps({"kernels": kernels}), flush=True)

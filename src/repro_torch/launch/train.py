@@ -9,7 +9,8 @@ versions of the kernels). ``--smoke`` scales the config down. Wired here,
 as in the reference: gradient accumulation, checkpoint/resume,
 failure injection for restart drills, the straggler watchdog, and int8
 error-feedback gradient compression. ``--production-mesh`` (the
-reference's 16x16 TPU mesh) raises: multi-card meshes are ROADMAP A11.5.
+reference's 16x16 TPU mesh) raises: TPU meshes are left to the TPU
+(README.md, "Left to the TPU").
 """
 from __future__ import annotations
 
@@ -89,8 +90,10 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError("--production-mesh: multi-card meshes are "
-                                  "ROADMAP A11.5; the port trains on one card")
+        raise NotImplementedError(
+            "--production-mesh: the reference's TPU mesh is left to the TPU "
+            "(README.md, 'Left to the TPU'; ROADMAP A11.5); the port trains "
+            "on one card")
 
     cfg = get(args.arch)
     if args.smoke:

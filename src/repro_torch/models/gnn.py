@@ -673,16 +673,26 @@ def gnn_forward(params, cfg: GNNConfig, g: GraphBatch) -> torch.Tensor:
     With ``cfg.act_dtype`` bfloat16, the float32 parameters and the
     batch's float inputs get bfloat16 compute copies (the gradients flow
     through the casts back to the float32 masters)."""
-    tree = params.tree if isinstance(params, GNN) else params
-    ad = _DTYPES[cfg.act_dtype]
-    if ad != torch.float32:
-        def cast(x):
-            return x.to(ad) if x.dtype == torch.float32 else x
-        tree = tree_map(cast, tree)
+    tree, cast = compute_copies(params, cfg)
+    if cast is not None:
         g = dataclasses.replace(
             g, edge_mask=cast(g.edge_mask), node_feat=cast(g.node_feat),
             positions=cast(g.positions), node_mask=cast(g.node_mask))
     return FORWARDS[_arch(cfg)](tree, cfg, g)
+
+
+def compute_copies(params, cfg: GNNConfig):
+    """(tree, cast): the tree of ``params`` (a ``GNN`` or its tree) and,
+    with ``cfg.act_dtype`` bfloat16, its bfloat16 compute copies and the
+    cast that makes them of a float32 input (``cast`` None in float32)."""
+    tree = params.tree if isinstance(params, GNN) else params
+    ad = _DTYPES[cfg.act_dtype]
+    if ad == torch.float32:
+        return tree, None
+
+    def cast(x):
+        return x.to(ad) if x.dtype == torch.float32 else x
+    return tree_map(cast, tree), cast
 
 
 def gnn_loss(params, cfg: GNNConfig, g: GraphBatch, *,

@@ -34,11 +34,11 @@ for its own forward and backward only (``LM.trainable``). Each layer is
 checkpointed (``torch.utils.checkpoint``, the reference's per-layer
 ``jax.checkpoint`` with nothing saved), so only the layer boundaries'
 activations stay live; ``sqrt_remat`` and ``remat_dots`` are TPU memory
-knobs of the reference (ROADMAP A11.5).
-
-Not here yet (ROADMAP.md, Queue A): ``param_logical`` and
-``shard_params``. The reference's scan over layers and its
-``unroll_layers`` switch are a Python loop here.
+knobs of the reference, left to the TPU (README.md, "Left to the TPU"),
+as are ``param_shapes``, ``cache_shapes``, ``param_logical`` and
+``shard_params``, the shape trees and mesh placement of its dry run. The
+reference's scan over layers and its ``unroll_layers`` switch are a
+Python loop here.
 """
 from __future__ import annotations
 
@@ -56,7 +56,10 @@ from .layers import (chunked_attention, dense_attention, dense_init,
                      rms_norm, rope, swiglu)
 
 PARAM_DTYPE = torch.bfloat16
-ATTN_CHUNK = 1024        # the reference's default ``attn_chunk``
+# the reference's default ``attn_chunk``, which its ``REPRO_PERF``
+# variable can change; here it only cuts the CPU path's chunks: on the
+# card attention is B3, which tiles the keys itself and takes no chunk
+ATTN_CHUNK = 1024
 LAYER_WEIGHTS = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo",
                  "w_gate", "w_up", "w_down")
 MOE_WEIGHTS = LAYER_WEIGHTS + ("router",)

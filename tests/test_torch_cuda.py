@@ -12,7 +12,8 @@ snapshot/restore, a rank checkpoint round trip); the observed gateway
 threads, observability's cost in queries/s); the sharded path at world
 size 1 through a one-rank NCCL group (PageRank, the engine's SpMV, a
 sharded scheduler and server, each against the CPU, with the mesh's
-collectives counted); kernel B3 against its plain version
+collectives counted; the PCPM-distributed GraphCast against the
+single-device forward and gradients on the same edges); kernel B3 against its plain version
 through each of its paths ("tc", "simt", "split"), with grok-1's GQA
 group of 6 and a windowed "tc" prefill, the smoke LM's ``ServeEngine``
 on the card against the same run on the CPU, and the MoE smoke models'
@@ -1779,6 +1780,71 @@ def test_sharded_scheduler_and_server_through_nccl(nccl_group):
         np.stack([seeds, np.ones_like(seeds)], 1))[0]
     assert it == 10
     assert np.abs(pr.cpu().numpy() - ref.numpy()).max() <= 1e-6
+
+
+def test_gnn_dist_through_nccl(nccl_group):
+    """Part (a) of ``chip_smoke.py``'s phase 16 at the smoke size: the
+    PCPM-distributed GraphCast (float32) in a one-rank NCCL group against
+    ``graphcast_forward`` and ``gnn_loss`` on the same edges in the
+    layout's order, so each destination sums its edges in one order; the
+    forward within the reference test's rtol 2e-4 / atol 2e-5, each
+    gradient leaf within 1e-4, and the launches and collectives of a
+    train step as ``dist_kernel_calls`` and ``dist_collective_calls``
+    count them."""
+    from repro_torch.core.distributed import build_mesh, build_sharded_png
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.optim import AdamW
+    dev = nccl_group
+    cfg = configs.get("graphcast").scaled()
+    g = generators.rmat(9, 8, seed=5)
+    n = g.num_nodes
+    rng = np.random.default_rng(0)
+    feat = rng.standard_normal((n, 12)).astype(np.float32)
+    pos = rng.standard_normal((n, 3)).astype(np.float32)
+    pos /= np.linalg.norm(pos, axis=1, keepdims=True)
+    labels = rng.integers(0, 8, n).astype(np.int32)
+    layout = build_sharded_png(g, 1)
+    mesh = build_mesh(1, device=dev)
+    dg = gnn_dist.DistGraph.from_png(layout, feat, pos, labels, mesh=mesh)
+    src = layout.send_ids[0, 0][layout.edge_upd[0]]
+    e = src.shape[0]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    gb = gnn.GraphBatch(put(src), put(layout.edge_dst[0]),
+                        torch.ones(e, device=dev), put(feat), put(pos),
+                        torch.ones(n, device=dev),
+                        torch.zeros(n, dtype=torch.int32, device=dev), 1,
+                        put(labels))
+    model = gnn.init_gnn(cfg, 12, 8, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        got = gnn_dist.graphcast_dist_forward(model, cfg, dg, mesh)
+        want = gnn.graphcast_forward(model.tree, cfg, gb)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    names, tensors = zip(*model.named_parameters())
+    with model.trainable():
+        loss = gnn.gnn_loss(model, cfg, gb, n_out=8)
+        grads = dict(zip(names, torch.autograd.grad(loss, tensors)))
+    loss_d, grads_d = gnn_dist.dist_loss_and_grads(model, cfg, dg, mesh)
+    torch.testing.assert_close(loss_d, loss.detach(), rtol=1e-4, atol=0)
+    total = float(torch.sqrt(sum(x.square().sum() for x in grads.values())))
+    for name, x in grads.items():
+        gap = float((grads_d[name] - x).norm())
+        assert gap <= 1e-4 * max(float(x.norm()), 1e-6 * total), name
+    opt = AdamW(lr=1e-3)
+    step = gnn_dist.make_dist_train_step(cfg, opt, mesh, n_out=8)
+    mesh.counts.clear()
+    before = (b2.kernel.launch_count, b2.kernel.bwd_launch_count)
+    _, _, metrics = step(model, opt.init(model), dg)
+    torch.cuda.synchronize()
+    calls = gnn_dist.dist_kernel_calls(cfg)
+    assert (b2.kernel.launch_count - before[0],
+            b2.kernel.bwd_launch_count - before[1]) == (calls["B2"],
+                                                        calls["B2-bwd"])
+    assert dict(mesh.counts) == {
+        k: v for k, v in gnn_dist.dist_collective_calls(cfg).items() if v}
+    assert bool(torch.isfinite(metrics["loss"]))
 
 
 # ------------------------------------------------------- B3-bwd, training

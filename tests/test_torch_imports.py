@@ -78,16 +78,22 @@ def test_chip_smoke_refuses_without_cuda():
 
 # names of the JAX package's ``__all__`` lists that the port does not
 # have yet, each with the ROADMAP item that brings it
-LATER = {
-    "launch": dict.fromkeys(
-        ("make_production_mesh", "make_host_mesh", "sharding",
-         "PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW_PER_LINK", "HBM_BYTES"),
-        "A11.5"),
-    # Pallas's interpret-mode policy and VMEM update tile: TPU-only,
-    # documented as such by A11.5
-    "kernels.pcpm_spmv": {"default_interpret": "A11.5",
-                          "pick_u_tile": "A11.5"},
+LATER = {}
+# names of the JAX package's ``__all__`` lists that have no meaning on one
+# card (TPU meshes and sharding rules, the TPU's interconnect, Pallas's
+# interpret mode and VMEM tile): each stands in README.md's "Left to the
+# TPU" section, with why and the port's nearest counterpart
+TPU_ONLY = {
+    "launch": ("make_production_mesh", "make_host_mesh", "sharding",
+               "ICI_BW_PER_LINK"),
+    "kernels.pcpm_spmv": ("default_interpret", "pick_u_tile"),
 }
+# the other TPU-only parts of the JAX package that the section names
+TPU_ONLY_PARTS = ("DCN_BW", "launch/dryrun.py", "sqrt_remat", "remat_dots",
+                  "dist_graph_shardings", "in_shardings", "rule_overrides",
+                  "param_shapes", "cache_shapes", "param_logical",
+                  "shard_params", "DistGraph.abstract", "perf_flags.py",
+                  "REPRO_PERF")
 # the TPU kernels' entry points and their Hopper counterparts
 COUNTERPARTS = {
     ("kernels.pcpm_spmv", "pcpm_gather_pallas"): "pcpm_gather_cuda",
@@ -120,6 +126,8 @@ def test_reference_exports_exist_in_the_port(init):
     except ModuleNotFoundError:
         mod = None
     later = LATER.get(sub, {})
+    tpu_only = set(TPU_ONLY.get(sub, ()))
+    assert not tpu_only & set(later)
     missing = set()
     for name in names:
         twin = COUNTERPARTS.get((sub, name), name)
@@ -127,7 +135,8 @@ def test_reference_exports_exist_in_the_port(init):
             missing.add(name)
     # the exceptions are exactly what is missing: a name that arrives
     # leaves the list with its item
-    assert missing == set(later), (sub, sorted(missing ^ set(later)))
+    expected = set(later) | tpu_only
+    assert missing == expected, (sub, sorted(missing ^ expected))
     roadmap = (REPO / "ROADMAP.md").read_text()
     for name, item in later.items():
         assert re.fullmatch(r"A11\.\d", item), (name, item)
@@ -138,5 +147,20 @@ def test_every_reference_init_is_covered():
     subs = {".".join(p.parent.relative_to(REPO / "src" / "repro").parts)
             for p in REF_INITS}
     assert set(LATER) <= subs
+    assert set(TPU_ONLY) <= subs
     assert {sub for sub, _ in COUNTERPARTS} <= subs
     assert len(REF_INITS) >= 18
+
+
+def test_tpu_only_names_are_documented():
+    """Every TPU-only name stands in README.md's "Left to the TPU"
+    section (between its heading and the next), and nothing is left to
+    port."""
+    readme = (REPO / "README.md").read_text()
+    head = readme.index("\n## Left to the TPU\n")
+    end = readme.find("\n## ", head + 1)
+    section = readme[head:end if end >= 0 else len(readme)]
+    names = [n for names in TPU_ONLY.values() for n in names]
+    for name in names + list(TPU_ONLY_PARTS):
+        assert f"`{name}`" in section, name
+    assert LATER == {}

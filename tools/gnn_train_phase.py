@@ -86,7 +86,7 @@ def main() -> None:
     dev = torch.device("cuda")
     if args.peak_probe:
         peak_probe(dev, args.peak_probe)
-    entries = cs.gnn_train_phase(dev, card)
+    entries, _ = cs.gnn_train_phase(dev, card)
     cs.log(f"gnn_train_phase.py: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
 
