@@ -38,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.pagerank import PageRankResult, pagerank
+from .core.pagerank import PageRankResult, b1_path, pagerank
 from .core.plan import DEFAULT_GATHER_BLOCK, GraphPlan, PlanConfig, build_plan
 from .core.spmv import SpMVEngine
 from .graphs.formats import Graph
@@ -224,7 +224,14 @@ class Session:
         damping/dangling match); otherwise it is an honest cold run.
         ``tol`` and ``num_iterations`` mean what they mean cold: the
         same stopping rule, ``num_iterations`` bounds the push sweeps.
-        Either way the result is stored as the next warm-start point."""
+        Either way the result is stored as the next warm-start point.
+
+        With observability on, one ``solve`` span covers the call, the
+        fused solve's stage spans nest in it (``core.pagerank``)."""
+        sp = (self._obs.tracer.start(
+                  "solve", trace="plan", method=self.config.method,
+                  n=self.plan.num_nodes, b1_path=b1_path(self.engine))
+              if self._obs is not None else None)
         cfg = self.config
         kw = dict(num_iterations=cfg.num_iterations, damping=cfg.damping,
                   tol=cfg.tol, check_every=cfg.check_every,
@@ -238,10 +245,8 @@ class Session:
         warm_hit = (warm and self._solved_ranks is not None
                     and self._solved_key == key
                     and 0.0 < tol and self._solved_res <= tol)
-        sp = (self._obs.tracer.start(
-                  "solve", trace="plan", method=self.config.method,
-                  warm=bool(warm_hit), n=self.plan.num_nodes)
-              if self._obs is not None else None)
+        if sp is not None:
+            sp.annotate(warm=bool(warm_hit))
         try:
             if warm_hit:
                 from .stream.delta import GraphDelta
@@ -253,24 +258,24 @@ class Session:
                     dangling=kw["dangling"], tol=tol, max_push=budget,
                     device=self.device)
             else:
-                res = pagerank(self.graph, engine=self.engine, **kw)
+                res = pagerank(self.graph, engine=self.engine, span=sp,
+                               **kw)
         except Exception as e:
             if sp is not None:
                 sp.end(status="error", error=repr(e))
             raise
+        self._solved_graph = self.graph
+        self._solved_ranks = res.ranks
+        self._solved_key = key
+        self._solved_res = float((res.residuals or [np.inf])[-1])
+        self._delta_acc = None
         if sp is not None:
             if not warm_hit:
                 # measured comm: one full pass per executed iteration
                 # (warm pushes are sparse and don't stream the whole
                 # edge structure)
                 self._obs.comm.record_solve(self.plan, res.iterations)
-            sp.end(iterations=res.iterations,
-                   residual=float((res.residuals or [np.inf])[-1]))
-        self._solved_graph = self.graph
-        self._solved_ranks = res.ranks
-        self._solved_key = key
-        self._solved_res = float((res.residuals or [np.inf])[-1])
-        self._delta_acc = None
+            sp.end(iterations=res.iterations, residual=self._solved_res)
         return res
 
     def top_ranked(self, k: int = 10):

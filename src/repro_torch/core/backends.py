@@ -27,7 +27,7 @@ import torch
 
 from ..graphs.formats import Graph, lexsort_order, lexsorted
 from .partition import Partitioning
-from .plan import GraphPlan, PlanConfig, shared_png
+from .plan import GraphPlan, PlanConfig, plan_span, shared_png
 from .png import (GatherSchedule, block_png, build_gather_schedule,
                   flat_gather_schedule)
 
@@ -67,6 +67,10 @@ class Backend:
     # plan. ``(plan, g_new, delta) -> GraphPlan`` — backends without it
     # fall back to a full rebuild on every delta.
     patch_plan: Optional[Callable] = None
+    # ``d -> path``: the path kernel B1 takes for an SpMV of width d on
+    # this backend's closure (``kernels.pcpm_spmv.b1_path``); None for
+    # backends that do not run B1. Read by the solve's spans.
+    b1_path: Optional[Callable[[int], str]] = None
 
     @property
     def supports_two_phase(self) -> bool:
@@ -182,14 +186,16 @@ def normalize_config(cfg: PlanConfig) -> PlanConfig:
 def _cached(plan: GraphPlan, name: str, device: torch.device, make):
     """``plan._device[(name, device)]``, made on first use, once: threads
     that reach a plan's first use together (the gateway's device thread
-    and push workers) wait on the plan's lock for the one upload."""
+    and push workers) wait on the plan's lock for the one upload.
+    Observers see each make as a ``device_layout`` span."""
     key = (name, str(device))
     val = plan._device.get(key)
     if val is None:
         with plan._lock:
             val = plan._device.get(key)
             if val is None:
-                val = make()
+                with plan_span("device_layout", name=name):
+                    val = make()
                 plan._device[key] = val
     return val
 
@@ -388,8 +394,15 @@ def _spmv_pcpm(plan: GraphPlan, device: torch.device):
 # ---------------------------------------------------------------------------
 def _build_pcpm_pallas(g: Graph, cfg: PlanConfig) -> GraphPlan:
     png = shared_png(g, cfg.part_size)
-    return GraphPlan(png=png, blocked=block_png(png),
-                     **_plan_fields(g, cfg))
+    with plan_span("plan_stage", stage="blocked"):
+        blocked = block_png(png)
+    return GraphPlan(png=png, blocked=blocked, **_plan_fields(g, cfg))
+
+
+def _b1_path_pcpm_pallas(d: int) -> str:
+    from ..kernels.pcpm_spmv import b1_path
+    # the plan's closure always passes its "tile" gather order
+    return b1_path(d, True)
 
 
 def _spmv_pcpm_pallas(plan: GraphPlan, device: torch.device):
@@ -468,7 +481,8 @@ for _backend in (
             phase_fns=_phases_pcpm, patch_plan=_patch_pcpm,
             supports_push_query=True),
     Backend("pcpm_pallas", _build_pcpm_pallas, _spmv_pcpm_pallas,
-            patch_plan=_patch_pcpm_pallas, supports_push_query=True),
+            patch_plan=_patch_pcpm_pallas, supports_push_query=True,
+            b1_path=_b1_path_pcpm_pallas),
     # pcpm_sharded has no patcher: the shard-local receive buffers and
     # the all-to-all send schedule are global layouts (a delta anywhere
     # can grow any shard's wire stream), so deltas take a full rebuild —

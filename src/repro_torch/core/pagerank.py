@@ -219,7 +219,12 @@ def masked_chunk_stepper(engine: SpMVEngine, *, damping: float = 0.85,
 
 def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
                damping: float, tol: float, check_every: int,
-               dangling: str) -> PageRankResult:
+               dangling: str, span=None) -> PageRankResult:
+    """The fused solve. ``span`` (an ``obs`` ``Span``, or None to record
+    nothing) gets three children in turn: ``solve_start`` (the loop's
+    closure, the start vectors, 1 / out-degree), ``solve_launch`` (the
+    loop's launches) and ``solve_readback`` (the host waiting for the
+    residuals, so for the card)."""
     if eng.backend.supports_sharding:
         # a sharding backend owns its own loop (all-to-all + blocked
         # gather + all-reduced residual, core/distributed.py)
@@ -228,18 +233,41 @@ def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
             g, eng.mesh, num_iterations=num_iterations, damping=damping,
             tol=tol, check_every=check_every, dangling=dangling,
             layout=eng.sharded_layout, fused_cache=eng._fused_cache)
-    n = g.num_nodes
-    run = fused_power_iteration(eng, damping=damping,
-                                num_iterations=num_iterations, tol=tol,
-                                check_every=check_every,
-                                dangling=dangling)
-    pr0 = torch.full((n,), 1.0 / n, dtype=torch.float32, device=eng.device)
-    base = torch.full((n,), (1.0 - damping) / n, dtype=torch.float32,
-                      device=eng.device)
-    pr, it, res = run(pr0, _inv_degree(g, eng.device), base)
-    res_host = res[:it].cpu().numpy()
+    stage = None if span is None else span.child("solve_start")
+    try:
+        n = g.num_nodes
+        run = fused_power_iteration(eng, damping=damping,
+                                    num_iterations=num_iterations, tol=tol,
+                                    check_every=check_every,
+                                    dangling=dangling)
+        pr0 = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                         device=eng.device)
+        base = torch.full((n,), (1.0 - damping) / n, dtype=torch.float32,
+                          device=eng.device)
+        inv_deg = _inv_degree(g, eng.device)
+        if stage is not None:
+            stage.end()
+            stage = span.child("solve_launch")
+        pr, it, res = run(pr0, inv_deg, base)
+        if stage is not None:
+            stage.end(iterations=int(it), b1_path=b1_path(eng))
+            stage = span.child("solve_readback")
+        res_host = res[:it].cpu().numpy()
+    except Exception as e:
+        if stage is not None:
+            stage.end(status="error", error=repr(e))
+        raise
+    if stage is not None:
+        stage.end()
     return PageRankResult(pr, int(it),
                           [float(r) for r in res_host if r >= 0.0])
+
+
+def b1_path(eng: SpMVEngine):
+    """The path kernel B1 takes in a solve on ``eng`` (d = 1), or None
+    when its backend does not run B1."""
+    path = eng.backend.b1_path
+    return None if path is None else path(1)
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +300,15 @@ def pagerank(g: Graph, *, method: str = "pcpm", num_iterations: int = 20,
              damping: float = 0.85, part_size: int = 65536,
              tol: float = 0.0, engine: SpMVEngine | None = None,
              driver: str = "fused", check_every: int = 1,
-             dangling: str = "none", device=None) -> PageRankResult:
+             dangling: str = "none", device=None,
+             span=None) -> PageRankResult:
     """Compatibility front-end. ``method`` is resolved through the
     backend registry and the graph plan comes from the process-level
     plan cache, so repeated calls on one graph never re-sort edges.
     ``device`` defaults to ``"cuda"`` (ignored when ``engine`` is
-    given: the engine's device is used). New code should prefer
-    ``repro_torch.open(g, cfg).pagerank()``."""
+    given: the engine's device is used). ``span``, an open ``obs``
+    span, is the parent of the fused solve's stage spans. New code
+    should prefer ``repro_torch.open(g, cfg).pagerank()``."""
     eng = engine or SpMVEngine(g, method=method, part_size=part_size,
                                device=device)
     if driver == "python" or eng.two_phase:
@@ -291,7 +321,8 @@ def pagerank(g: Graph, *, method: str = "pcpm", num_iterations: int = 20,
     if eng.plan.reorder_perm is None:
         return _run_fused(g, eng, num_iterations=num_iterations,
                           damping=damping, tol=tol,
-                          check_every=check_every, dangling=dangling)
+                          check_every=check_every, dangling=dangling,
+                          span=span)
     # reordered plan: iterate wholly in internal (relabeled) space —
     # the uniform start/teleport vectors are permutation-invariant, so
     # only the FINAL ranks pay one gather back to the original ids
@@ -299,7 +330,8 @@ def pagerank(g: Graph, *, method: str = "pcpm", num_iterations: int = 20,
     from .plan import internal_graph
     res = _run_fused(internal_graph(g, eng.plan), eng,
                      num_iterations=num_iterations, damping=damping,
-                     tol=tol, check_every=check_every, dangling=dangling)
+                     tol=tol, check_every=check_every, dangling=dangling,
+                     span=span)
     perm, _ = reorder_device(eng.plan, eng.device)
     res.ranks = res.ranks.index_select(0, perm)
     return res

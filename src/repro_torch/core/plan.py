@@ -33,6 +33,7 @@ import json
 import threading
 import time
 import weakref
+from contextlib import contextmanager
 from typing import Any, Optional
 
 import numpy as np
@@ -353,7 +354,9 @@ _PLAN_OBSERVERS: "weakref.WeakSet" = weakref.WeakSet()
 
 def add_plan_observer(obs) -> None:
     """Register an object with a ``plan_event(name, **attrs)`` method to
-    receive plan build/hit/patch notifications (held weakly)."""
+    receive plan build/hit/patch notifications, and with a
+    ``plan_span(name, parent, **attrs)`` method returning an open span
+    to receive the spans of host preprocessing (held weakly)."""
     _PLAN_OBSERVERS.add(obs)
 
 
@@ -371,6 +374,61 @@ def notify_plan_event(name: str, **attrs) -> None:
             obs.plan_event(name, **attrs)
         except Exception:
             pass
+
+
+class PlanSpans:
+    """The open spans of one step of host preprocessing: one on each
+    observer attached when the step began (``{observer: Span}``)."""
+
+    __slots__ = ("spans",)
+
+    def __init__(self, spans: dict):
+        self.spans = spans
+
+    def annotate(self, **attrs) -> None:
+        for sp in self.spans.values():
+            sp.annotate(**attrs)
+
+
+_NO_SPANS = PlanSpans({})
+# The plan spans open on each thread, innermost last. Host preprocessing
+# runs inside one call on one thread (build_plan -> a backend's build ->
+# shared_png; spmv_fn -> the layouts its closure uploads), and the
+# Backend contract carries no span, so a plan span's parent is the one
+# open around it on its thread.
+_OPEN_SPANS = threading.local()
+
+
+@contextmanager
+def plan_span(name: str, /, **attrs):
+    """A span named ``name`` (trace ``"plan"``) on every attached
+    observer for the ``with`` block, the child of the plan span open
+    around it on this thread; yields its ``PlanSpans``. With no observer
+    attached it records nothing and costs one falsy check. An observer's
+    error is swallowed, as in ``notify_plan_event``."""
+    if not _PLAN_OBSERVERS:
+        yield _NO_SPANS
+        return
+    stack = _OPEN_SPANS.__dict__.setdefault("stack", [])
+    parents = (stack[-1].spans if stack
+               else dict.fromkeys(list(_PLAN_OBSERVERS)))
+    here = PlanSpans({})
+    for obs, parent in parents.items():
+        try:
+            here.spans[obs] = obs.plan_span(name, parent, **attrs)
+        except Exception:
+            pass
+    stack.append(here)
+    try:
+        yield here
+    except BaseException as e:
+        for sp in here.spans.values():
+            sp.end(status="error", error=f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        stack.pop()
+    for sp in here.spans.values():
+        sp.end()
 
 
 def peek_plan(fp: str, config: PlanConfig) -> Optional[GraphPlan]:
@@ -463,7 +521,8 @@ def shared_png(g: Graph, part_size: int) -> PNGLayout:
         return png
     _STATS.png_builds += 1
     t0 = time.perf_counter()
-    png = build_png(g, Partitioning(g.num_nodes, part_size))
+    with plan_span("plan_stage", stage="png"):
+        png = build_png(g, Partitioning(g.num_nodes, part_size))
     _bounded_insert(_PNG_CACHE, MAX_CACHED_PNGS, key, png)
     notify_plan_event("png_build", part_size=part_size,
                       n=g.num_nodes, m=g.num_edges,
@@ -474,41 +533,51 @@ def shared_png(g: Graph, part_size: int) -> PNGLayout:
 def build_plan(g: Graph, config: PlanConfig | None = None) -> GraphPlan:
     """THE way to get a plan: normalize the config, consult the
     process-level cache, delegate a miss to the registered backend's
-    ``build_plan``."""
+    ``build_plan``. Observers see a ``plan_make`` span over the call,
+    with a ``plan_stage`` child for each stage that does work."""
     from .backends import get_backend, normalize_config
     from ..graphs.formats import validate_graph
-    validate_graph(g)     # crisp ValueError on out-of-range ids, not
-    cfg = normalize_config(config or PlanConfig())   # an index crash
-    fp = graph_fingerprint(g)
-    key = (fp, cfg)
-    plan = _PLAN_CACHE.get(key)
-    if plan is not None:
-        _STATS.plan_hits += 1
-        _touch(_PLAN_CACHE, key)
-        notify_plan_event("plan_cache_hit", method=cfg.method,
-                          fp=fp[:12])
+    cfg = config or PlanConfig()
+    with plan_span("plan_make", method=cfg.method, n=g.num_nodes,
+                   m=g.num_edges) as make:
+        with plan_span("plan_stage", stage="validate"):
+            validate_graph(g)     # crisp ValueError on out-of-range ids,
+        cfg = normalize_config(cfg)                  # not an index crash
+        if "_plan_fingerprint" in g.__dict__:
+            fp = graph_fingerprint(g)
+        else:
+            with plan_span("plan_stage", stage="fingerprint"):
+                fp = graph_fingerprint(g)
+        key = (fp, cfg)
+        plan = _PLAN_CACHE.get(key)
+        make.annotate(hit=plan is not None)
+        if plan is not None:
+            _STATS.plan_hits += 1
+            _touch(_PLAN_CACHE, key)
+            notify_plan_event("plan_cache_hit", method=cfg.method,
+                              fp=fp[:12])
+            return plan
+        _STATS.plan_builds += 1
+        t0 = time.perf_counter()
+        if cfg.reorder != "none":
+            # build every layout on the RELABELED graph (contiguous hub
+            # labels raise PNG compression), but stamp the ORIGINAL
+            # graph's fingerprint: the plan belongs to g, and the reorder
+            # name in cfg keeps the cache entry distinct
+            from ..graphs.reorder import reorder_permutation
+            perm = reorder_permutation(g, cfg.reorder)
+            plan = get_backend(cfg.method).build_plan(g.relabel(perm), cfg)
+            plan = dataclasses.replace(plan, reorder_perm=perm, graph_fp=fp)
+        else:
+            plan = get_backend(cfg.method).build_plan(g, cfg)
+        if plan.graph_fp is None:
+            plan = dataclasses.replace(plan, graph_fp=fp)
+        _bounded_insert(_PLAN_CACHE, MAX_CACHED_PLANS, key, plan)
+        notify_plan_event("plan_build", method=cfg.method,
+                          n=g.num_nodes, m=g.num_edges,
+                          reorder=cfg.reorder, fp=fp[:12],
+                          duration_s=time.perf_counter() - t0)
         return plan
-    _STATS.plan_builds += 1
-    t0 = time.perf_counter()
-    if cfg.reorder != "none":
-        # build every layout on the RELABELED graph (contiguous hub
-        # labels raise PNG compression), but stamp the ORIGINAL graph's
-        # fingerprint: the plan belongs to g, and the reorder name in
-        # cfg keeps the cache entry distinct
-        from ..graphs.reorder import reorder_permutation
-        perm = reorder_permutation(g, cfg.reorder)
-        plan = get_backend(cfg.method).build_plan(g.relabel(perm), cfg)
-        plan = dataclasses.replace(plan, reorder_perm=perm, graph_fp=fp)
-    else:
-        plan = get_backend(cfg.method).build_plan(g, cfg)
-    if plan.graph_fp is None:
-        plan = dataclasses.replace(plan, graph_fp=fp)
-    _bounded_insert(_PLAN_CACHE, MAX_CACHED_PLANS, key, plan)
-    notify_plan_event("plan_build", method=cfg.method,
-                      n=g.num_nodes, m=g.num_edges,
-                      reorder=cfg.reorder, fp=fp[:12],
-                      duration_s=time.perf_counter() - t0)
-    return plan
 
 
 def install_plan(g: Graph, plan: GraphPlan) -> GraphPlan:

@@ -61,12 +61,29 @@ def library_path(source: Path) -> Path:
 
 def build(*sources: Path) -> list[Built]:
     """Build every source not built yet, one ``nvcc`` each, all started
-    together; raises with the compiler's output if one fails."""
+    together; raises with the compiler's output if one fails. Observers
+    of host preprocessing (``core.plan.plan_span``) see one
+    ``kernel_load`` span over the finding and building of the sources
+    this process had not loaded yet: ``built`` tells whether ``nvcc``
+    ran, ``compile_s`` how long the builds took."""
+    todo = [source for source in dict.fromkeys(sources)
+            if source not in _built]
+    if todo:
+        from ..core.plan import plan_span
+        with plan_span("kernel_load", source=" ".join(
+                source.name for source in todo)) as sp:
+            compile_s = _find_or_build(todo)
+            sp.annotate(built=compile_s > 0.0, compile_s=compile_s)
+    return [_built[source] for source in sources]
+
+
+def _find_or_build(sources: list[Path]) -> float:
+    """Fills ``_built`` for ``sources``; returns the seconds from the
+    first ``nvcc``'s start to the last one's end (0.0 when every library
+    was found built)."""
     t0 = time.perf_counter()
     running = []
-    for source in dict.fromkeys(sources):
-        if source in _built:
-            continue
+    for source in sources:
         so = library_path(source)
         if so.exists():
             _built[source] = Built(so, 0.0, "")
@@ -82,6 +99,7 @@ def build(*sources: Path) -> list[Built]:
                                 stderr=subprocess.STDOUT, text=True)
         running.append((source, so, tmp, log, proc))
     failures = []
+    seconds = 0.0
     for source, so, tmp, log, proc in running:
         code = proc.wait()
         seconds = time.perf_counter() - t0
@@ -97,7 +115,7 @@ def build(*sources: Path) -> list[Built]:
         _built[source] = Built(so, seconds, text)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return [_built[source] for source in sources]
+    return seconds
 
 
 def load(source: Path) -> tuple[ctypes.CDLL, Built]:

@@ -4,7 +4,9 @@ One ``Observability`` bundle ties the three instruments together:
 
 - ``tracer``/``recorder`` — explicit-parent span tracing into a bounded
   flight-recorder ring (obs/trace.py), threaded through the query
-  lifecycle, plan builds/patches, deltas and stepper builds;
+  lifecycle, plan builds/patches, deltas and stepper builds, and the
+  port's own spans of a solve's stages and of host preprocessing
+  (``PORT_SPANS``);
 - ``registry`` — the typed metrics registry (obs/metrics.py) that
   cross-cutting counters report into; each scheduler's ``ServeMetrics``
   keeps its own registry and the gateway's scrape endpoint merges them;
@@ -25,15 +27,15 @@ from typing import Optional
 from .comm import CommAccountant, CommBreakdown, measure_plan, vs_model
 from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
                       MetricsRegistry, render_prometheus)
-from .trace import (TRACE_SCHEMA_VERSION, FlightRecorder, QuerySpans,
-                    Span, SpanRecord, Tracer)
+from .trace import (PORT_SPANS, TRACE_SCHEMA_VERSION, FlightRecorder,
+                    QuerySpans, Span, SpanRecord, Tracer)
 
 __all__ = [
     "Observability", "Tracer", "Span", "SpanRecord", "QuerySpans",
     "FlightRecorder", "MetricsRegistry", "Counter", "Gauge",
     "Histogram", "render_prometheus", "DEFAULT_BUCKETS",
     "CommAccountant", "CommBreakdown", "measure_plan", "vs_model",
-    "TRACE_SCHEMA_VERSION",
+    "TRACE_SCHEMA_VERSION", "PORT_SPANS",
 ]
 
 
@@ -50,8 +52,9 @@ class Observability:
         self.dump_dir = dump_dir
         self._dump_seq = itertools.count(1)
         self._dump_lock = threading.Lock()
-        # plan build/hit/patch events fan in from core/plan.py (weak
-        # registration: dropping the bundle detaches it)
+        # plan build/hit/patch events and host-preprocessing spans fan
+        # in from core/plan.py (weak registration: dropping the bundle
+        # detaches it)
         from ..core import plan as _plan
         self._plan_mod = _plan
         _plan.add_plan_observer(self)
@@ -63,6 +66,14 @@ class Observability:
         self.registry.counter("plan_events_total",
                               "plan build/hit/patch events",
                               event=name).inc()
+
+    def plan_span(self, name: str, parent=None, /, **attrs) -> Span:
+        """Callback target of ``core.plan.plan_span``: an open span of
+        host preprocessing, trace ``"plan"`` (an attribute may be called
+        ``name``)."""
+        sp = self.tracer.start(name, parent=parent, trace="plan")
+        sp.annotate(**attrs)
+        return sp
 
     # -------------------------------------------------------------- dumps
     def dump(self, path: str) -> str:

@@ -30,6 +30,16 @@ reads the same: ``query`` (root) with ``backlog``/``queue``/``slot``/
 The port compiles no XLA: its ``xla_compile`` event, kept under the JAX
 package's name, marks the one build of a scheduler's chunk stepper.
 
+The port records spans of its own besides (``PORT_SPANS``), which the
+JAX package lacks: the stages of a fused solve under ``solve``
+(``solve_start``, ``solve_launch``, ``solve_readback``) and host
+preprocessing (trace ``"plan"``: ``plan_make`` with its ``plan_stage``
+children, ``device_layout``, ``kernel_load``). While a
+``torch.profiler`` session records, each of them and ``solve`` also
+opens a profiler range named ``repro_torch::<name>`` from its start to
+its end, so the profiler stamps the span on the clock of its aten ops
+and device kernels (the recorder's own times are ``perf_counter``).
+
 Overhead discipline: with observability off no Span objects exist and
 every hot-path hook is one ``is None`` branch. With it on, a span is
 one small object + one deque append under a lock held for O(1).
@@ -44,7 +54,16 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Optional
 
+import torch
+
 TRACE_SCHEMA_VERSION = 1
+
+# the port's own span names, recorded beside the JAX package's schema
+PORT_SPANS = frozenset({"solve_start", "solve_launch", "solve_readback",
+                        "plan_make", "plan_stage", "device_layout",
+                        "kernel_load"})
+# spans that open a profiler range while torch.profiler records
+PROFILED_SPANS = PORT_SPANS | {"solve"}
 
 _ids = itertools.count(1)
 
@@ -53,6 +72,20 @@ def _next_id() -> int:
     # next() on an itertools.count is atomic under the GIL — no lock on
     # the one allocation every span and event pays
     return next(_ids)
+
+
+def profiler_range(name: str):
+    """An open ``repro_torch::<name>`` range while a ``torch.profiler``
+    session records, else None; ``Span.end`` closes it.
+    ``_RecordFunctionFast`` puts the range on the profiler's host
+    timeline only: ``record_function``'s would also be copied onto the
+    device timeline (``gpu_user_annotation``), where a union of device
+    intervals would count it as device time."""
+    if not torch._C._autograd._profiler_enabled():
+        return None
+    rng = torch._C._profiler._RecordFunctionFast("repro_torch::" + name)
+    rng.__enter__()
+    return rng
 
 
 class SpanRecord:
@@ -141,7 +174,7 @@ class Span:
     """Open interval; becomes visible in the recorder on ``end()``."""
 
     __slots__ = ("_tracer", "name", "span_id", "parent_id", "trace",
-                 "t_start", "attrs", "_done")
+                 "t_start", "attrs", "_done", "_range")
 
     def __init__(self, tracer, name, parent_id, trace, t_start, attrs):
         self._tracer = tracer
@@ -152,6 +185,8 @@ class Span:
         self.t_start = t_start
         self.attrs = attrs
         self._done = False
+        self._range = (profiler_range(name) if name in PROFILED_SPANS
+                       else None)
 
     def bind(self, trace) -> None:
         """Late-bind the trace id (a query's uid is allocated under
@@ -179,6 +214,8 @@ class Span:
             self._tracer.double_ends += 1
             return
         self._done = True
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         if attrs:
             self.attrs.update(attrs)
         self._tracer.recorder.record(SpanRecord(

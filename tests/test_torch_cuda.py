@@ -887,6 +887,33 @@ def test_gateway_on_the_card_matches_cpu(cuda_device):
     obs.close()
 
 
+def test_span_ranges_stay_off_the_device_timeline(cuda_device):
+    """Under ``torch.profiler`` with device tracing, an observed solve's
+    spans are host ranges ``repro_torch::<name>`` and put nothing on the
+    device timeline: a ``record_function`` range would come back there
+    as a ``gpu_user_annotation``, which a union of device intervals
+    (``bench/devtrace.py``) counts as busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    g = generators.rmat(12, 8, seed=41)
+    sess = repro_torch.open(g, repro_torch.EngineConfig(
+        method="pcpm_pallas", part_size=1024, observe=True),
+        device=cuda_device)
+    sess.pagerank(num_iterations=3)   # layouts, B1's library
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.pagerank(num_iterations=3)
+        torch.cuda.synchronize()
+    kinds = torch.autograd.DeviceType
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() == kinds.CPU}
+    device = [e.name() for e in events if e.device_type() == kinds.CUDA]
+    assert {"repro_torch::" + name for name in (
+        "solve", "solve_start", "solve_launch", "solve_readback")} <= host
+    assert any("gather_kernel" in name for name in device)
+    assert not [name for name in device if "repro_torch" in name]
+    sess.obs.close()
+
+
 def test_one_upload_per_plan_on_the_card(cuda_device, monkeypatch):
     """Two push workers and the stepper reach a released pcpm_pallas
     plan's first use together on the card: its packed streams and "tile"

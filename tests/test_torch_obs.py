@@ -11,9 +11,17 @@ reconciliation, plan events, ``Session.observe`` and the observed storms
 (``tests/test_torch_cuda.py``). The trace-format parity case drives one
 fixed query sequence through both packages' schedulers on a fake clock
 and compares their JSONL dumps record for record.
+
+The port's own spans (``obs.PORT_SPANS``: a solve's stages, host
+preprocessing's stages, device layouts, kernel loads), which the
+reference lacks, are taken out of the port's records where the two are
+compared, and checked on the port alone (``test_port_spans_*``).
 """
 import json
 import threading
+import weakref
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -96,6 +104,15 @@ def _seed(g, at=3):
     s[at % g.num_nodes] = 1.0
     s[(at * 7 + 1) % g.num_nodes] = 1.0
     return s
+
+
+def _reference_records(pkg, recs):
+    """The records of the reference's schema: the port's own spans
+    (``obs.PORT_SPANS``, which ``test_port_spans_*`` check) taken out of
+    the port's records; the reference's are all kept."""
+    if pkg is not PORT:
+        return recs
+    return [r for r in recs if r.name not in port_obs.PORT_SPANS]
 
 
 def _shape(recs):
@@ -520,7 +537,7 @@ def test_build_and_cache_hit_events(graphs):
                 "plan_events_total", event="plan_build") == 1
             assert obs.registry.counter_value(
                 "plan_events_total", event="plan_cache_hit") == 1
-            names.append(_shape(recs))
+            names.append(_shape(_reference_records(pkg, recs)))
         finally:
             obs.close()
     assert names[0] == names[1]
@@ -573,7 +590,7 @@ def test_patch_emits_plan_patch_event(graphs):
         recs = sess.obs.recorder.snapshot()
         names = [r.name for r in recs]
         assert "plan_patch" in names and "session_delta" in names
-        shapes.append(_shape(recs[n0:]))
+        shapes.append(_shape(_reference_records(pkg, recs[n0:])))
         sess.obs.close()
     assert shapes[0] == shapes[1]
 
@@ -794,6 +811,191 @@ def test_metrics_endpoint_scrape(graphs):
     assert texts[0] == texts[1]
 
 
+# ------------------------------------------------------ the port's own spans
+def _by_name(recs, name):
+    return [r for r in recs if r.name == name]
+
+
+def _children(recs, parent):
+    return sorted((r for r in recs if r.parent_id == parent.span_id),
+                  key=lambda r: r.t_start)
+
+
+def _observed_solve(method, seed):
+    """A fresh graph's observed session (its plan built, not found) and
+    one 4-iteration solve; returns the session and its records."""
+    port_plan.clear_plan_cache()
+    g = generators.rmat(8, 8, seed=seed)
+    sess = repro_torch.open(g, repro_torch.EngineConfig(
+        method=method, part_size=64, observe=True), device="cpu")
+    sess.pagerank(num_iterations=4)
+    return sess, sess.obs.recorder.snapshot()
+
+
+@pytest.mark.parametrize("method,path", [("pcpm_pallas", "tile"),
+                                         ("pcpm", None)])
+def test_port_spans_of_a_solve_nest_in_order(method, path):
+    sess, recs = _observed_solve(method, seed=31)
+    try:
+        solve, = _by_name(recs, "solve")
+        assert solve.attrs["b1_path"] == path
+        kids = _children(recs, solve)
+        assert [r.name for r in kids] == ["solve_start", "solve_launch",
+                                          "solve_readback"]
+        assert all(r.status == "ok" and r.trace == "plan" for r in kids)
+        assert solve.t_start <= kids[0].t_start
+        for a, b in zip(kids, kids[1:]):
+            assert a.t_end <= b.t_start
+        assert kids[-1].t_end <= solve.t_end
+        launch = kids[1]
+        assert launch.attrs == {"iterations": 4, "b1_path": path}
+        assert sess.obs.recorder.dropped == 0
+    finally:
+        sess.obs.close()
+
+
+def test_port_spans_of_host_preprocessing():
+    """The plan build's stages under ``plan_make``, the layouts of the
+    first solve; a second session on the graph finds the plan, the
+    fingerprint and the layouts made."""
+    sess, recs = _observed_solve("pcpm_pallas", seed=32)
+    try:
+        make, = _by_name(recs, "plan_make")
+        assert make.attrs == {"method": "pcpm_pallas",
+                              "n": sess.plan.num_nodes,
+                              "m": sess.plan.num_edges, "hit": False}
+        stages = _children(recs, make)
+        assert [r.name for r in stages] == ["plan_stage"] * 4
+        assert [r.attrs["stage"] for r in stages] == [
+            "validate", "fingerprint", "png", "blocked"]
+        assert all(make.t_start <= r.t_start and r.t_end <= make.t_end
+                   for r in stages)
+        layouts = {r.attrs["name"]: r for r in _by_name(recs,
+                                                        "device_layout")}
+        assert {"spmv", "packed", "tile_schedule"} <= set(layouts)
+        outer = layouts["spmv"]
+        for name in ("packed", "tile_schedule"):
+            assert layouts[name].parent_id == outer.span_id
+        assert outer.parent_id is None and make.parent_id is None
+        again = repro_torch.open(sess.graph, sess.config, device="cpu")
+        again.pagerank(num_iterations=2)
+        recs2 = sess.obs.recorder.snapshot()[len(recs):]
+        make2, = _by_name(recs2, "plan_make")
+        assert make2.attrs["hit"] is True
+        assert [r.attrs["stage"] for r in _children(recs2, make2)] == [
+            "validate"]
+        assert not _by_name(recs2, "device_layout")
+    finally:
+        sess.obs.close()
+
+
+@pytest.mark.parametrize("found", [False, True], ids=["built", "found"])
+def test_port_spans_kernel_load(tmp_path, monkeypatch, found):
+    """``kernel_load`` over ``_build.build`` with ``nvcc`` stubbed: built
+    true with its compile seconds on an empty build directory, false
+    with 0.0 where the library is there; a library this process already
+    loaded records nothing."""
+    from repro_torch.kernels import _build
+
+    class FakeNvcc:
+        def __init__(self, argv, **kw):
+            self.out = Path(argv[argv.index("-o") + 1])
+
+        def wait(self):
+            self.out.write_bytes(b"\x7fELF")
+            return 0
+
+    source = tmp_path / "k.cu"
+    source.write_text("// a kernel\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_built", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "subprocess", SimpleNamespace(
+        Popen=FakeNvcc, STDOUT=None))
+    if found:
+        _build.BUILD_DIR.mkdir()
+        _build.library_path(source).write_bytes(b"\x7fELF")
+    obs = port_obs.Observability(capacity=64)
+    try:
+        built, = _build.build(source)
+        _build.build(source)
+        rec, = obs.recorder.snapshot()
+        assert (rec.name, rec.trace, rec.status) == ("kernel_load", "plan",
+                                                     "ok")
+        assert rec.attrs["source"] == "k.cu"
+        assert rec.attrs["built"] is (not found)
+        assert rec.attrs["compile_s"] == built.seconds
+        assert (built.seconds > 0.0) is (not found)
+        assert built.path.exists()
+    finally:
+        obs.close()
+
+
+def test_port_spans_cost_nothing_without_a_bundle(monkeypatch):
+    """With no bundle attached a build, the layouts and a solve make no
+    ``Span`` at all."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a Span was made with no bundle attached")
+
+    monkeypatch.setattr(port_plan, "_PLAN_OBSERVERS", weakref.WeakSet())
+    monkeypatch.setattr(port_obs.Span, "__init__", refuse)
+    port_plan.clear_plan_cache()
+    g = generators.rmat(8, 8, seed=33)
+    sess = repro_torch.open(g, method="pcpm_pallas", part_size=64,
+                            device="cpu")
+    assert sess.pagerank(num_iterations=3).iterations == 3
+
+
+def test_port_spans_share_the_profiler_clock():
+    """Under an active CPU ``torch.profiler`` each span is also a
+    ``repro_torch::<name>`` event, one for each record, and its interval
+    encloses the aten ops run inside it: every scatter (``index_select``)
+    lies in a ``solve_launch``, each ``solve_readback`` holds the slice of
+    the residuals it reads, every stage lies in its ``solve`` or
+    ``plan_make``."""
+    from torch.profiler import ProfilerActivity, profile
+    port_plan.clear_plan_cache()
+    g = generators.rmat(8, 8, seed=34)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sess = repro_torch.open(g, repro_torch.EngineConfig(
+            method="pcpm_pallas", part_size=64, observe=True),
+            device="cpu")
+        for _ in range(2):
+            sess.pagerank(num_iterations=3)
+    try:
+        recs = sess.obs.recorder.snapshot()
+        events = {}
+        for e in prof.profiler.kineto_results.events():
+            t0 = e.start_ns()
+            events.setdefault(e.name(), []).append(
+                (t0, t0 + e.duration_ns()))
+        for name in port_obs.PORT_SPANS - {"kernel_load"} | {"solve"}:
+            assert len(events.get("repro_torch::" + name, [])) == len(
+                _by_name(recs, name)) > 0, name
+
+        def inside(inner, outer):
+            return all(any(a <= i0 and i1 <= b for a, b in
+                           events["repro_torch::" + outer])
+                       for i0, i1 in events[inner])
+
+        assert len(events["aten::index_select"]) >= 6    # 2 x 3 scatters
+        assert inside("aten::index_select", "solve_launch")
+        assert all(any(a <= i0 and i1 <= b for i0, i1 in
+                       events["aten::slice"])
+                   for a, b in events["repro_torch::solve_readback"])
+        names = ("solve_start", "solve_launch", "solve_readback")
+        for stage in names:
+            assert inside("repro_torch::" + stage, "solve")
+        # each range closes when its span ends, before the next opens
+        ranges = sorted((t0, t1, name) for name in names
+                        for t0, t1 in events["repro_torch::" + name])
+        assert [r[2] for r in ranges] == list(names) * 2
+        assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+        assert inside("repro_torch::plan_stage", "plan_make")
+    finally:
+        sess.obs.close()
+
+
 # ------------------------------------------------ trace-format parity
 def _fixed_sequence(pkg, g, tmp_path):
     """One fixed query sequence through an observing scheduler on a fake
@@ -848,7 +1050,15 @@ def test_trace_dumps_have_the_reference_format(graphs, tmp_path):
         return out
 
     (h_port, rows_port), (h_ref, rows_ref) = dumps[PORT], dumps[REF]
-    assert h_port == h_ref
+    port_only = [r for r in rows_port if r["name"] in port_obs.PORT_SPANS]
+    rows_port = [r for r in rows_port
+                 if r["name"] not in port_obs.PORT_SPANS]
+    assert {"plan_make", "device_layout"} <= {r["name"] for r in port_only}
+    assert {k: v for k, v in h_port.items()
+            if k not in ("recorded", "held")} == {
+        k: v for k, v in h_ref.items() if k not in ("recorded", "held")}
+    assert h_port["recorded"] - len(port_only) == h_ref["recorded"]
+    assert h_port["held"] - len(port_only) == h_ref["held"]
     assert shape(rows_port) == shape(rows_ref)
     names = {r["name"] for r in rows_port}
     assert {"png_build", "plan_build", "xla_compile", "query", "queue",
