@@ -21,7 +21,12 @@ Phases, each of which exits non-zero when it fails:
    of ``configs/pagerank_kron.py`` (R-MAT a/b/c = 0.57/0.19/0.19, edge
    factor 31, partitions of 65536 nodes) with the scale cut from 25 to
    21, each result held against a float64 scipy power iteration; B1 must
-   have launched once per pcpm_pallas iteration, through "tile". Then the
+   have launched once per pcpm_pallas iteration, through "tile". The
+   second solve of each session captures the fixed-count loop as a CUDA
+   graph and replays it, the third replays it (``core/pagerank.py``):
+   both held to the same gate and within 1e-6 of the first, one capture
+   and two replays a session, and each replay counted as one "tile"
+   launch per pcpm_pallas iteration and none on the others. Then the
    host time and device bytes of the gather order, and B1 against its
    plain version at the main path's shape (d = 1 through "tile", exact)
    and at the serving stepper's (d = 16 through "warp", from bins and in
@@ -305,6 +310,7 @@ launched); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -723,6 +729,35 @@ def pagerank_phases(dev, card):
                  f"{np.isfinite(ranks).all()}")
         ids10, _ = sessions[method].top_ranked(10)
         check_against_oracle(method, ranks, ids10, oracle)
+
+    # the second solve captures and replays the loop, the third replays
+    solver = importlib.import_module("repro_torch.core.pagerank")
+    graphs = solver.graph_captures, solver.graph_replays
+    for method in METHODS:
+        sess, eager = sessions[method], results[method].ranks.cpu().numpy()
+        for label in ("capture", "replay"):
+            before = dict(b1.launch_counts)
+            res = sess.pagerank()
+            torch.cuda.synchronize()
+            launched = {p: b1.launch_counts[p] - before[p] for p in b1.PATHS}
+            ranks = res.ranks.cpu().numpy()
+            gap = float(np.abs(ranks - eager).max())
+            log(f"{method} {label}: B1 launches {launched}, L-inf to the "
+                f"first solve {gap!r} (<= 1e-6)")
+            tiles = iterations if method == "pcpm_pallas" else 0
+            if res.iterations != iterations or launched != {"warp": 0,
+                                                            "tile": tiles}:
+                fail(f"{method} {label}: {res.iterations} iterations, B1 "
+                     f"launches {launched}")
+            if not gap <= 1e-6:
+                fail(f"{method} {label} differs from the first solve")
+            ids10, _ = sess.top_ranked(10)
+            check_against_oracle(f"{method} {label}", ranks, ids10, oracle)
+    graphs = (solver.graph_captures - graphs[0],
+              solver.graph_replays - graphs[1])
+    log(f"CUDA graphs: {graphs[0]} captures, {graphs[1]} replays")
+    if graphs != (len(METHODS), 2 * len(METHODS)):
+        fail("expected one capture and two replays a session")
 
     before = b1.launch_count
     res = sessions["pcpm_pallas"].pagerank(tol=1e-7, check_every=5,

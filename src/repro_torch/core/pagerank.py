@@ -16,10 +16,16 @@ Two drivers:
   package's ``lax.while_loop`` driver.
 - ``driver="python"``: the per-iteration loop that reads the residual
   every iteration (used automatically for ``two_phase`` engines).
+
+A fused solve that cannot exit early (``tol == 0``) on a CUDA device,
+on a backend that does not shard, runs as one replay of a CUDA graph:
+the first such solve of a loop runs eagerly, the second captures the
+same loop and replays it, and later solves replay it (``_SolveGraph``).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -217,14 +223,109 @@ def masked_chunk_stepper(engine: SpMVEngine, *, damping: float = 0.85,
     return step
 
 
+# CUDA graphs of fixed-count solves (``_run_fused``): captures made and
+# replays run in this process (a capturing solve replays too). Reset by
+# assigning 0.
+graph_captures = 0
+graph_replays = 0
+_graph_lock = threading.Lock()
+# what a loop's key holds in the plan's loop cache after its first
+# graph-eligible solve, which runs eagerly: the second captures
+_SEEN = "seen"
+
+
+def graph_eligible(eng: SpMVEngine, tol: float) -> bool:
+    """Whether a fused solve on ``eng`` runs as a replay of a captured
+    CUDA graph: the device is CUDA, ``tol == 0`` (no host read inside
+    the loop, exactly ``num_iterations``) and the backend does not shard
+    (``core/distributed.py`` owns that loop)."""
+    return (eng.device.type == "cuda" and tol == 0
+            and not eng.backend.supports_sharding)
+
+
+def _start_vectors(n: int, damping: float, device):
+    """The uniform start vector and the (1-damping)-scaled teleport."""
+    pr0 = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    base = torch.full((n,), (1.0 - damping) / n, dtype=torch.float32,
+                      device=device)
+    return pr0, base
+
+
+@dataclasses.dataclass
+class _SolveGraph:
+    """One fixed-count solve captured as a CUDA graph: the start vectors
+    and every launch of the fused loop's ``run``, in its order. ``ranks``
+    and ``residuals`` are the graph's static outputs, which each replay
+    overwrites; ``launches`` the B1 launches of one replay, by path.
+    ``run`` (whose closure holds the device layouts) and ``inv_deg`` are
+    held because the captured kernels read them: ``release_device`` may
+    drop the plan's cache, and the graph ``inv_deg`` is memoized on may
+    go, while a solve still replays this entry."""
+    graph: torch.cuda.CUDAGraph
+    ranks: torch.Tensor
+    residuals: torch.Tensor
+    iterations: int
+    launches: dict
+    run: object
+    inv_deg: torch.Tensor
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+    @classmethod
+    def capture(cls, run, inv_deg: torch.Tensor, n: int,
+                damping: float) -> "_SolveGraph":
+        """Capture ``run`` from its start vectors, on a side stream,
+        after a solve has run it eagerly (the warm-up: device layouts,
+        B1's library). Raises if the capture fails. The kernels' launch
+        counters move while ``run`` is captured though nothing runs, so
+        the capture takes back this thread's launches and each replay
+        adds them. One capture at a time in the process: captures share
+        PyTorch's capture stream."""
+        global graph_captures
+        from ..kernels.pcpm_spmv import kernel
+        graph = torch.cuda.CUDAGraph()
+        with _graph_lock:
+            before = dict(kernel.thread_launch_counts())
+            try:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    pr0, base = _start_vectors(n, damping, inv_deg.device)
+                    pr, it, res = run(pr0, inv_deg, base)
+            finally:
+                after = kernel.thread_launch_counts()
+                launches = {path: after[path] - before[path]
+                            for path in kernel.PATHS}
+                kernel.count_launches({p: -c for p, c in launches.items()})
+            graph_captures += 1
+        return cls(graph, pr, res, int(it), launches, run, inv_deg)
+
+    def replay(self):
+        """Run the captured solve on the current stream: ``(ranks, it,
+        residuals)`` in fresh tensors (one device copy each out of the
+        static outputs), so no result aliases a later solve's."""
+        global graph_replays
+        from ..kernels.pcpm_spmv import kernel
+        with self.lock:
+            self.graph.replay()
+            out = self.ranks.clone(), self.iterations, self.residuals.clone()
+        kernel.count_launches(self.launches)
+        with _graph_lock:
+            graph_replays += 1
+        return out
+
+
 def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
                damping: float, tol: float, check_every: int,
                dangling: str, span=None) -> PageRankResult:
     """The fused solve. ``span`` (an ``obs`` ``Span``, or None to record
     nothing) gets three children in turn: ``solve_start`` (the loop's
     closure, the start vectors, 1 / out-degree), ``solve_launch`` (the
-    loop's launches) and ``solve_readback`` (the host waiting for the
-    residuals, so for the card)."""
+    loop's launches; ``graph`` says whether they ran ``"eager"``, were
+    captured and replayed, ``"capture"``, or replayed, ``"replay"``)
+    and ``solve_readback`` (the host waiting for the residuals, so for
+    the card). Graph-eligible solves (``graph_eligible``) of one loop
+    run eagerly the first time, so a one-off solve pays no capture, and
+    capture the second; the graph lives in the plan's loop cache next
+    to the loop, so ``release_device`` drops it with them."""
     if eng.backend.supports_sharding:
         # a sharding backend owns its own loop (all-to-all + blocked
         # gather + all-reduced residual, core/distributed.py)
@@ -240,17 +341,31 @@ def _run_fused(g: Graph, eng: SpMVEngine, *, num_iterations: int,
                                     num_iterations=num_iterations, tol=tol,
                                     check_every=check_every,
                                     dangling=dangling)
-        pr0 = torch.full((n,), 1.0 / n, dtype=torch.float32,
-                         device=eng.device)
-        base = torch.full((n,), (1.0 - damping) / n, dtype=torch.float32,
-                          device=eng.device)
         inv_deg = _inv_degree(g, eng.device)
+        graphed = graph_eligible(eng, tol)
+        key = ("graph", str(eng.device), damping, num_iterations,
+               check_every, dangling)
+        cache = eng._fused_cache
+        solve = cache.get(key) if graphed else None
+        if solve is None:
+            pr0, base = _start_vectors(n, damping, eng.device)
         if stage is not None:
             stage.end()
             stage = span.child("solve_launch")
-        pr, it, res = run(pr0, inv_deg, base)
+        if solve is None:
+            pr, it, res = run(pr0, inv_deg, base)
+            mode = "eager"
+            if graphed:
+                cache[key] = _SEEN
+        else:
+            mode = "replay"
+            if solve is _SEEN:
+                solve = cache[key] = _SolveGraph.capture(run, inv_deg, n,
+                                                         damping)
+                mode = "capture"
+            pr, it, res = solve.replay()
         if stage is not None:
-            stage.end(iterations=int(it), b1_path=b1_path(eng))
+            stage.end(iterations=int(it), b1_path=b1_path(eng), graph=mode)
             stage = span.child("solve_readback")
         res_host = res[:it].cpu().numpy()
     except Exception as e:

@@ -60,19 +60,47 @@ WARP_THREADS = 256
 
 # Calls of ``pcpm_gather_cuda`` and ``pcpm_spmv_cuda`` that launched on
 # the card in this process (CPU calls of the plain version do not count),
-# in all and per path; both forms of "warp" count as "warp". Reset by
+# in all and per path; both forms of "warp" count as "warp"; a replayed
+# CUDA graph adds the launches it captured (``count_launches``). Reset by
 # assigning 0 and ``dict.fromkeys(PATHS, 0)``. The gateway's device
 # thread and push workers launch concurrently: ``_count_lock`` keeps
-# their increments from losing one another.
+# their increments from losing one another, and each thread also keeps
+# its own tally (``thread_launch_counts``).
 launch_count = 0
 launch_counts = dict.fromkeys(PATHS, 0)
 _count_lock = threading.Lock()
+_thread = threading.local()
 # What the last build did: seconds spent in nvcc (0.0 when the library
 # was already built) and the compiler's report (registers, spills).
 build_seconds = 0.0
 build_log = ""
 
 _lib = None
+
+
+def thread_launch_counts() -> dict:
+    """The launches counted on the calling thread, by path: what a CUDA
+    graph's capture takes back, whatever other threads launch
+    meanwhile. Only differences of it mean anything."""
+    counts = getattr(_thread, "counts", None)
+    if counts is None:
+        counts = _thread.counts = dict.fromkeys(PATHS, 0)
+    return counts
+
+
+def count_launches(counts: dict) -> None:
+    """Add ``counts`` (launches by path) to ``launch_count``,
+    ``launch_counts`` and the calling thread's tally: one launch of
+    ``_run``, or what a CUDA graph's replay launches without calling
+    it."""
+    global launch_count
+    mine = thread_launch_counts()
+    with _count_lock:
+        for path, c in counts.items():
+            launch_count += c
+            launch_counts[path] += c
+    for path, c in counts.items():
+        mine[path] += c
 
 
 def load_library() -> ctypes.CDLL:
@@ -243,7 +271,6 @@ def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
     """Check what the card's kernel needs, launch it on the current
     stream and count the launch; (k, P, d) in ``rows``' dtype. ``rows``
     is bins for "tile", x (n, d) with ``update_src`` for "warp"."""
-    global launch_count
     dev = rows.device
     _launch.check_hopper(dev, "PCPM gather")
     k, n_eb, eb = edge_upd.shape
@@ -289,9 +316,7 @@ def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"pcpm_gather kernel launch failed (path "
                            f"{path!r}): CUDA error {err}")
-    with _count_lock:
-        launch_count += 1
-        launch_counts[path] += 1
+    count_launches({path: 1})
     return out
 
 

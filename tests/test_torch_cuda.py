@@ -243,6 +243,153 @@ def test_pcpm_pallas_solves_through_the_tile_path(cuda_device):
     assert np.abs(res.ranks.cpu().numpy() - oracle).max() <= 1e-6
 
 
+# ------------------------------- fixed-count solves replayed as CUDA graphs
+def _graph_session(device, method="pcpm_pallas", **cfg):
+    """An observed session on a fresh plan (so its second ``tol == 0``
+    solve captures) and the module ``core/pagerank.py``."""
+    import importlib
+    from repro_torch.core.plan import clear_plan_cache
+    clear_plan_cache()
+    g = generators.rmat(11, 8, seed=7)
+    sess = repro_torch.open(g, repro_torch.EngineConfig(
+        method=method, part_size=256, observe=True, **cfg),
+        device=device)
+    return g, sess, importlib.import_module("repro_torch.core.pagerank")
+
+
+def _graph_modes(sess):
+    return [r.attrs["graph"] for r in sess.obs.recorder.snapshot()
+            if r.name == "solve_launch"]
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+@pytest.mark.parametrize("dangling", ["none", "redistribute"])
+@pytest.mark.parametrize("method", METHODS)
+def test_graph_replay_matches_eager_and_oracle(cuda_device, method, dangling,
+                                               check_every):
+    """A replayed solve's ranks and residuals (the capturing solve's and
+    a later one's) against the first solve, which runs eagerly, and the
+    dense oracle, on every backend that does not shard."""
+    g, sess, _ = _graph_session(cuda_device, method, dangling=dangling,
+                                check_every=check_every)
+    try:
+        eager = sess.pagerank()
+        replays = [sess.pagerank() for _ in range(2)]
+        assert _graph_modes(sess) == ["eager", "capture", "replay"]
+        oracle = pagerank_reference(g, dangling=dangling)
+        for res in replays:
+            assert res.iterations == eager.iterations == 20
+            assert len(res.residuals) == len(eager.residuals) == (
+                20 if check_every == 1 else 7)
+            assert np.abs(np.subtract(res.residuals,
+                                      eager.residuals)).max() <= 1e-6
+            ranks = res.ranks.cpu().numpy()
+            assert np.abs(ranks - eager.ranks.cpu().numpy()).max() <= 1e-6
+            assert np.abs(ranks - oracle).max() <= 1e-6
+    finally:
+        sess.obs.close()
+
+
+def test_graph_replay_counts_fresh_results_and_release(cuda_device):
+    """Replays return fresh ranks (a held result survives the next
+    solve), add their captured B1 launches, and reuse one capture; after
+    ``release_device`` the loop starts over, eager then captured; a
+    ``tol > 0`` solve stays eager and moves no graph counter."""
+    from repro_torch.core.plan import release_device
+    g, sess, solver = _graph_session(cuda_device)
+    try:
+        captures = solver.graph_captures
+        sess.pagerank()
+        replays = solver.graph_replays
+        tiles = kernel.launch_counts["tile"]
+        held = sess.pagerank()
+        kept = held.ranks.clone()
+        for _ in range(4):
+            res = sess.pagerank()
+        torch.cuda.synchronize()
+        assert res.ranks.data_ptr() != held.ranks.data_ptr()
+        assert torch.equal(held.ranks, kept)
+        assert kernel.launch_counts["tile"] == tiles + 5 * 20
+        assert solver.graph_replays == replays + 5
+        assert solver.graph_captures == captures + 1
+        release_device(sess.plan)
+        sess.pagerank()
+        assert solver.graph_captures == captures + 1
+        again = sess.pagerank()
+        assert solver.graph_captures == captures + 2
+        assert np.abs(again.ranks.cpu().numpy()
+                      - kept.cpu().numpy()).max() <= 1e-6
+        counts = (solver.graph_captures, solver.graph_replays,
+                  kernel.launch_counts["tile"])
+        early = sess.pagerank(tol=1e-6, num_iterations=100)
+        assert early.iterations < 100
+        assert (solver.graph_captures, solver.graph_replays) == counts[:2]
+        assert kernel.launch_counts["tile"] == counts[2] + early.iterations
+        assert _graph_modes(sess) == (["eager", "capture"] + ["replay"] * 4
+                                      + ["eager", "capture", "eager"])
+    finally:
+        sess.obs.close()
+
+
+def test_held_graph_replays_after_release(cuda_device):
+    """A graph held while ``release_device`` drops the plan's loop cache
+    keeps the device layouts its kernels read: with the blocks the
+    release freed written over, its replay still matches the first
+    solve and a fresh one."""
+    import gc
+    from repro_torch.core.plan import release_device
+    g, sess, _ = _graph_session(cuda_device)
+    try:
+        want = sess.pagerank().ranks.cpu().numpy()
+        sess.pagerank()
+        (solve,) = [v for k, v in sess.engine._fused_cache.items()
+                    if k[0] == "graph"]
+        release_device(sess.plan)
+        gc.collect()
+        junk = [torch.full((1 << s,), float("nan"), device=cuda_device)
+                for s in range(6, 22) for _ in range(4)]
+        ranks, it, _ = solve.replay()
+        ranks = ranks.cpu().numpy()
+        del junk
+        fresh = sess.pagerank()
+        assert it == fresh.iterations == 20
+        assert np.abs(ranks - want).max() <= 1e-6
+        assert np.abs(ranks - fresh.ranks.cpu().numpy()).max() <= 1e-6
+    finally:
+        sess.obs.close()
+
+
+def test_paths_outside_the_graph_stay_eager(cuda_device):
+    """The per-iteration loop (``driver="python"``), a ``tol > 0`` solve,
+    ``PageRankServer``, the slot scheduler's stepper and the warm update
+    after an edge delta capture and replay nothing: the graph counters
+    stay and the plan's loop cache holds no graph."""
+    from repro_torch.serve import SlotScheduler
+    g, sess, solver = _graph_session(cuda_device)
+    try:
+        counts = solver.graph_captures, solver.graph_replays
+        sess.pagerank(driver="python")
+        sess.pagerank(tol=1e-6, num_iterations=300)
+        seed = np.zeros(g.num_nodes, np.float32)
+        seed[:8] = 1.0
+        _, it, _ = sess.server(batch=1).query(seed)
+        assert it == 20
+        sch = SlotScheduler(g, engine=sess.engine, slots=4, chunk=4,
+                            route="stepper")
+        sch.submit(seed, tol=0.0, max_iters=8)
+        sch.run_until_drained()
+        assert len(sch.completed) == 1
+        sess.apply_delta(_local_delta(g, np.random.default_rng(2), [1],
+                                      256))
+        warm = sess.pagerank(warm=True, tol=1e-6, num_iterations=300)
+        assert warm.iterations < 300
+        assert (solver.graph_captures, solver.graph_replays) == counts
+        assert not [k for k in sess.engine._fused_cache if k[0] == "graph"]
+        assert "capture" not in _graph_modes(sess)
+    finally:
+        sess.obs.close()
+
+
 # ----------------------------------------------- kernel B1, path "warp"
 def _warp_call(fn, *args, **kw):
     """One call of a "warp" entry point: exactly one "warp" launch."""
@@ -1775,6 +1922,22 @@ def test_sharded_pagerank_and_spmv_through_nccl(nccl_group):
     assert abs(res_t.iterations - cpu_t.iterations) <= 1
     assert np.abs(res_t.ranks.cpu().numpy()
                   - cpu_t.ranks.numpy()).max() <= 1e-6
+
+
+def test_sharded_solve_stays_off_the_graph_path(nccl_group):
+    """A ``tol == 0`` solve on the sharding backend runs the distributed
+    loop of ``core/distributed.py``: one all-to-all an iteration, nothing
+    captured or replayed."""
+    import importlib
+    from repro_torch.core import SpMVEngine, pagerank
+    solver = importlib.import_module("repro_torch.core.pagerank")
+    g = generators.rmat(10, 8, seed=4)
+    eng = SpMVEngine(g, method="pcpm_sharded", device=nccl_group)
+    counts = solver.graph_captures, solver.graph_replays
+    for _ in range(2):
+        pagerank(g, engine=eng, num_iterations=5)
+    assert eng.mesh.counts["all_to_all_single"] == 10
+    assert (solver.graph_captures, solver.graph_replays) == counts
 
 
 def test_sharded_scheduler_and_server_through_nccl(nccl_group):

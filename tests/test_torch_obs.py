@@ -17,6 +17,7 @@ preprocessing's stages, device layouts, kernel loads), which the
 reference lacks, are taken out of the port's records where the two are
 compared, and checked on the port alone (``test_port_spans_*``).
 """
+import importlib
 import json
 import threading
 import weakref
@@ -848,8 +849,32 @@ def test_port_spans_of_a_solve_nest_in_order(method, path):
             assert a.t_end <= b.t_start
         assert kids[-1].t_end <= solve.t_end
         launch = kids[1]
-        assert launch.attrs == {"iterations": 4, "b1_path": path}
+        assert launch.attrs == {"iterations": 4, "b1_path": path,
+                                "graph": "eager"}
         assert sess.obs.recorder.dropped == 0
+    finally:
+        sess.obs.close()
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-6])
+def test_port_spans_graph_attr_is_eager_on_the_cpu(tol):
+    """On the CPU no solve is captured into a CUDA graph, at any
+    ``tol``: every ``solve_launch`` says ``graph="eager"`` and the graph
+    counters stay where they were."""
+    port_pagerank = importlib.import_module("repro_torch.core.pagerank")
+    before = port_pagerank.graph_captures, port_pagerank.graph_replays
+    port_plan.clear_plan_cache()
+    sess = repro_torch.open(generators.rmat(8, 8, seed=33),
+                            repro_torch.EngineConfig(
+                                method="pcpm_pallas", part_size=64,
+                                tol=tol, observe=True), device="cpu")
+    try:
+        for _ in range(3):
+            sess.pagerank(num_iterations=4)
+        launches = _by_name(sess.obs.recorder.snapshot(), "solve_launch")
+        assert [r.attrs["graph"] for r in launches] == ["eager"] * 3
+        assert (port_pagerank.graph_captures,
+                port_pagerank.graph_replays) == before
     finally:
         sess.obs.close()
 
