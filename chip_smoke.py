@@ -9,7 +9,8 @@ Phases, each of which exits non-zero when it fails:
 2. kernel B1 (the PCPM gather, ``repro_torch/csrc/pcpm_gather.cu``)
    against its plain PyTorch version on the card, each call through the
    path ``b1_path`` names ("warp" for the blocked streams alone or d > 1,
-   "tile" for d = 1 with the plan's gather order): the shapes of the JAX
+   "tile" for d = 1 with a PNG's gather order and its ragged (U,) bins,
+   ``tile_gather_cuda``): the shapes of the JAX
    package's ``TestPCPMKernel`` through "warp" from bins and in its fused
    form (rows of x read through ``update_src``, float32 and bfloat16),
    random unsorted float32 and bfloat16 streams, an all-pad partition
@@ -30,12 +31,14 @@ Phases, each of which exits non-zero when it fails:
    host time and device bytes of the gather order, and B1 against its
    plain version at the main path's shape (d = 1 through "tile", exact)
    and at the serving stepper's (d = 16 through "warp", from bins and in
-   the fused form, exact);
+   the fused form, exact): "tile" through ``tile_gather_cuda`` over the
+   engine's own ragged bins and gather order, as the solve calls it;
 4. times with CUDA events after warm-up: ms per iteration and GB/s per
    engine (bytes of the paper's models, ``core/comm_model.py``), B1's
    time beside its byte bound, its plain version and a ``torch.sparse``
-   CSR product with A^T, which the port never calls, at d = 1 ("tile")
-   and at d = 16 ("warp" from bins); B1 "warp" at d = 16 in the fused
+   CSR product with A^T, which the port never calls, at d = 1 ("tile"
+   over the engine's ragged bins, the kernels line's "tile" entry) and at
+   d = 16 ("warp" from bins); B1 "warp" at d = 16 in the fused
    form that the serving stepper calls (``pcpm_spmv_cuda``: the kernels
    line's "warp" entry) beside its bound (x and ``update_src`` read
    once), its plain version and the same ``torch.sparse`` product; the
@@ -64,9 +67,9 @@ Phases, each of which exits non-zero when it fails:
    fewer sweeps than the prior, L1 to a float64 fixed point of the new
    graph within 75.6·tol and the same top-10 ids; a cold solve on the
    patched plan beside it; the patched plan against a fresh
-   ``build_png`` + ``block_png`` (every array) and its "tile" gather
-   order against a fresh one, B1 "tile" on it exact against its plain
-   version; ``SlotScheduler.apply_delta`` under 16 queries in phase 5's
+   ``build_png`` (every array; no blocked form held) and its "tile"
+   gather order against a fresh one, B1 "tile" over its ragged bins
+   exact against its plain version; ``SlotScheduler.apply_delta`` under 16 queries in phase 5's
    mix (every query once, ``rebind_count`` 1, B1 "warp" once per chunk
    iteration on the new plan, answers within tol·d/(1−d) of the new
    graph's float64 fixed points, push answers of the old one's); four
@@ -483,37 +486,51 @@ def time_ms(fn, *, reps: int, warmup: int = 2) -> float:
 
 # --------------------------------------------------------------- phase 2
 def check_b1(bins, eu, ed, part_size, label, schedule=None,
-             exact=False, update_src=None) -> float:
+             exact=False, update_src=None, offsets=None) -> float:
     """Launch B1 once through the path ``b1_path`` names (failing if
     another ran), hold it against the plain version (bit for bit when
     ``exact``); max abs err. With ``update_src``, ``bins`` is x (n, d) and
-    the call is the "warp" path's fused form (``pcpm_spmv_cuda``)."""
+    the call is the "warp" path's fused form (``pcpm_spmv_cuda``). With
+    a ``schedule``, ``bins`` are a PNG's ragged (U,) updates with their
+    ``offsets`` and the call is the "tile" path (``tile_gather_cuda``);
+    ``eu`` and ``ed`` are then not read."""
     import torch
     from repro_torch.kernels.pcpm_spmv import (b1_path, kernel,
                                                pcpm_gather_cuda,
                                                pcpm_gather_ref,
-                                               pcpm_spmv_cuda, pcpm_spmv_ref)
+                                               pcpm_spmv_cuda, pcpm_spmv_ref,
+                                               tile_gather_cuda,
+                                               tile_gather_ref)
     fused = update_src is not None
-    path = b1_path(bins.shape[-1], schedule is not None and not fused)
+    tile = schedule is not None
+    path = b1_path(1 if tile else bins.shape[-1], tile)
     before = dict(kernel.launch_counts)
     if fused:
         out = pcpm_spmv_cuda(bins, update_src, eu, ed, part_size=part_size)
+    elif tile:
+        out = tile_gather_cuda(bins, offsets, schedule)
     else:
-        out = pcpm_gather_cuda(bins, eu, ed, part_size=part_size,
-                               schedule=schedule)
+        out = pcpm_gather_cuda(bins, eu, ed, part_size=part_size)
     torch.cuda.synchronize()
     ran = [p for p in kernel.PATHS if kernel.launch_counts[p] != before[p]]
     if ran != [path]:
         fail(f"B1 {label}: expected path {path!r}, launched {ran}")
-    ref = (pcpm_spmv_ref(bins, update_src, eu, ed, part_size=part_size)
-           if fused else pcpm_gather_ref(bins, eu, ed, part_size=part_size))
+    if fused:
+        ref = pcpm_spmv_ref(bins, update_src, eu, ed, part_size=part_size)
+    elif tile:
+        ref = tile_gather_ref(bins, schedule, offsets)
+    else:
+        ref = pcpm_gather_ref(bins, eu, ed, part_size=part_size)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     what = (f"x {tuple(bins.shape)} through update_src "
             f"{tuple(update_src.shape)}" if fused else
-            f"bins {tuple(bins.shape)}")
+            f"ragged bins {tuple(bins.shape)} of {schedule.num_partitions} "
+            f"partitions" if tile else f"bins {tuple(bins.shape)}")
+    streams = (f"{schedule.edge_upd.shape[0]} edges in the gather order"
+               if tile else f"streams {tuple(eu.shape)}")
     log(f"B1 {label} via {path!r}{' (fused)' if fused else ''}: {what} "
-        f"{str(bins.dtype)[6:]}, streams {tuple(eu.shape)}, P={part_size}: "
+        f"{str(bins.dtype)[6:]}, {streams}, P={part_size}: "
         f"max_abs_err={err!r}" + (f", exact {torch.equal(out, ref)}"
                                   if exact else ""))
     if exact and not torch.equal(out, ref):
@@ -532,9 +549,8 @@ def check_b1_test_shapes(dev) -> None:
     rng = np.random.default_rng(42)
     for scale, deg, part_size, d in B1_SHAPES:
         g = generators.rmat(scale, deg, seed=scale)
-        blocked = block_png(build_png(g, Partitioning(g.num_nodes,
-                                                      part_size)))
-        packed = pack_blocked(blocked, g.num_nodes, edge_block=128,
+        png = build_png(g, Partitioning(g.num_nodes, part_size))
+        packed = pack_blocked(block_png(png), g.num_nodes, edge_block=128,
                               device=dev)
         x = torch.from_numpy(rng.random((g.num_nodes, d)).astype(
             np.float32)).to(dev)
@@ -546,17 +562,21 @@ def check_b1_test_shapes(dev) -> None:
             check_b1(xd, packed.edge_upd, packed.edge_dst, part_size,
                      f"rmat({scale},{deg}) part {part_size} d={d}",
                      update_src=packed.update_src)
-        # "tile" at d = 1: one tile per partition, and tiles of 16 nodes
-        x16 = torch.from_numpy(rng.integers(0, 16, (g.num_nodes, 1)).astype(
+        # "tile" at d = 1 over the PNG's ragged bins: one tile per
+        # partition, and tiles of 16 nodes
+        x16 = torch.from_numpy(rng.integers(0, 16, g.num_nodes).astype(
             np.float32) / 16).to(dev)
-        bins = x16[packed.update_src.view(-1)].view(k, u, 1)
+        bins = x16.index_select(0, torch.from_numpy(png.update_src).to(dev))
+        offsets = torch.from_numpy(png.update_offsets.astype(np.int32)).to(
+            dev)
         for tile_bytes in (None, 64):
-            schedule = tile_schedule(blocked, device=dev, **(
+            schedule = tile_schedule(png, device=dev, **(
                 {} if tile_bytes is None else {"tile_bytes": tile_bytes}))
             for b in (bins, bins.bfloat16()):
-                check_b1(b, packed.edge_upd, packed.edge_dst, part_size,
+                check_b1(b, None, None, part_size,
                          f"rmat({scale},{deg}) part {part_size} d=1 tile "
-                         f"{schedule.tile}", schedule=schedule, exact=True)
+                         f"{schedule.tile}", schedule=schedule, exact=True,
+                         offsets=offsets)
     for dtype in (torch.float32, torch.bfloat16):
         k, U, d, P, Eb, neb = 4, 128, 128, 64, 128, 3
         bins = torch.from_numpy(rng.random((k, U, d))).to(dev, dtype)
@@ -670,12 +690,15 @@ def pagerank_phases(dev, card):
     import torch
     from repro_torch import EngineConfig, open as open_session
     from repro_torch.graphs import generators
+    from repro_torch.core.plan import blocked_of
     from repro_torch.kernels.pcpm_spmv import (kernel as b1, pack_blocked,
                                                pcpm_gather_cuda,
                                                pcpm_gather_ref,
                                                pcpm_spmv_cuda,
                                                pcpm_spmv_pallas,
                                                pcpm_spmv_ref,
+                                               tile_gather_cuda,
+                                               tile_gather_ref,
                                                tile_schedule)
     # ---------------------------------------------------- 3. main path
     cfg = kron()
@@ -711,9 +734,7 @@ def pagerank_phases(dev, card):
         fail("the main path's B1 launches did not all take path 'tile'")
     plan = sessions["pcpm_pallas"].plan
     log(f"layout: U={plan.png.num_updates} r={plan.png.compression_ratio:.3f}"
-        f" k={plan.png.num_partitions} edge pad "
-        f"{plan.blocked.edge_pad_frac:.4f} update pad "
-        f"{plan.blocked.update_pad_frac:.4f}")
+        f" k={plan.png.num_partitions}")
     for method in METHODS:
         log(f"host preprocessing {method}: {prep[method]:.1f} s")
 
@@ -768,25 +789,45 @@ def pagerank_phases(dev, card):
     if b1.launch_count - before != res.iterations:
         fail("B1 launch count differs from the tol run's iterations")
 
-    # the gather order of the "tile" path, built again to time it (the
-    # engine built its own at its first solve)
+    # the d = 1 solve's own layouts: the PNG's (U,) updates with their
+    # offsets and the "tile" path's gather order, which the engine built
+    # at its first solve; the gather order built again to time it
+    upd, offsets = plan._device[("updates", str(dev))]
+    schedule = plan._device[("tile_schedule", str(dev))]
     t0 = time.perf_counter()
-    schedule = tile_schedule(plan.blocked, device=dev)
+    again = tile_schedule(plan.png, device=dev)
     torch.cuda.synchronize()
     t_sched = time.perf_counter() - t0
-    packed = pack_blocked(plan.blocked, g.num_nodes, device=dev)
-    packed_bytes = sum(t.numel() * t.element_size() for t in (
-        packed.update_src, packed.update_valid, packed.edge_upd,
-        packed.edge_dst))
+    if not all(torch.equal(getattr(again, f), getattr(schedule, f)) for f in (
+            "edge_upd", "edge_dst", "chunks", "block_chunks", "hubs")):
+        fail("the gather order built again differs from the engine's")
+    upd_bytes = sum(t.numel() * t.element_size() for t in (upd, offsets))
+    packed_kept = [key for key in plan._device if key[0] == "packed"]
     log(f"host preprocessing pcpm_pallas gather order (tile_schedule): "
         f"{t_sched:.1f} s; tile {schedule.tile} destinations, "
         f"{schedule.chunks.shape[0]} chunks over {schedule.blocks} blocks; "
-        f"device bytes kept by the engine: packed streams {packed_bytes} + "
-        f"gather order {schedule.nbytes} = "
-        f"{packed_bytes + schedule.nbytes}")
+        f"device bytes kept by the engine for d = 1: updates {upd_bytes} + "
+        f"gather order {schedule.nbytes} = {upd_bytes + schedule.nbytes}; "
+        f"packed blocked streams kept: {packed_kept}")
+    if packed_kept:
+        fail("the d = 1 solves packed the blocked streams")
+    # the serving stepper's layout (d > 1, "warp"): the blocked streams,
+    # every partition padded to the heaviest one
+    t0 = time.perf_counter()
+    blk = blocked_of(plan)
+    packed = pack_blocked(blk, g.num_nodes, device=dev)
+    torch.cuda.synchronize()
+    packed_bytes = sum(t.numel() * t.element_size() for t in (
+        packed.update_src, packed.update_valid, packed.edge_upd,
+        packed.edge_dst))
+    log(f"serving layout (blocked_of + pack_blocked): "
+        f"{time.perf_counter() - t0:.1f} s, edge pad "
+        f"{blk.edge_pad_frac:.4f} update pad {blk.update_pad_frac:.4f}, "
+        f"{packed_bytes} device bytes")
 
-    # B1 against its plain version at the main path's shape (d = 1) and
-    # at the serving stepper's (d = 16: phase 5's 16 slots)
+    # B1 against its plain version at the main path's shape (d = 1, "tile"
+    # over the engine's ragged bins) and at the serving stepper's (d = 16:
+    # phase 5's 16 slots, "warp" over the padded bins)
     k, u = packed.update_src.shape
     gen = torch.Generator(device=dev).manual_seed(0)
     main_bins = {}
@@ -799,12 +840,16 @@ def pagerank_phases(dev, card):
         # relative, above the float32 tolerance
         x = torch.randint(0, 16, (g.num_nodes, d), generator=gen,
                           device=dev).float() / 16
-        bins = x[packed.update_src.view(-1)].view(k, u, d)
-        main_bins[d] = bins
-        errs[d] = check_b1(bins, packed.edge_upd, packed.edge_dst, part_size,
-                           "main path d=1" if d == 1 else
-                           "serving path d=16", schedule=schedule,
-                           exact=True)
+        if d == 1:
+            main_bins[d] = x[:, 0].index_select(0, upd)
+            errs[d] = check_b1(main_bins[d], None, None, part_size,
+                               "main path d=1", schedule=schedule,
+                               exact=True, offsets=offsets)
+        else:
+            main_bins[d] = x[packed.update_src.view(-1)].view(k, u, d)
+            errs[d] = check_b1(main_bins[d], packed.edge_upd,
+                               packed.edge_dst, part_size,
+                               "serving path d=16", exact=True)
     # the serving path's own form at d = 16: x read through update_src
     x16 = torch.randint(0, 16, (g.num_nodes, 16), generator=gen,
                         device=dev).float() / 16
@@ -830,8 +875,9 @@ def pagerank_phases(dev, card):
         size=(g.num_nodes, g.num_nodes))
     # the bound counts the work this run's data needs, not the padded
     # layout: 8 B per real edge (both index streams), the function's row
-    # input read once, the (k, P, d) float32 output; d adds per edge
-    edges = int(((packed.edge_upd < u) & (packed.edge_dst < part_size)).sum())
+    # input read once (d values per real update), the (k, P, d) float32
+    # output; d adds per edge
+    edges = plan.png.num_edges
     num_updates = plan.png.num_updates
 
     def bound(d, row_bytes):
@@ -842,21 +888,26 @@ def pagerank_phases(dev, card):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
     # B1 from bins, the gather's own input: d float32 values per real
-    # update; at d = 1 the main path's "tile", at d = 16 "warp" (the
-    # serving path does not call this form)
+    # update; at d = 1 the main path's "tile" over the engine's ragged
+    # bins (``tile_gather_cuda``, as the solve calls it), at d = 16 "warp"
+    # over padded bins (the serving path does not call this form)
     timed = {}
-    for d, path_schedule in ((1, schedule), (16, None)):
-        args = (main_bins[d], packed.edge_upd, packed.edge_dst)
-        ms = time_ms(lambda: pcpm_gather_cuda(
-            *args, part_size=part_size, schedule=path_schedule),
-            reps=50 if d == 1 else 20, warmup=5)
-        plain_ms = time_ms(lambda: pcpm_gather_ref(*args,
-                                                   part_size=part_size),
-                           reps=10 if d == 1 else 3)
+    for d in (1, 16):
+        if d == 1:
+            args = (main_bins[1], offsets, schedule)
+            ms = time_ms(lambda: tile_gather_cuda(*args), reps=50, warmup=5)
+            plain_ms = time_ms(lambda: tile_gather_ref(
+                main_bins[1], schedule, offsets), reps=10)
+        else:
+            args = (main_bins[d], packed.edge_upd, packed.edge_dst)
+            ms = time_ms(lambda: pcpm_gather_cuda(*args, part_size=part_size),
+                         reps=20, warmup=5)
+            plain_ms = time_ms(lambda: pcpm_gather_ref(
+                *args, part_size=part_size), reps=3)
         bytes_moved, bound_ms, bound_by = bound(d, 4 * d * num_updates)
         xv = torch.rand((g.num_nodes, d), generator=gen, device=dev)
         library_ms = time_ms(lambda: at_dev @ xv, reps=20 if d == 1 else 5)
-        path = "tile" if path_schedule is not None else "warp"
+        path = "tile" if d == 1 else "warp"
         timed[d] = {"path": path, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms, "max_abs_err": errs[d]}
@@ -1322,13 +1373,18 @@ class StageTimer:
 
 
 def plan_device_tensors(plan, dev) -> list:
-    """A pcpm_pallas plan's uploads: the packed streams and the "tile"
-    gather order."""
-    packed = plan._device[("packed", str(dev))]
+    """A pcpm_pallas plan's uploads: the PNG's updates and the "tile"
+    gather order of d = 1, and the packed streams once a d > 1 SpMV made
+    them."""
     schedule = plan._device[("tile_schedule", str(dev))]
-    return [packed.update_src, packed.update_valid, packed.edge_upd,
-            packed.edge_dst, schedule.edge_upd, schedule.edge_dst,
-            schedule.chunks, schedule.block_chunks, schedule.hubs]
+    out = list(plan._device[("updates", str(dev))])
+    out += [schedule.edge_upd, schedule.edge_dst, schedule.chunks,
+            schedule.block_chunks, schedule.hubs]
+    packed = plan._device.get(("packed", str(dev)))
+    if packed is not None:
+        out += [packed.update_src, packed.update_valid, packed.edge_upd,
+                packed.edge_dst]
+    return out
 
 
 def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
@@ -1344,8 +1400,9 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     phase 7 ends."""
     import torch
     import repro_torch.kernels.pcpm_spmv as b1_pkg
-    from repro_torch.core import Partitioning, block_png, build_png
+    from repro_torch.core import Partitioning, build_png
     from repro_torch.core.pagerank import pagerank
+    from repro_torch.core import plan as plan_mod
     from repro_torch.core.plan import plan_cache_stats
     from repro_torch.kernels.pcpm_spmv import kernel as b1, tile_schedule
     from repro_torch.stream import delta as delta_mod
@@ -1380,7 +1437,7 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     stats = plan_cache_stats()
     patches0, builds0 = stats.plan_patches, stats.plan_builds
     stages = ((delta_mod, "apply_delta"), (patch_mod, "patch_png"),
-              (patch_mod, "block_png"), (b1_pkg, "pack_blocked"),
+              (plan_mod, "block_png"), (b1_pkg, "pack_blocked"),
               (b1_pkg, "tile_schedule"), (incremental, "seed_residual"))
     with StageTimer(*stages) as timer:
         t0 = time.perf_counter()
@@ -1410,7 +1467,8 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     log(f"time Session.apply_delta: D1 {t_d1!r} s, D2 {t_d2!r} s; of the "
         f"two: the edge list's update (apply_delta: multiset removal and "
         f"the fingerprint shift) {sec('apply_delta')!r} s, the splice "
-        f"(patch_png) {sec('patch_png')!r} s, block_png "
+        f"(patch_png) {sec('patch_png')!r} s, block_png (only where "
+        f"blocked_of is read, which no d = 1 solve does) "
         f"{sec('block_png')!r} s ({card})")
     log(f"time warm update (pagerank(warm=True)): {t_warm!r} s: "
         f"pack_blocked with its upload {sec('pack_blocked')!r} s, "
@@ -1458,35 +1516,30 @@ def streaming_phase(dev, card, reuse, tile_entry, warp_entry) -> dict:
     # ------------------------------------------------- 4. the plan itself
     t0 = time.perf_counter()
     png = build_png(g2, Partitioning(n, psz))
-    fresh = block_png(png)
     t_fresh = time.perf_counter() - t0
     same = all(np.array_equal(getattr(patched.png, f), getattr(png, f))
                for f in ("update_src", "update_offsets", "edge_update_idx",
                          "edge_dst", "edge_offsets"))
-    same &= all(np.array_equal(getattr(patched.blocked, f),
-                               getattr(fresh, f))
-                for f in ("update_src", "edge_update_local",
-                          "edge_dst_local"))
+    same &= patched.blocked is None
     sched = patched._device[("tile_schedule", str(dev))]
-    fresh_sched = tile_schedule(fresh, device=dev)
+    fresh_sched = tile_schedule(png, device=dev)
     same_order = (sched.tile, sched.blocks) == (fresh_sched.tile,
                                                 fresh_sched.blocks) and all(
         torch.equal(getattr(sched, f), getattr(fresh_sched, f))
         for f in ("edge_upd", "edge_dst", "chunks", "block_chunks", "hubs"))
-    del fresh_sched, png, fresh
-    log(f"patched plan vs a fresh build_png + block_png of g2 "
+    del fresh_sched, png
+    log(f"patched plan vs a fresh build_png of g2 "
         f"({t_fresh!r} s on the host, the cost a patch replaces; {card}): "
         f"arrays equal {same}, 'tile' gather order equal {same_order}")
     if not (same and same_order):
         fail("the patched plan is not the fresh build")
-    packed = patched._device[("packed", str(dev))]
-    k, u = packed.update_src.shape
+    upd, offsets = patched._device[("updates", str(dev))]
     gen = torch.Generator(device=dev).manual_seed(6)
-    x = torch.randint(0, 16, (n, 1), generator=gen, device=dev).float() / 16
-    bins = x[packed.update_src.view(-1)].view(k, u, 1)
-    patched_err = check_b1(bins, packed.edge_upd, packed.edge_dst, psz,
-                           "patched plan d=1", schedule=sched, exact=True)
-    del bins, x, packed, sched
+    x = torch.randint(0, 16, (n,), generator=gen, device=dev).float() / 16
+    bins = x.index_select(0, upd)
+    patched_err = check_b1(bins, None, None, psz, "patched plan d=1",
+                           schedule=sched, exact=True, offsets=offsets)
+    del bins, x, upd, offsets, sched
 
     # ------------------------------------------------- 5. serving, delta
     sch = sess.serve(slots=SERVE_SLOTS, chunk=SERVE_CHUNK)

@@ -230,7 +230,8 @@ class Session:
         fused solve's stage spans nest in it (``core.pagerank``)."""
         sp = (self._obs.tracer.start(
                   "solve", trace="plan", method=self.config.method,
-                  n=self.plan.num_nodes, b1_path=b1_path(self.engine))
+                  n=self.plan.num_nodes, b1_path=b1_path(self.engine),
+                  reorder=self.plan.config.reorder)
               if self._obs is not None else None)
         cfg = self.config
         kw = dict(num_iterations=cfg.num_iterations, damping=cfg.damping,

@@ -27,8 +27,8 @@ import torch
 
 from ..graphs.formats import Graph, lexsort_order, lexsorted
 from .partition import Partitioning
-from .plan import GraphPlan, PlanConfig, plan_span, shared_png
-from .png import (GatherSchedule, block_png, build_gather_schedule,
+from .plan import GraphPlan, PlanConfig, blocked_of, plan_span, shared_png
+from .png import (GatherSchedule, build_gather_schedule,
                   flat_gather_schedule)
 
 
@@ -393,10 +393,9 @@ def _spmv_pcpm(plan: GraphPlan, device: torch.device):
 # backend keeps its name so plans and configs carry over)
 # ---------------------------------------------------------------------------
 def _build_pcpm_pallas(g: Graph, cfg: PlanConfig) -> GraphPlan:
-    png = shared_png(g, cfg.part_size)
-    with plan_span("plan_stage", stage="blocked"):
-        blocked = block_png(png)
-    return GraphPlan(png=png, blocked=blocked, **_plan_fields(g, cfg))
+    # no blocked form: ``plan.blocked_of`` derives it where it is read
+    return GraphPlan(png=shared_png(g, cfg.part_size),
+                     **_plan_fields(g, cfg))
 
 
 def _b1_path_pcpm_pallas(d: int) -> str:
@@ -406,14 +405,36 @@ def _b1_path_pcpm_pallas(d: int) -> str:
 
 
 def _spmv_pcpm_pallas(plan: GraphPlan, device: torch.device):
-    from ..kernels.pcpm_spmv import (pack_blocked, pcpm_spmv_pallas,
+    """d = 1 (B1's "tile" path) reads the PNG's own (U,) updates in the
+    gather order built from its streams, O(m + U) on the card; d > 1
+    (B1's "warp" path) reads the blocked streams, padded to the heaviest
+    partition, which the closure's first such call packs from
+    ``blocked_of`` and holds from then on, as it holds the d = 1
+    layouts."""
+    from ..kernels import pcpm_spmv as b1
+    from ..kernels.pcpm_spmv import (pcpm_spmv_pallas, pcpm_spmv_tile,
                                      tile_schedule)
-    packed = _cached(plan, "packed", device, lambda: pack_blocked(
-        plan.blocked, plan.num_nodes, device=device))
-    # the d = 1 gather order of kernel B1's "tile" path
+    png = plan.png
+    updates = _cached(plan, "updates", device, lambda: (
+        _upload(png.update_src, device),
+        _upload(png.update_offsets.astype(np.int32), device)))
     schedule = _cached(plan, "tile_schedule", device, lambda: tile_schedule(
-        plan.blocked, device=device))
-    return lambda x: pcpm_spmv_pallas(packed, x, schedule=schedule)
+        png, device=device))
+
+    packed = None
+
+    def fn(x):
+        nonlocal packed
+        if x.dim() == 1 or x.shape[1] == 1:
+            return pcpm_spmv_tile(x, *updates, schedule)
+        if packed is None:
+            # ``b1.pack_blocked`` read at the fill, which may come long
+            # after the closure was made
+            packed = _cached(plan, "packed", device, lambda: b1.pack_blocked(
+                blocked_of(plan), plan.num_nodes, device=device))
+        return pcpm_spmv_pallas(packed, x)
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ import numpy as np
 
 from ..graphs.formats import Graph
 from .partition import Partitioning
-from .png import BlockedPNG, GatherSchedule, PNGLayout, build_png
+from .png import BlockedPNG, GatherSchedule, PNGLayout, block_png, build_png
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +98,7 @@ class GraphPlan:
     # pcpm / pcpm_pallas
     png: Optional[PNGLayout] = None
     schedule: Optional[GatherSchedule] = None
-    blocked: Optional[BlockedPNG] = None
+    blocked: Optional[BlockedPNG] = None   # plan files; see ``blocked_of``
     # pcpm_sharded (core/distributed.py ShardedPNG; typed loosely to
     # keep this module importable without the distributed stack)
     sharded: Optional[Any] = None
@@ -177,8 +177,8 @@ class GraphPlan:
                            "sched/piece_start": s.piece_start,
                            "sched/piece_end": s.piece_end,
                            "sched/piece_dst": s.piece_dst})
-        if self.blocked is not None:
-            b = self.blocked
+        b = blocked_of(self)
+        if b is not None:
             meta["blocked"] = {"part_size": b.part_size,
                                "update_pad_frac": b.update_pad_frac,
                                "edge_pad_frac": b.edge_pad_frac}
@@ -565,13 +565,26 @@ def build_plan(g: Graph, config: PlanConfig | None = None) -> GraphPlan:
             # graph's fingerprint: the plan belongs to g, and the reorder
             # name in cfg keeps the cache entry distinct
             from ..graphs.reorder import reorder_permutation
-            perm = reorder_permutation(g, cfg.reorder)
-            plan = get_backend(cfg.method).build_plan(g.relabel(perm), cfg)
-            plan = dataclasses.replace(plan, reorder_perm=perm, graph_fp=fp)
+            with plan_span("plan_stage", stage="reorder",
+                           ordering=cfg.reorder):
+                perm = reorder_permutation(g, cfg.reorder)
+            with plan_span("plan_stage", stage="relabel"):
+                gi = g.relabel(perm)
+            plan = dataclasses.replace(
+                get_backend(cfg.method).build_plan(gi, cfg),
+                reorder_perm=perm, graph_fp=fp)
+            # the graph the solves iterate on (``internal_graph``)
+            plan._device["internal_graph"] = gi
         else:
             plan = get_backend(cfg.method).build_plan(g, cfg)
         if plan.graph_fp is None:
             plan = dataclasses.replace(plan, graph_fp=fp)
+        if plan.png is not None:
+            png = plan.png
+            make.annotate(updates=png.num_updates, r=png.compression_ratio,
+                          max_part_share=float(
+                              np.diff(png.edge_offsets).max(initial=0)
+                              / max(png.num_edges, 1)))
         _bounded_insert(_PLAN_CACHE, MAX_CACHED_PLANS, key, plan)
         notify_plan_event("plan_build", method=cfg.method,
                           n=g.num_nodes, m=g.num_edges,
@@ -607,10 +620,11 @@ def install_plan(g: Graph, plan: GraphPlan) -> GraphPlan:
 
 def internal_graph(g: Graph, plan: GraphPlan) -> Graph:
     """The graph the plan's layouts actually index: ``g`` itself for
-    plain plans, ``g.relabel(perm)`` (cached on the plan) for reordered
-    ones. The fused driver runs wholly in this internal space — results
-    map back once at the boundary, so the locality win is never taxed
-    by per-iteration permutes."""
+    plain plans, ``g.relabel(perm)`` (cached on the plan; ``build_plan``
+    leaves there the one it built the layouts on) for reordered ones.
+    The fused driver runs wholly in this internal space — results map
+    back once at the boundary, so the locality win is never taxed by
+    per-iteration permutes."""
     if plan.reorder_perm is None:
         return g
     gi = plan._device.get("internal_graph")
@@ -644,6 +658,21 @@ def release_device(plan: GraphPlan) -> None:
         plan._device.clear()
 
 
+def blocked_of(plan: GraphPlan) -> Optional[BlockedPNG]:
+    """A ``pcpm_pallas`` plan's blocked form (``block_png``): every
+    partition's updates and edges padded to the heaviest one's, which a
+    hub-first labeling makes over ten times the mean. The one the plan
+    holds (a plan file's), else built from its PNG, and not kept: B1's
+    "warp" path (d > 1) packs it once per device, plan files store it,
+    ``plan_nbytes`` counts it; the d = 1 solve never reads it. None for
+    the other methods."""
+    if (plan.blocked is not None or plan.png is None
+            or plan.config.method != "pcpm_pallas"):
+        return plan.blocked
+    with plan_span("plan_stage", stage="blocked"):
+        return block_png(plan.png)
+
+
 def plan_nbytes(plan: GraphPlan) -> int:
     """Host-side footprint of a plan in bytes: the sum of every array
     ``save`` persists. What ``GraphRegistry``'s memory budget accounts
@@ -664,8 +693,8 @@ def plan_nbytes(plan: GraphPlan) -> int:
         s = plan.schedule
         arrays += [s.edge_update_idx_padded, s.piece_start,
                    s.piece_end, s.piece_dst]
-    if plan.blocked is not None:
-        b = plan.blocked
+    b = blocked_of(plan)
+    if b is not None:
         arrays += [b.update_src, b.edge_update_local, b.edge_dst_local]
     if plan.sharded is not None:
         arrays += [getattr(plan.sharded, name) for name in _SHARDED_ARRAYS]

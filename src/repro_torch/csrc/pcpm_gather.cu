@@ -13,15 +13,19 @@
 //   The "warp" kernel always reads rows through update_src; its wrapper
 //   gives bins as the rows of x (k * U, d) with the identity update_src.
 //
-//   bins      (k, U, d)       float32 or bfloat16
+//   bins      (k, U, d)       float32 or bfloat16 ("warp"); on the "tile"
+//                             path ragged, (U,) with update_offsets (k + 1,)
+//                             int32: partition p's updates from
+//                             update_offsets[p] to update_offsets[p + 1]
 //   x         (n, d)          float32 or bfloat16 (fused form)
 //   update_src (k, U)         int32 rows of x (fused form)
 //   edge_upd  (k, n_eb, Eb)   int32, pad = U  (adds nothing)
 //   edge_dst  (k, n_eb, Eb)   int32, pad = P  (dropped)
 //   acc       (k, P, d)       float32, zeroed by the caller
 //
-// An edge counts when 0 <= upd < U and 0 <= dst < P (in the fused form
-// also 0 <= update_src[p, upd] < n); any other edge is a pad, here and in
+// An edge counts when 0 <= upd < U (on the "tile" path, below partition
+// p's update count) and 0 <= dst < P (in the fused form also
+// 0 <= update_src[p, upd] < n); any other edge is a pad, here and in
 // the plain versions (kernels/pcpm_spmv/ref.py). Sums are float32;
 // bfloat16 rows get a second pass that casts the float32 accumulator.
 //
@@ -83,7 +87,7 @@
 //           on the card), and for each: zeroes the tile, streams the
 //           chunk's edges with 16-byte evict-first loads (a thread's next
 //           pair in flight while it adds this one's four edges), reads
-//           bins[p, upd] and adds into the tile
+//           bins[update_offsets[p] + upd] and adds into the tile
 //           with shared-memory atomics, except for the tile's 8 heaviest
 //           destinations (its "hubs", chosen on the host), which each
 //           thread sums in registers and each warp adds once per chunk:
@@ -95,7 +99,10 @@
 //           groups of four that stayed zero. An edge whose destination
 //           lies outside its chunk's tile goes to a global atomicAdd, so
 //           any order of the streams stays correct. No pad slot is in a
-//           chunk.
+//           chunk, and the bins are the PNG's own updates, with no pad
+//           either: a hub-first labeling makes the partitions' update
+//           counts far from equal, and padding each to the heaviest would
+//           read over ten times the real ones.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -385,8 +392,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 gather_kernel(const T* __restrict__ bins, const int* __restrict__ upd,
               const int* __restrict__ dst, const int4* __restrict__ chunks,
               const int* __restrict__ block_chunks,
-              const int4* __restrict__ hubs, float* __restrict__ acc,
-              int U, int P, int tile) {
+              const int4* __restrict__ hubs,
+              const int* __restrict__ upd_off, float* __restrict__ acc,
+              int P, int tile) {
   extern __shared__ float4 smem4[];
   float* sacc = reinterpret_cast<float*>(smem4);
   const int4* upd4 = reinterpret_cast<const int4*>(upd);
@@ -399,7 +407,10 @@ gather_kernel(const T* __restrict__ bins, const int* __restrict__ upd,
     const Chunk ch{raw.x, raw.y, raw.z, raw.w};
     const int t0 = ch.t * tile;                  // the tile's first dst
     const int tn = max(0, min(tile, P - t0));    // destinations in it
-    const T* pb = bins + (long long)ch.p * U;
+    // the partition's bins and their count
+    const int u0 = upd_off[ch.p];
+    const int up = upd_off[ch.p + 1] - u0;
+    const T* pb = bins + u0;
     float* pacc = acc + (long long)ch.p * P;
     // the tile's hubs (tile-local, -1 for none) and their sums
     const int4* tile_hubs = hubs + 2 * ((long long)ch.p * n_tiles + ch.t);
@@ -423,7 +434,7 @@ gather_kernel(const T* __restrict__ bins, const int* __restrict__ upd,
                         ? ch.first + threadIdx.x
                         : a1 + (threadIdx.x - (a0 - ch.first));
       const int u = upd[e], j = dst[e];
-      if ((unsigned)u < (unsigned)U && (unsigned)j < (unsigned)P) {
+      if ((unsigned)u < (unsigned)up && (unsigned)j < (unsigned)P) {
         add_edge(load_value(pb + u), j, t0, tn, hub, hub_sum, sacc, pacc);
       }
     }
@@ -434,7 +445,7 @@ gather_kernel(const T* __restrict__ bins, const int* __restrict__ upd,
 #pragma unroll
       for (int r = 0; r < kUnroll; ++r) {
         const int ir = i + r * kThreads;
-        nu[r] = make_int4(U, U, U, U);
+        nu[r] = make_int4(up, up, up, up);
         nj[r] = make_int4(P, P, P, P);
         if (ir < a1 / 4) {
           nu[r] = __ldcs(upd4 + ir);
@@ -457,7 +468,7 @@ gather_kernel(const T* __restrict__ bins, const int* __restrict__ upd,
       bool ok[kEdges];
 #pragma unroll
       for (int s = 0; s < kEdges; ++s) {
-        ok[s] = (unsigned)us[s] < (unsigned)U && (unsigned)js[s] < (unsigned)P;
+        ok[s] = (unsigned)us[s] < (unsigned)up && (unsigned)js[s] < (unsigned)P;
         vs[s] = ok[s] ? load_value(pb + us[s]) : 0.0f;
       }
 #pragma unroll
@@ -519,7 +530,7 @@ __global__ void cast_to_bf16_kernel(const float* __restrict__ in,
 enum Arg {
   kPath,          // 0 "warp", 1 "tile"
   kBf16,          // rows: 0 float32, 1 bfloat16
-  kRows,          // "tile": bins (k, U, d); "warp": x (n, d)
+  kRows,          // "tile": ragged bins (U,); "warp": x (n, d)
   kUpdateSrc,     // "warp": (k, U) int32 rows of x
   kN,             // "warp": rows of x
   kEdgeUpd,       // "warp": (k, n_eb, Eb) int32, 16-B aligned
@@ -543,6 +554,7 @@ enum Arg {
   kHubTable,      // "tile": (k * ceil(P / tile), 8) int32, tile-local or -1
   kTile,          // "tile": destinations per tile, a multiple of 4
   kBlocks,        // blocks of the launch
+  kUpdateOffsets, // "tile": (k + 1,) int32 offsets of the ragged bins
   kNumArgs
 };
 
@@ -571,11 +583,11 @@ cudaError_t launch_warp(const long long* a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_tile(const long long* a, cudaStream_t stream) {
-  const int U = (int)a[kU], P = (int)a[kP];
+  const int P = (int)a[kP];
   const T* bins = reinterpret_cast<const T*>(a[kRows]);
   float* acc = reinterpret_cast<float*>(a[kAcc]);
   const int tile = (int)a[kTile], blocks = (int)a[kBlocks];
-  if (a[kD] != 1 || tile <= 0 || tile % 4 != 0) {
+  if (a[kD] != 1 || tile <= 0 || tile % 4 != 0 || a[kUpdateOffsets] == 0) {
     return cudaErrorInvalidValue;
   }
   if (blocks <= 0) return cudaSuccess;
@@ -589,7 +601,8 @@ cudaError_t launch_tile(const long long* a, cudaStream_t stream) {
       reinterpret_cast<const int*>(a[kTileDst]),
       reinterpret_cast<const int4*>(a[kChunks]),
       reinterpret_cast<const int*>(a[kBlockChunks]),
-      reinterpret_cast<const int4*>(a[kHubTable]), acc, U, P, tile);
+      reinterpret_cast<const int4*>(a[kHubTable]),
+      reinterpret_cast<const int*>(a[kUpdateOffsets]), acc, P, tile);
   return cudaGetLastError();
 }
 

@@ -20,7 +20,9 @@ file has their designs):
 - ``"tile"``: d = 1 with an ``ops.TileSchedule``: the paper's gather.
   Update values are read in order and added into a tile of destinations
   in shared memory (the tile's heaviest destinations in registers),
-  flushed with vector reductions; no pad slot is read.
+  flushed with vector reductions; no pad slot is read. Its bins are
+  ragged, the PNG's own U values with each partition's offset
+  (``tile_gather_cuda``).
 - ``"warp"``: everything else (d > 1, the blocked streams alone, any
   order): a group of lanes per edge, each lane a 16-byte slice of the
   row, each group summing runs of equal destinations along a range of
@@ -31,10 +33,10 @@ file has their designs):
   (``pcpm_gather_cuda``) as rows of a (k·U, d) x with the identity
   ``update_src``.
 
-``pcpm_gather_cuda`` and ``pcpm_spmv_cuda`` launch the kernel for CUDA
-tensors and raise on what it cannot take; for CPU tensors they compute
-the plain version of the chosen path (``ref.py``). There is no other
-fallback.
+``pcpm_gather_cuda``, ``tile_gather_cuda`` and ``pcpm_spmv_cuda`` launch
+the kernel for CUDA tensors and raise on what it cannot take; for CPU
+tensors they compute the plain version of the chosen path (``ref.py``).
+There is no other fallback.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ PATHS = ("warp", "tile")              # their codes in the C interface
 ARGS = _launch.Args("path", "bf16", "rows", "update_src", "n", "edge_upd",
                     "edge_dst", "acc", "out", "k", "U", "n_eb", "Eb", "P",
                     "d", "vec", "lanes", "range", "tile_upd", "tile_dst",
-                    "chunks", "block_chunks", "hub_table", "tile", "blocks")
+                    "chunks", "block_chunks", "hub_table", "tile", "blocks",
+                    "update_offsets")
 # threads of a "warp" block (warp::kThreads in the source)
 WARP_THREADS = 256
 
@@ -221,33 +224,32 @@ def _check_rows(rows: torch.Tensor, name: str, dim: int) -> None:
                         f"{rows.dtype}")
 
 
-def _check(bins: torch.Tensor, edge_upd: torch.Tensor,
-           edge_dst: torch.Tensor, part_size: int, schedule) -> None:
-    _check_rows(bins, "bins", 3)
-    dev = bins.device
-    _check_streams(edge_upd, edge_dst, bins.shape[0], part_size, dev, "bins")
-    if schedule is not None and (
-            schedule.part_size != part_size
-            or schedule.num_partitions != bins.shape[0]
-            or schedule.edge_upd.device != dev):
-        raise ValueError(
-            f"the schedule (P={schedule.part_size}, k="
-            f"{schedule.num_partitions}, on {schedule.edge_upd.device}) "
-            f"is not of these streams (P={part_size}, k={bins.shape[0]}, "
-            f"on {dev})")
+def _stream_shape(edge_upd: torch.Tensor | None, schedule) -> tuple:
+    """(k, n_eb, Eb) of the blocked streams ("warp"), or (k, 0, 0) for a
+    "tile" launch, which has none."""
+    if edge_upd is None:
+        return schedule.num_partitions, 0, 0
+    return tuple(edge_upd.shape)
 
 
-def launch_args(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
-                edge_dst: torch.Tensor, acc: torch.Tensor,
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def launch_args(path: str, rows: torch.Tensor,
+                edge_upd: torch.Tensor | None,
+                edge_dst: torch.Tensor | None, acc: torch.Tensor,
                 out: torch.Tensor | None, part_size: int, *,
                 num_updates: int, update_src: torch.Tensor | None = None,
-                geometry: WarpGeometry | None = None,
-                schedule=None) -> bytes:
+                geometry: WarpGeometry | None = None, schedule=None,
+                update_offsets: torch.Tensor | None = None) -> bytes:
     """The packed C arguments of one launch (``ARGS`` order): "tile"
-    takes bins (k, U, 1) as ``rows`` and a ``schedule``, "warp" x (n, d)
-    as ``rows`` with ``update_src`` and a ``geometry``."""
-    k, n_eb, eb = edge_upd.shape
-    d = rows.shape[-1]
+    takes ragged bins (U,) as ``rows`` with ``update_offsets`` (k + 1,)
+    and a ``schedule``, and no blocked streams; "warp" takes x (n, d) as
+    ``rows`` with ``update_src``, the blocked streams and a
+    ``geometry``."""
+    k, n_eb, eb = _stream_shape(edge_upd, schedule)
+    d = 1 if rows.dim() == 1 else rows.shape[-1]
     fused = (0, 0) if update_src is None else (update_src.data_ptr(),
                                                rows.shape[0])
     warp = ((0, 0, 0) if geometry is None
@@ -258,38 +260,41 @@ def launch_args(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
         schedule.hubs.data_ptr(), schedule.tile))
     blocks = geometry.blocks if path == "warp" else schedule.blocks
     return ARGS.pack(PATHS.index(path), int(rows.dtype == torch.bfloat16),
-                     rows.data_ptr(), *fused, edge_upd.data_ptr(),
-                     edge_dst.data_ptr(), acc.data_ptr(),
-                     0 if out is None else out.data_ptr(), k, num_updates,
-                     n_eb, eb, part_size, d, *warp, *tile, blocks)
+                     rows.data_ptr(), *fused, _ptr(edge_upd),
+                     _ptr(edge_dst), acc.data_ptr(), _ptr(out), k,
+                     num_updates, n_eb, eb, part_size, d, *warp, *tile,
+                     blocks, _ptr(update_offsets))
 
 
-def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
-         edge_dst: torch.Tensor, part_size: int, *, num_updates: int,
-         update_src: torch.Tensor | None = None,
-         schedule=None) -> torch.Tensor:
+def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor | None,
+         edge_dst: torch.Tensor | None, part_size: int, *, num_updates: int,
+         update_src: torch.Tensor | None = None, schedule=None,
+         update_offsets: torch.Tensor | None = None) -> torch.Tensor:
     """Check what the card's kernel needs, launch it on the current
     stream and count the launch; (k, P, d) in ``rows``' dtype. ``rows``
-    is bins for "tile", x (n, d) with ``update_src`` for "warp"."""
+    is ragged bins (U,) with ``update_offsets`` and no blocked streams
+    for "tile", x (n, d) with ``update_src`` for "warp"."""
     dev = rows.device
     _launch.check_hopper(dev, "PCPM gather")
-    k, n_eb, eb = edge_upd.shape
-    d = rows.shape[-1]
+    k, n_eb, eb = _stream_shape(edge_upd, schedule)
+    d = 1 if rows.dim() == 1 else rows.shape[-1]
     n = rows.shape[0] if update_src is not None else 0
     # int32 indices in the kernel; the stream's slots with room for the
-    # "warp" loop's fetches past its end
+    # "warp" loop's fetches past its end; update_src's k * U slots ("warp")
+    slots = k * num_updates if path == "warp" else num_updates
     if k > 65535 or max(num_updates, n_eb, eb, part_size, d, n,
-                        k * n_eb * eb + 1024, k * num_updates,
+                        k * n_eb * eb + 1024, slots,
                         k * part_size * d) >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: k={k} (max "
                          f"65535), U={num_updates}, n_eb={n_eb}, Eb={eb}, "
                          f"P={part_size}, d={d}, n={n} (each product of "
                          "them below 2**31)")
-    named = [("edge_upd", edge_upd), ("edge_dst", edge_dst)]
+    named = [("edge_upd", edge_upd), ("edge_dst", edge_dst),
+             ("update_offsets", update_offsets)]
     named += ([("bins", rows)] if update_src is None
               else [("x", rows), ("update_src", update_src)])
     for name, t in named:
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = load_library()
     bf16 = rows.dtype == torch.bfloat16
@@ -310,7 +315,8 @@ def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
     args = launch_args(path, rows, edge_upd, edge_dst, acc,
                        None if out is acc else out, part_size,
                        num_updates=num_updates, update_src=update_src,
-                       geometry=geometry, schedule=schedule)
+                       geometry=geometry, schedule=schedule,
+                       update_offsets=update_offsets)
     with _launch.device_guard(dev):
         err = lib.pcpm_gather(args, _launch.raw_stream(dev))
     if err != 0:
@@ -321,29 +327,23 @@ def _run(path: str, rows: torch.Tensor, edge_upd: torch.Tensor,
 
 
 def pcpm_gather_cuda(bins: torch.Tensor, edge_upd: torch.Tensor,
-                     edge_dst: torch.Tensor, *, part_size: int,
-                     schedule=None) -> torch.Tensor:
+                     edge_dst: torch.Tensor, *, part_size: int) -> torch.Tensor:
     """bins: (k, U, d); edge_upd/edge_dst: (k, n_eb, Eb) -> (k, P, d).
 
     The counterpart of the JAX package's ``pcpm_gather_pallas``: sums in
-    float32 and returns ``bins``' dtype. ``schedule``, an
-    ``ops.TileSchedule`` built from the same streams, selects the "tile"
-    path at d = 1 (``b1_path``). CUDA tensors go to the kernel (or
-    raise); CPU tensors go to the path's plain version.
+    float32 and returns ``bins``' dtype, through B1's "warp" path (the
+    blocked streams alone, any d; ``b1_path``). CUDA tensors go to the
+    kernel (or raise); CPU tensors go to the plain version.
     """
-    _check(bins, edge_upd, edge_dst, part_size, schedule)
-    path = b1_path(bins.shape[2], schedule is not None)
+    _check_rows(bins, "bins", 3)
     dev = bins.device
+    _check_streams(edge_upd, edge_dst, bins.shape[0], part_size, dev, "bins")
+    path = b1_path(bins.shape[2], False)       # no gather order: "warp"
     if dev.type == "cpu":
-        if path == "tile":
-            return tile_gather_ref(bins, schedule)
         return pcpm_gather_ref(bins, edge_upd, edge_dst, part_size=part_size)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     k, num_updates, d = bins.shape
-    if path == "tile":
-        return _run(path, bins, edge_upd, edge_dst, part_size,
-                    num_updates=num_updates, schedule=schedule)
     if not bins.is_contiguous():
         raise ValueError("bins must be contiguous")
     # "warp" reads rows through update_src: bins as (k·U, d) rows of x
@@ -352,6 +352,47 @@ def pcpm_gather_cuda(bins: torch.Tensor, edge_upd: torch.Tensor,
                             device=dev).view(k, num_updates)
     return _run(path, bins.view(k * num_updates, d), edge_upd, edge_dst,
                 part_size, num_updates=num_updates, update_src=identity)
+
+
+def tile_gather_cuda(bins: torch.Tensor, update_offsets: torch.Tensor,
+                     schedule) -> torch.Tensor:
+    """bins: (U,) or (U, 1), partition p's updates at
+    ``update_offsets[p]`` up to ``update_offsets[p + 1]``;
+    update_offsets: (k + 1,) int32 -> (k, P, 1).
+
+    B1's "tile" path over ragged bins, a PNG's own updates with no pad
+    (``ops.pcpm_spmv_tile``), in ``schedule``'s order, an
+    ``ops.TileSchedule`` of the same PNG whose updates are
+    partition-local. Sums in float32 and returns ``bins``' dtype. CUDA
+    tensors go to the kernel (or raise); CPU tensors go to the plain
+    version (``ref.tile_gather_ref``).
+    """
+    if bins.dim() == 2 and bins.shape[1] == 1:
+        bins = bins.view(-1)
+    if bins.dim() != 1:
+        raise ValueError(f"ragged bins must be (U,) or (U, 1); got "
+                         f"{tuple(bins.shape)}")
+    _check_rows(bins[:, None], "bins", 2)
+    k = schedule.num_partitions
+    dev = bins.device
+    if (update_offsets.shape != (k + 1,)
+            or update_offsets.dtype != torch.int32):
+        raise ValueError(f"update_offsets must be ({k + 1},) int32 for the "
+                         f"schedule's {k} partitions; got "
+                         f"{tuple(update_offsets.shape)} "
+                         f"{update_offsets.dtype}")
+    if update_offsets.device != dev or schedule.edge_upd.device != dev:
+        raise ValueError(f"bins, update_offsets and the schedule must share "
+                         f"one device; got {dev}, {update_offsets.device}, "
+                         f"{schedule.edge_upd.device}")
+    path = b1_path(1, True)                    # a gather order: "tile"
+    if dev.type == "cpu":
+        return tile_gather_ref(bins, schedule, update_offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _run(path, bins, None, None, schedule.part_size,
+                num_updates=bins.shape[0], schedule=schedule,
+                update_offsets=update_offsets)
 
 
 def pcpm_spmv_cuda(x: torch.Tensor, update_src: torch.Tensor,

@@ -1,14 +1,17 @@
-"""BlockedPNG + feature matrix -> full PCPM SpMV through the gather kernel.
-On B1's "tile" path (d = 1 with the gather order) the scatter phase is a
+"""PNG + feature matrix -> full PCPM SpMV through the gather kernel.
+On B1's "tile" path (d = 1, ``pcpm_spmv_tile``) the scatter phase is a
 torch gather producing the bins, as it was an XLA gather in the JAX
-package; on its "warp" path the kernel reads ``x[update_src]`` itself
-(the fused form, ``kernel.pcpm_spmv_cuda``) and no bins exist.
+package; on its "warp" path (``pcpm_spmv_pallas``) the kernel reads
+``x[update_src]`` itself (the fused form, ``kernel.pcpm_spmv_cuda``) and
+no bins exist.
 
 Two device layouts of one plan's gather streams: ``PackedPNG``, the
-reference's blocked (k, n_eb, Eb) streams in destination order (kernel
-B1's "warp" path, any d), and ``TileSchedule``, the port's own gather
-order for d = 1 (B1's "tile" path): each partition's real edges ordered
-by (destination tile, update, destination), cut into a chunk table.
+reference's blocked (k, n_eb, Eb) streams in destination order, every
+partition padded to the heaviest one (B1's "warp" path, any d), and
+``TileSchedule``, the port's own gather order for d = 1, built from the
+PNG's streams (B1's "tile" path): each partition's real edges ordered by
+(destination tile, update, destination), cut into a chunk table, read
+with the PNG's own (U,) updates; it pads nothing.
 """
 from __future__ import annotations
 
@@ -17,9 +20,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...core.png import BlockedPNG
+from ...core.png import BlockedPNG, PNGLayout
 from ...device import resolve_device
-from .kernel import b1_path, pcpm_gather_cuda, pcpm_spmv_cuda
+from .kernel import pcpm_spmv_cuda, tile_gather_cuda
 
 # shared memory of one "tile" block, which sets the tile size: two such
 # blocks fit an SM (228 KB, 1 KB of it reserved per block)
@@ -200,32 +203,52 @@ def tile_hubs(seg: np.ndarray, jt: np.ndarray, n_seg: int,
     return hubs
 
 
-def tile_schedule(blocked: BlockedPNG, *, tile_bytes: int = TILE_BYTES,
+def tile_schedule(png: PNGLayout, *, tile_bytes: int = TILE_BYTES,
                   blocks: int | None = None, device=None) -> TileSchedule:
-    """The "tile" path's gather order of a blocked PNG, on ``device``.
-
-    Host numpy, once per plan: one sort of a 64-bit key (partition,
-    tile, update, destination) over the real edges (``pack_blocked``'s
-    pads, update >= U or destination >= P, are left out). The ordered
-    stream is cut into ``blocks`` (default ``tile_blocks``) equal ranges
-    and at every tile's bounds; each piece is a chunk. Each tile's
-    ``HUBS`` heaviest destinations are its hubs (``tile_hubs``).
-    """
+    """The "tile" path's gather order of a PNG, on ``device``, from its
+    own streams in O(m): the sort keys of its edges (``edge_keys``) cut
+    into chunks (``order_keys``)."""
     dev = resolve_device(device)
     if blocks is None:
         blocks = tile_blocks(dev, tile_bytes)
-    psz = blocked.part_size
-    k, num_updates = blocked.update_src.shape
+    psz = png.partitioning.part_size
+    k = png.num_partitions
+    num_updates = max(int(np.diff(png.update_offsets).max(initial=0)), 1)
     tile = tile_size(psz, tile_bytes)
+    part = np.repeat(np.arange(k), np.diff(png.edge_offsets))
+    key = edge_keys(part, png.edge_update_idx - png.update_offsets[part],
+                    png.edge_dst - part * psz, k=k, psz=psz,
+                    num_updates=num_updates, tile=tile)
+    del part
+    return order_keys(key, k=k, psz=psz, num_updates=num_updates, tile=tile,
+                      blocks=blocks, device=dev)
+
+
+def edge_keys(part: np.ndarray, u: np.ndarray, j: np.ndarray, *, k: int,
+              psz: int, num_updates: int, tile: int) -> np.ndarray:
+    """The 64-bit sort key (partition, tile, update, destination) of each
+    real edge of ``k`` partitions of ``psz`` destinations, from its
+    partition ``part``, partition-local update ``u`` (below
+    ``num_updates``) and partition-local destination ``j``."""
     n_tiles = -(-psz // tile)
     if k * n_tiles * num_updates * psz >= 2 ** 63:
         raise ValueError("tile_schedule: sort key out of 64 bits")
-    eu = blocked.edge_update_local
-    ed = blocked.edge_dst_local
-    part, pos = np.nonzero((eu < num_updates) & (ed < psz))
-    u = eu[part, pos].astype(np.int64)
-    j = ed[part, pos].astype(np.int64)
-    key = ((part * n_tiles + j // tile) * num_updates + u) * psz + j
+    u = np.asarray(u, dtype=np.int64)
+    j = np.asarray(j, dtype=np.int64)
+    return ((part * n_tiles + j // tile) * num_updates + u) * psz + j
+
+
+def order_keys(key: np.ndarray, *, k: int, psz: int, num_updates: int,
+               tile: int, blocks: int, device: torch.device) -> TileSchedule:
+    """The gather order, on ``device``, of the edges whose ``edge_keys``
+    are ``key`` (sorted here, in place).
+
+    Host numpy, once per plan: one sort of the keys. The ordered stream
+    is cut into ``blocks`` equal ranges and at every tile's bounds; each
+    piece is a chunk. Each tile's ``HUBS`` heaviest destinations are its
+    hubs (``tile_hubs``).
+    """
+    n_tiles = -(-psz // tile)
     key.sort()
     edge_dst = (key % psz).astype(np.int32)
     key //= psz
@@ -244,7 +267,7 @@ def tile_schedule(blocked: BlockedPNG, *, tile_bytes: int = TILE_BYTES,
     block_chunks = np.searchsorted(block_of, np.arange(blocks + 1))
 
     def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
     hubs = tile_hubs(seg, edge_dst - (seg % n_tiles) * tile, k * n_tiles,
                      tile)
@@ -253,18 +276,16 @@ def tile_schedule(blocked: BlockedPNG, *, tile_bytes: int = TILE_BYTES,
                         up(hubs))
 
 
-def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor, *,
-                     schedule: TileSchedule | None = None) -> torch.Tensor:
+def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor) -> torch.Tensor:
     """y = A^T x. x: (n,) or (n, d) with any d >= 1, on the device the
     packed layout lives on.
 
     The name is the JAX package's (``ops.pcpm_spmv_pallas``), kept so
     the counterpart is easy to find; on the card the gather runs the
-    CUDA kernel, and d is not padded. With ``schedule`` (built from the
-    same blocked PNG) a d = 1 gather takes B1's "tile" path over bins
-    gathered here; every other call takes the "warp" path's fused form
-    (``kernel.b1_path``), which reads ``x[update_src]`` inside the kernel,
-    so no (k, U, d) bins tensor is made.
+    CUDA kernel's "warp" path in its fused form, which reads
+    ``x[update_src]`` inside the kernel, so no (k, U, d) bins tensor is
+    made, and d is not padded. A plan's d = 1 SpMV takes B1's "tile"
+    path instead (``pcpm_spmv_tile``).
 
     The JAX version zeroes the pad update slots (``* update_valid``);
     here that pass is left out because no edge reads those slots: real
@@ -275,17 +296,24 @@ def pcpm_spmv_pallas(packed: PackedPNG, x: torch.Tensor, *,
     if squeeze:
         x = x[:, None]
     n, d = x.shape
-    k, num_updates = packed.update_src.shape
-    if b1_path(d, schedule is not None) == "tile":
-        # scatter phase: compressed bins (k, U, 1), one value per
-        # (src, dst-partition) pair, the paper's update_bins
-        bins = x.index_select(0, packed.update_src.view(-1)).view(
-            k, num_updates, d)
-        out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
-                               part_size=packed.part_size, schedule=schedule)
-    else:
-        out = pcpm_spmv_cuda(x.contiguous(), packed.update_src,
-                             packed.edge_upd, packed.edge_dst,
-                             part_size=packed.part_size)
+    out = pcpm_spmv_cuda(x.contiguous(), packed.update_src, packed.edge_upd,
+                         packed.edge_dst, part_size=packed.part_size)
     y = out.view(-1, d)[:n]
     return y[:, 0] if squeeze else y
+
+
+def pcpm_spmv_tile(x: torch.Tensor, update_src: torch.Tensor,
+                   update_offsets: torch.Tensor,
+                   schedule: TileSchedule) -> torch.Tensor:
+    """y = A^T x for x (n,) or (n, 1) through B1's "tile" path over a
+    PNG's own streams: ``update_src`` (U,) int32 and ``update_offsets``
+    (k + 1,) int32, the PNG's, on the device, and ``schedule`` built from
+    the same PNG (``tile_schedule``). The scatter phase gathers the bins
+    ``x[update_src]``, U values with no pad, partition p's from
+    ``update_offsets[p]``; the gather reads each from there
+    (``kernel.tile_gather_cuda``). Nothing is padded to the heaviest
+    partition, which a hub-first labeling makes over ten times the mean.
+    """
+    bins = x.reshape(-1).index_select(0, update_src)
+    out = tile_gather_cuda(bins, update_offsets, schedule)
+    return out.view(-1)[:x.shape[0]].view(x.shape)

@@ -53,15 +53,17 @@ def pcpm_spmv_ref(x: torch.Tensor, update_src: torch.Tensor,
     return pcpm_gather_ref(bins, edge_upd, edge_dst, part_size=part_size)
 
 
-def tile_gather_ref(bins: torch.Tensor, schedule) -> torch.Tensor:
-    """The "tile" path's function on its own streams: bins (k, U, 1) and
-    a ``ops.TileSchedule`` -> (k, P, 1). Every edge of every chunk adds
-    ``bins[p, upd]`` into ``out[p, dst]`` (p the chunk's partition),
-    inside the chunk's tile or not; an edge with upd outside [0, U) or
-    dst outside [0, P) is a pad. Sums in float32, returns ``bins``'
-    dtype."""
-    k, num_updates, _ = bins.shape
-    p_size = schedule.part_size
+def tile_gather_ref(bins: torch.Tensor, schedule,
+                    update_offsets: torch.Tensor) -> torch.Tensor:
+    """The "tile" path's function on its own streams: ragged bins (U,)
+    or (U, 1), partition p's at ``update_offsets[p]`` up to
+    ``update_offsets[p + 1]``, and a ``ops.TileSchedule`` -> (k, P, 1).
+    Every edge of every chunk adds partition p's update ``upd`` into
+    ``out[p, dst]`` (p the chunk's partition), inside the chunk's tile or
+    not; an edge with upd outside partition p's updates or dst outside
+    [0, P) is a pad. Sums in float32, returns ``bins``' dtype."""
+    k, p_size = schedule.num_partitions, schedule.part_size
+    offsets = update_offsets.long()
     chunks = schedule.chunks.long()
     lengths = chunks[:, 3] - chunks[:, 2]
     # every edge of every chunk, with its chunk's partition
@@ -72,9 +74,9 @@ def tile_gather_ref(bins: torch.Tensor, schedule) -> torch.Tensor:
             + torch.repeat_interleave(chunks[:, 2], lengths))
     u = schedule.edge_upd.long()[edge]
     j = schedule.edge_dst.long()[edge]
-    ok = (u >= 0) & (u < num_updates) & (j >= 0) & (j < p_size)
-    vals = bins.float().reshape(-1).index_select(
-        0, (part * num_updates + u)[ok])
+    first = offsets[part]
+    ok = (u >= 0) & (u < offsets[part + 1] - first) & (j >= 0) & (j < p_size)
+    vals = bins.float().reshape(-1).index_select(0, (first + u)[ok])
     out = torch.zeros(k * p_size, dtype=torch.float32, device=bins.device)
     out.index_add_(0, (part * p_size + j)[ok], vals)
     return out.view(k, p_size, 1).to(bins.dtype)

@@ -34,7 +34,12 @@ The port records spans of its own besides (``PORT_SPANS``), which the
 JAX package lacks: the stages of a fused solve under ``solve``
 (``solve_start``, ``solve_launch``, ``solve_readback``) and host
 preprocessing (trace ``"plan"``: ``plan_make`` with its ``plan_stage``
-children, ``device_layout``, ``kernel_load``). While a
+children, ``device_layout``, ``kernel_load``). A reordered plan's
+``plan_make`` holds the stages ``reorder`` (the permutation; attribute
+``ordering``) and ``relabel`` (the relabeled graph); a built plan with a
+PNG carries ``updates``, ``r`` and ``max_part_share`` (the heaviest
+partition's share of the arcs); ``solve`` carries the plan's
+``reorder``. While a
 ``torch.profiler`` session records, each of them and ``solve`` also
 opens a profiler range named ``repro_torch::<name>`` from its start to
 its end, so the profiler stamps the span on the clock of its aten ops

@@ -91,7 +91,7 @@ def check_plan_integrity(plan) -> "object":
             _check_schedule(plan.schedule, pointer_hi=max(u - 1, 0),
                             num_nodes=n)
 
-    if plan.blocked is not None:                      # pcpm_pallas
+    if plan.blocked is not None:          # a pcpm_pallas plan file's
         blk = plan.blocked
         max_u = int(blk.update_src.shape[1])   # pad slot = max_u
         _bounds("blocked.update_src", blk.update_src, -1, n - 1)

@@ -28,7 +28,9 @@ which ``install_plan`` seeds.
 
 Derived schedules (blocked gather runs, BlockedPNG re-layout) are
 re-derived from the spliced streams: both are sort-free vectorized
-O(M) passes, noise next to the lexsorts they replace.
+O(M) passes, noise next to the lexsorts they replace (a pcpm_pallas
+plan holds no BlockedPNG: ``core.plan.blocked_of`` derives it where it
+is read).
 
 ``patch_plan`` is the front door: it consults the plan cache, applies
 the registered backend patcher, falls back to a full rebuild past a
@@ -50,7 +52,7 @@ import numpy as np
 from ..core import plan as plan_mod
 from ..core.backends import get_backend
 from ..core.plan import GraphPlan, graph_fingerprint, install_plan
-from ..core.png import PNGLayout, build_gather_schedule, block_png
+from ..core.png import PNGLayout, build_gather_schedule
 from ..graphs.formats import Graph, lexsort_order, lexsorted
 from .delta import GraphDelta, gather_ranges, multiset_keep_mask
 
@@ -218,8 +220,8 @@ def patch_pcpm_plan(plan: GraphPlan, g_new: Graph,
 def patch_pcpm_pallas_plan(plan: GraphPlan, g_new: Graph,
                            delta: GraphDelta) -> GraphPlan:
     png = _shared_patched_png(plan, g_new, delta)
-    return GraphPlan(png=png, blocked=block_png(png),
-                     **_patched_fields(plan, g_new, png.num_edges))
+    # no blocked form: ``core.plan.blocked_of`` derives it where it is read
+    return GraphPlan(png=png, **_patched_fields(plan, g_new, png.num_edges))
 
 
 def _partition_bounds(dstp: np.ndarray, k: int) -> np.ndarray:

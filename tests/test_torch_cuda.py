@@ -1,7 +1,8 @@
 """The port on the card: kernel B1 against its plain version through
-both of its paths ("warp", "tile"), and the
-main path ``open(g, device="cuda").pagerank()`` against the same solve
-on the CPU and the dense oracle; PageRank serving (``SlotScheduler``,
+both of its paths ("warp", "tile"; "tile" also over ragged bins against
+padded ones), and the main path ``open(g, device="cuda").pagerank()``
+against the same solve on the CPU and the dense oracle, also replayed
+on a hub-first plan; PageRank serving (``SlotScheduler``,
 ``PageRankServer``, device push) with B1's launches counted per path;
 streaming deltas (patched plans of each method against the CPU, B1 on a
 patched plan against its plain version, ``Session.apply_delta`` with a
@@ -46,11 +47,11 @@ from repro_torch import configs
 from repro_torch.core import (Partitioning, block_png, build_png,
                               pagerank_reference)
 from repro_torch.graphs import generators
-from repro_torch.core.png import BlockedPNG
 from repro_torch.kernels.pcpm_spmv import (kernel, ops, pack_blocked,
                                            pcpm_gather_cuda, pcpm_gather_ref,
                                            pcpm_spmv_cuda, pcpm_spmv_pallas,
-                                           pcpm_spmv_ref, tile_schedule)
+                                           pcpm_spmv_ref, tile_gather_cuda,
+                                           tile_gather_ref, tile_schedule)
 from repro_torch.kernels import embedding_bag as b2
 from repro_torch.kernels import flash_attention as b3
 from repro_torch.models import recsys
@@ -149,23 +150,34 @@ def test_open_pagerank_on_the_card(cuda_device, method):
 
 
 # ----------------------------------------------- kernel B1, path "tile"
+def _ragged(png, x):
+    """The PNG's own bins ``x[update_src]`` (U,) and their offsets, on
+    x's device."""
+    dev = x.device
+    upd = torch.from_numpy(png.update_src).to(dev)
+    offsets = torch.from_numpy(png.update_offsets.astype(np.int32)).to(dev)
+    return x.index_select(0, upd), offsets
+
+
 def _tile_inputs(dev, scale, deg, part_size, seed):
-    """A rmat layout packed on the card and bins that are multiples of
-    1/16, whose sums are exact in any order."""
+    """A rmat layout on the card: its PNG, its packed blocked streams,
+    and for an x whose values are multiples of 1/16 (sums exact in any
+    order) the padded bins (k, U, 1) the plain blocked gather reads and
+    the ragged bins (U,) with offsets that B1 "tile" reads."""
     g = generators.rmat(scale, deg, seed=scale)
-    blk = block_png(build_png(g, Partitioning(g.num_nodes, part_size)))
-    packed = pack_blocked(blk, g.num_nodes, edge_block=128, device=dev)
-    x = np.random.default_rng(seed).integers(0, 16, g.num_nodes) / 16
+    png = build_png(g, Partitioning(g.num_nodes, part_size))
+    packed = pack_blocked(block_png(png), g.num_nodes, edge_block=128,
+                          device=dev)
+    x = torch.from_numpy((np.random.default_rng(seed).integers(
+        0, 16, g.num_nodes) / 16).astype(np.float32)).to(dev)
     k, u = packed.update_src.shape
-    bins = torch.from_numpy(x.astype(np.float32)).to(dev)[
-        packed.update_src.view(-1)].view(k, u, 1)
-    return g, blk, packed, bins
+    bins = x[packed.update_src.view(-1)].view(k, u, 1)
+    return png, packed, bins, *_ragged(png, x)
 
 
-def _tile_call(bins, packed, schedule):
+def _tile_call(ragged, offsets, schedule):
     before = dict(kernel.launch_counts)
-    out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
-                           part_size=packed.part_size, schedule=schedule)
+    out = tile_gather_cuda(ragged, offsets, schedule)
     torch.cuda.synchronize()
     assert kernel.launch_counts["tile"] == before["tile"] + 1
     assert kernel.launch_counts["warp"] == before["warp"]
@@ -175,39 +187,38 @@ def _tile_call(bins, packed, schedule):
 @pytest.mark.parametrize("tile_bytes", [64, ops.TILE_BYTES])
 @pytest.mark.parametrize("scale,deg,part_size", [s[:3] for s in SHAPES])
 def test_b1_tile_vs_plain(cuda_device, scale, deg, part_size, tile_bytes):
-    _, blk, packed, bins = _tile_inputs(cuda_device, scale, deg, part_size,
-                                        seed=scale)
-    schedule = tile_schedule(blk, tile_bytes=tile_bytes, device=cuda_device)
+    png, packed, bins, ragged, offsets = _tile_inputs(
+        cuda_device, scale, deg, part_size, seed=scale)
+    schedule = tile_schedule(png, tile_bytes=tile_bytes, device=cuda_device)
     for dtype in (torch.float32, torch.bfloat16):
-        b = bins.to(dtype)
-        out = _tile_call(b, packed, schedule)
-        ref = pcpm_gather_ref(b, packed.edge_upd, packed.edge_dst,
-                              part_size=part_size)
+        out = _tile_call(ragged.to(dtype), offsets, schedule)
+        ref = pcpm_gather_ref(bins.to(dtype), packed.edge_upd,
+                              packed.edge_dst, part_size=part_size)
         assert out.dtype == dtype and torch.equal(out, ref)
 
 
 def test_b1_tile_all_pad_partition(cuda_device):
-    # partition 0 has no edge at all: no chunk, zeros
-    k, u_slots, part_size = 2, 4, 8
-    eu = np.full((k, 6), u_slots, dtype=np.int32)
-    ed = np.full((k, 6), part_size, dtype=np.int32)
-    eu[1, :3], ed[1, :3] = [0, 1, 1], [7, 2, 5]
-    blk = BlockedPNG(part_size, np.arange(k * u_slots, dtype=np.int32)
-                     .reshape(k, u_slots), eu, ed, 0.0, 0.0)
-    packed = pack_blocked(blk, k * part_size, edge_block=128,
-                          device=cuda_device)
-    schedule = tile_schedule(blk, tile_bytes=16, device=cuda_device)
-    bins = torch.rand((k, u_slots, 1), device=cuda_device)
-    out = _tile_call(bins, packed, schedule)
+    # partition 0 has no edge at all (no update, no chunk): zeros
+    from repro_torch.graphs.formats import from_edge_list
+    part_size = 8
+    g = from_edge_list(2 * part_size, np.array([[0, 15], [1, 10], [1, 13]],
+                                               dtype=np.int32))
+    png = build_png(g, Partitioning(g.num_nodes, part_size))
+    assert png.update_offsets.tolist() == [0, 0, 2]
+    schedule = tile_schedule(png, tile_bytes=16, device=cuda_device)
+    ragged, offsets = _ragged(png, torch.rand(g.num_nodes,
+                                              device=cuda_device))
+    out = _tile_call(ragged, offsets, schedule)
     assert torch.count_nonzero(out[0]) == 0
-    torch.testing.assert_close(out, pcpm_gather_ref(
-        bins, packed.edge_upd, packed.edge_dst, part_size=part_size),
-        rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(out, tile_gather_ref(
+        ragged.cpu(), tile_schedule(png, tile_bytes=16, device="cpu"),
+        offsets.cpu()).to(cuda_device), rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("order", ["dst-sorted", "random"])
 def test_b1_tile_edges_outside_their_chunks_tile(cuda_device, order):
-    _, blk, packed, bins = _tile_inputs(cuda_device, 8, 6, 64, seed=1)
+    _, packed, bins, ragged, offsets = _tile_inputs(cuda_device, 8, 6, 64,
+                                                    seed=1)
     k, u = packed.update_src.shape
     eu = packed.edge_upd.reshape(k, -1).cpu().numpy()
     ed = packed.edge_dst.reshape(k, -1).cpu().numpy()
@@ -225,7 +236,7 @@ def test_b1_tile_edges_outside_their_chunks_tile(cuda_device, order):
                              part_size=packed.part_size, num_partitions=k,
                              tile=16, chunk_edges=37, blocks=5,
                              device=cuda_device)
-    out = _tile_call(bins, packed, schedule)
+    out = _tile_call(ragged, offsets, schedule)
     assert torch.equal(out, pcpm_gather_ref(
         bins, packed.edge_upd, packed.edge_dst, part_size=packed.part_size))
 
@@ -241,6 +252,43 @@ def test_pcpm_pallas_solves_through_the_tile_path(cuda_device):
     assert kernel.launch_counts["warp"] == before["warp"]
     oracle = pagerank_reference(g, num_iterations=res.iterations)
     assert np.abs(res.ranks.cpu().numpy() - oracle).max() <= 1e-6
+
+
+@pytest.mark.parametrize("labels", ["random", "degree"])
+@pytest.mark.parametrize("scale,deg,part_size", [s[:3] for s in SHAPES])
+def test_b1_tile_ragged_bins_vs_padded(cuda_device, scale, deg, part_size,
+                                       labels):
+    """B1 "tile" over a PNG's own (U,) updates with their offsets (the
+    d = 1 solve's bins) against B1 "warp" over the (k, U, 1) padded bins
+    of the blocked streams, on random and hub-first labels, in float32
+    and bfloat16: equal, on sums exact in any order; and the d = 1 SpMV
+    of each layout."""
+    from repro_torch.graphs.reorder import degree_order
+    from repro_torch.kernels.pcpm_spmv import pcpm_spmv_tile
+    g = generators.rmat(scale, deg, seed=scale)
+    if labels == "degree":
+        g = g.relabel(degree_order(g))
+    png = build_png(g, Partitioning(g.num_nodes, part_size))
+    packed = pack_blocked(block_png(png), g.num_nodes, edge_block=128,
+                          device=cuda_device)
+    schedule = tile_schedule(png, device=cuda_device)
+    x = torch.from_numpy((np.random.default_rng(scale).integers(
+        0, 16, g.num_nodes) / 16).astype(np.float32)).to(cuda_device)
+    upd = torch.from_numpy(png.update_src).to(cuda_device)
+    offsets = torch.from_numpy(png.update_offsets.astype(np.int32)).to(
+        cuda_device)
+    k, u = packed.update_src.shape
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        before = dict(kernel.launch_counts)
+        ragged = _tile_call(xd.index_select(0, upd), offsets, schedule)
+        padded = pcpm_gather_cuda(xd[packed.update_src.view(-1)].view(
+            k, u, 1), packed.edge_upd, packed.edge_dst, part_size=part_size)
+        torch.cuda.synchronize()
+        assert kernel.launch_counts["warp"] == before["warp"] + 1
+        assert ragged.dtype == dtype and torch.equal(ragged, padded)
+    y = pcpm_spmv_tile(x, upd, offsets, schedule)
+    assert torch.equal(y, pcpm_spmv_pallas(packed, x))
 
 
 # ------------------------------- fixed-count solves replayed as CUDA graphs
@@ -286,6 +334,32 @@ def test_graph_replay_matches_eager_and_oracle(cuda_device, method, dangling,
             ranks = res.ranks.cpu().numpy()
             assert np.abs(ranks - eager.ranks.cpu().numpy()).max() <= 1e-6
             assert np.abs(ranks - oracle).max() <= 1e-6
+    finally:
+        sess.obs.close()
+
+
+def test_degree_ordered_replayed_solve_matches_eager(cuda_device):
+    """A hub-first plan's solves (eager, capturing, replayed) iterate in
+    its relabeled ids through B1 "tile" and map the ranks back: equal to
+    one another and to the dense oracle in the original ids; none builds
+    the blocked form."""
+    g, sess, _ = _graph_session(cuda_device, reorder="degree")
+    try:
+        before = dict(kernel.launch_counts)
+        eager = sess.pagerank()
+        replays = [sess.pagerank() for _ in range(2)]
+        torch.cuda.synchronize()
+        assert _graph_modes(sess) == ["eager", "capture", "replay"]
+        assert kernel.launch_counts["tile"] - before["tile"] == 3 * 20
+        assert kernel.launch_counts["warp"] == before["warp"]
+        oracle = pagerank_reference(g)
+        for res in replays:
+            assert res.iterations == eager.iterations == 20
+            ranks = res.ranks.cpu().numpy()
+            assert np.abs(ranks - eager.ranks.cpu().numpy()).max() <= 1e-6
+            assert np.abs(ranks - oracle).max() <= 1e-6
+        assert sess.plan.blocked is None
+        assert not [k for k in sess.plan._device if k[0] == "packed"]
     finally:
         sess.obs.close()
 
@@ -700,6 +774,7 @@ def test_b1_on_a_patched_plan_vs_plain(cuda_device):
     """Both paths of B1 on the streams of a patched pcpm_pallas plan
     (new ``max_u``/``max_e``, a new "tile" order), bit for bit."""
     from repro_torch.core import PlanConfig, build_plan
+    from repro_torch.core.plan import blocked_of
     from repro_torch.stream import apply_delta, patch_plan
     rng = np.random.default_rng(6)
     g = generators.rmat(11, 8, seed=3)
@@ -708,10 +783,11 @@ def test_b1_on_a_patched_plan_vs_plain(cuda_device):
     fullest = int(np.argmax(np.diff(plan.png.edge_offsets)))
     delta = _local_delta(g, rng, [fullest, 5], 256, count=100, n_add=600)
     patched = patch_plan(plan, delta, apply_delta(g, delta))
-    assert patched.blocked.edge_dst_local.shape != \
-        plan.blocked.edge_dst_local.shape
-    packed = pack_blocked(patched.blocked, g.num_nodes, device=cuda_device)
-    schedule = tile_schedule(patched.blocked, device=cuda_device)
+    blk = blocked_of(patched)
+    assert blk.edge_dst_local.shape != \
+        blocked_of(plan).edge_dst_local.shape
+    packed = pack_blocked(blk, g.num_nodes, device=cuda_device)
+    schedule = tile_schedule(patched.png, device=cuda_device)
     k, u = packed.update_src.shape
     for d in (1, 16):
         x = torch.randint(0, 16, (g.num_nodes, d), device=cuda_device,
@@ -721,7 +797,8 @@ def test_b1_on_a_patched_plan_vs_plain(cuda_device):
         ref = pcpm_gather_ref(bins, packed.edge_upd, packed.edge_dst,
                               part_size=256)
         if d == 1:
-            assert torch.equal(_tile_call(bins, packed, schedule), ref)
+            out = _tile_call(*_ragged(patched.png, x[:, 0]), schedule)
+            assert torch.equal(out, ref)
         for out, plain in _warp_both_forms(x, packed).values():
             assert torch.equal(out, plain)
 

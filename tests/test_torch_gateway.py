@@ -17,6 +17,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch
 from repro_torch import gateway as port_gateway
@@ -676,21 +677,22 @@ def test_device_thread_failure_fails_the_futures(graphs):
 
 # ------------------------------------------- lazy device uploads, one each
 def _counting_uploads(monkeypatch, delay_s=0.0, gate=None):
-    """Count ``pack_blocked`` and ``tile_schedule`` calls (the two lazy
-    fills of a ``pcpm_pallas`` plan's runtime cache), each slowed by
-    ``delay_s``; with ``gate`` = (blocked layout, Event), the call for
-    that layout waits for the event."""
+    """Count ``pack_blocked`` and ``tile_schedule`` calls (the lazy
+    fills of a ``pcpm_pallas`` plan's runtime cache that build: the
+    blocked streams of d > 1, the gather order of d = 1), each slowed by
+    ``delay_s``; with ``gate`` = (layout, Event), the call for that
+    layout (the blocked PNG or the PNG) waits for the event."""
     import repro_torch.kernels.pcpm_spmv as b1_pkg
     counts = collections.Counter()
     for name in ("pack_blocked", "tile_schedule"):
         real = getattr(b1_pkg, name)
 
-        def counted(blocked, *args, _real=real, _name=name, **kw):
+        def counted(layout, *args, _real=real, _name=name, **kw):
             counts[_name] += 1
-            if gate is not None and blocked is gate[0]:
+            if gate is not None and layout is gate[0]:
                 assert gate[1].wait(timeout=60)
             time.sleep(delay_s)
-            return _real(blocked, *args, **kw)
+            return _real(layout, *args, **kw)
 
         monkeypatch.setattr(b1_pkg, name, counted)
     return counts
@@ -710,10 +712,13 @@ def test_one_upload_per_plan_under_racing_threads(monkeypatch):
     counts = _counting_uploads(monkeypatch, delay_s=0.05)
     barrier = threading.Barrier(3)
     fns = []
+    x = torch.ones((g.num_nodes, 2))
 
     def first_use():
         barrier.wait(timeout=60)
-        fns.append(backends.spmv_fn(plan, sch.device))
+        fn = backends.spmv_fn(plan, sch.device)
+        fn(x)                                      # d > 1: the blocked fill
+        fns.append(fn)
 
     ts = [threading.Thread(target=first_use) for _ in range(3)]
     for t in ts:
@@ -749,17 +754,20 @@ def test_upload_lock_does_not_deadlock_a_rebind(monkeypatch):
     sch = SlotScheduler(g, method="pcpm_pallas", part_size=64, chunk=4,
                         slots=2, push_mode="device", device="cpu")
     old = sch.engine.plan
+    # the stepper's closure makes its d > 1 layout at its first chunk
+    sch.submit(None, tol=1e-6, route="stepper")
+    sch.run_until_drained()
     release_device(old)
     go = threading.Event()
-    counts = _counting_uploads(monkeypatch, gate=(old.blocked, go))
+    counts = _counting_uploads(monkeypatch, gate=(old.png, go))
     pushed = []
     push = threading.Thread(target=lambda: pushed.append(sch.submit(
         _seed(g), top_k=5, tol=1e-2)))
     push.start()
     deadline = time.monotonic() + 60
-    while counts["pack_blocked"] < 1 and time.monotonic() < deadline:
+    while counts["tile_schedule"] < 1 and time.monotonic() < deadline:
         time.sleep(0.01)
-    assert counts["pack_blocked"] == 1 and not go.is_set()
+    assert counts["tile_schedule"] == 1 and not go.is_set()
     # the stepper runs on its own closure while the upload waits
     u_step = sch.submit(None, tol=1e-6, route="stepper")
     stepper = threading.Thread(target=sch.run_until_drained)

@@ -886,20 +886,27 @@ def test_port_spans_of_host_preprocessing():
     sess, recs = _observed_solve("pcpm_pallas", seed=32)
     try:
         make, = _by_name(recs, "plan_make")
-        assert make.attrs == {"method": "pcpm_pallas",
-                              "n": sess.plan.num_nodes,
-                              "m": sess.plan.num_edges, "hit": False}
+        png = sess.plan.png
+        assert make.attrs == {
+            "method": "pcpm_pallas", "n": sess.plan.num_nodes,
+            "m": sess.plan.num_edges, "hit": False,
+            "updates": png.num_updates, "r": png.compression_ratio,
+            "max_part_share": np.diff(png.edge_offsets).max()
+            / png.num_edges}
         stages = _children(recs, make)
-        assert [r.name for r in stages] == ["plan_stage"] * 4
+        assert [r.name for r in stages] == ["plan_stage"] * 3
         assert [r.attrs["stage"] for r in stages] == [
-            "validate", "fingerprint", "png", "blocked"]
+            "validate", "fingerprint", "png"]
         assert all(make.t_start <= r.t_start and r.t_end <= make.t_end
                    for r in stages)
+        # the d = 1 solve: the PNG's own updates and gather order, no
+        # blocked form
         layouts = {r.attrs["name"]: r for r in _by_name(recs,
                                                         "device_layout")}
-        assert {"spmv", "packed", "tile_schedule"} <= set(layouts)
+        assert set(layouts) == {"spmv", "updates", "tile_schedule"}
+        assert not [r for r in stages if r.attrs["stage"] == "blocked"]
         outer = layouts["spmv"]
-        for name in ("packed", "tile_schedule"):
+        for name in ("updates", "tile_schedule"):
             assert layouts[name].parent_id == outer.span_id
         assert outer.parent_id is None and make.parent_id is None
         again = repro_torch.open(sess.graph, sess.config, device="cpu")

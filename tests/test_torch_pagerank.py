@@ -223,13 +223,13 @@ def fake_graphs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph",
                         lambda graph, **kw: contextlib.nullcontext())
-    gather = ops.pcpm_gather_cuda
+    gather = ops.tile_gather_cuda
 
     def counted(*args, **kw):
         kernel.count_launches({"tile": 1})
         return gather(*args, **kw)
 
-    monkeypatch.setattr(ops, "pcpm_gather_cuda", counted)
+    monkeypatch.setattr(ops, "tile_gather_cuda", counted)
     _FakeGraph.replays = 0
     yield solver, kernel
     clear_plan_cache()

@@ -18,7 +18,7 @@ from repro_torch.core import Partitioning, block_png, build_png
 from repro_torch.graphs import formats, generators
 from repro_torch.kernels.pcpm_spmv import (TileSchedule, b1_path, kernel,
                                            ops, pack_blocked,
-                                           pcpm_gather_cuda, pcpm_gather_ref,
+                                           pcpm_gather_ref, tile_gather_cuda,
                                            tile_gather_ref, tile_schedule)
 
 from test_torch_reference import hand_schedule, load_reference
@@ -54,10 +54,10 @@ def _graphs(name):
 
 def _layout(name):
     g, r, part_size = _graphs(name)
-    blk = block_png(build_png(g, Partitioning(g.num_nodes, part_size)))
+    png = build_png(g, Partitioning(g.num_nodes, part_size))
     ref_blk = ref_core.block_png(ref_core.build_png(
         r, ref_core.Partitioning(r.num_nodes, part_size)))
-    return g, blk, ref_blk
+    return g, png, block_png(png), ref_blk
 
 
 def _pairs(eu, ed, u_slots, part_size):
@@ -81,13 +81,13 @@ def _schedule_edges(s: TileSchedule):
 @pytest.mark.parametrize("tile_bytes,blocks", SCHEDULES)
 def test_order_is_a_permutation_of_the_reference_pairs(name, tile_bytes,
                                                         blocks):
-    g, blk, ref_blk = _layout(name)
+    g, png, blk, ref_blk = _layout(name)
     ref = ref_ops.pack_blocked(ref_blk, g.num_nodes, edge_block=16, lane=1)
     k, u_slots = np.asarray(ref.update_src).shape
     want = _pairs(np.asarray(ref.edge_upd).reshape(k, -1),
                   np.asarray(ref.edge_dst).reshape(k, -1), u_slots,
                   blk.part_size)
-    s = tile_schedule(blk, tile_bytes=tile_bytes, blocks=blocks, device="cpu")
+    s = tile_schedule(png, tile_bytes=tile_bytes, blocks=blocks, device="cpu")
     got = [[] for _ in range(k)]
     for p, _, eu, ed in _schedule_edges(s):
         got[p].append(np.stack([eu, ed], 1))
@@ -105,8 +105,8 @@ def test_order_is_a_permutation_of_the_reference_pairs(name, tile_bytes,
 @pytest.mark.parametrize("tile_bytes,blocks", SCHEDULES)
 def test_chunks_cover_the_real_edges_once_inside_one_tile(name, tile_bytes,
                                                           blocks):
-    g, blk, _ = _layout(name)
-    s = tile_schedule(blk, tile_bytes=tile_bytes, blocks=blocks, device="cpu")
+    g, png, blk, _ = _layout(name)
+    s = tile_schedule(png, tile_bytes=tile_bytes, blocks=blocks, device="cpu")
     assert s.tile == ops.tile_size(blk.part_size, tile_bytes)
     assert s.tile % 4 == 0 and s.tile * 4 <= max(tile_bytes, 16)
     chunks = s.chunks.numpy()
@@ -136,8 +136,8 @@ def test_chunks_cover_the_real_edges_once_inside_one_tile(name, tile_bytes,
 
 @pytest.mark.parametrize("name", GRAPHS)
 def test_hubs_are_each_tiles_heaviest_destinations(name):
-    _, blk, _ = _layout(name)
-    s = tile_schedule(blk, tile_bytes=64, blocks=3, device="cpu")
+    _, png, blk, _ = _layout(name)
+    s = tile_schedule(png, tile_bytes=64, blocks=3, device="cpu")
     n_tiles = -(-blk.part_size // s.tile)
     counts = np.zeros((s.num_partitions * n_tiles, s.tile), dtype=np.int64)
     for p, t, _, ed in _schedule_edges(s):
@@ -177,8 +177,10 @@ def test_b1_path_choices():
 
 
 # ------------------------------------------------ the kernel's chunk loop
-def emulate_tile_loop(bins: torch.Tensor, s: TileSchedule) -> torch.Tensor:
-    """B1's "tile" path as the CUDA source runs it, block by block and
+def emulate_tile_loop(bins: torch.Tensor, offsets: torch.Tensor,
+                      s: TileSchedule) -> torch.Tensor:
+    """B1's "tile" path as the CUDA source runs it on ragged bins (U,),
+    partition p's from ``offsets[p]``, block by block and
     chunk by chunk: zero the tile, the ragged edges (up to 3 before the
     first 16-byte boundary of the streams and after the last, one a
     thread) and the aligned body (groups of 4), shared adds inside the
@@ -187,11 +189,12 @@ def emulate_tile_loop(bins: torch.Tensor, s: TileSchedule) -> torch.Tensor:
     first 16-byte boundary, groups of 4 skipped when all zero, the scalar
     rest). Asserts that each edge and each tile slot is taken exactly
     once."""
-    k, num_updates, _ = bins.shape
+    k = s.num_partitions
     p_size, tile = s.part_size, s.tile
     eu, ed = s.edge_upd.long(), s.edge_dst.long()
     out = torch.zeros(k * p_size, dtype=torch.float32)
-    vals = bins.float()[..., 0]
+    vals = bins.float().view(-1)
+    off = offsets.tolist()
     chunks, starts = s.chunks.tolist(), s.block_chunks.tolist()
     n_tiles = -(-p_size // tile)
     for b in range(s.blocks):
@@ -211,9 +214,10 @@ def emulate_tile_loop(bins: torch.Tensor, s: TileSchedule) -> torch.Tensor:
             assert sorted(edges.tolist()) == list(range(first, end))
             if len(edges):
                 u, j = eu[edges], ed[edges]
-                ok = (u >= 0) & (u < num_updates) & (j >= 0) & (j < p_size)
+                up = off[p + 1] - off[p]               # partition p's bins
+                ok = (u >= 0) & (u < up) & (j >= 0) & (j < p_size)
                 u, j = u[ok], j[ok]
-                v = vals[p, u]
+                v = vals[off[p] + u]
                 jt = j - t0
                 inside = (jt >= 0) & (jt < tn)
                 out.index_add_(0, p * p_size + j[~inside], v[~inside])
@@ -245,14 +249,19 @@ def emulate_tile_loop(bins: torch.Tensor, s: TileSchedule) -> torch.Tensor:
 
 
 def _packed_and_bins(name, *, exact, seed=0):
-    g, blk, _ = _layout(name)
+    """The PNG, its packed blocked streams, the padded bins (k, U, 1) of
+    a random x that the "warp" path's plain version reads, and the
+    ragged bins (U,) with their offsets that the "tile" path reads."""
+    g, png, blk, _ = _layout(name)
     packed = pack_blocked(blk, g.num_nodes, edge_block=16, device="cpu")
     rng = np.random.default_rng(seed)
-    x = (rng.integers(0, 16, g.num_nodes) / 16 if exact
-         else rng.random(g.num_nodes)).astype(np.float32)
+    x = torch.from_numpy((rng.integers(0, 16, g.num_nodes) / 16 if exact
+                          else rng.random(g.num_nodes)).astype(np.float32))
     k, u = packed.update_src.shape
-    bins = torch.from_numpy(x)[packed.update_src.view(-1)].view(k, u, 1)
-    return blk, packed, bins
+    bins = x[packed.update_src.view(-1)].view(k, u, 1)
+    ragged = x[torch.from_numpy(png.update_src).long()]
+    offsets = torch.from_numpy(png.update_offsets.astype(np.int32))
+    return png, packed, bins, ragged, offsets
 
 
 def _streams(packed, order, seed):
@@ -278,29 +287,33 @@ def _streams(packed, order, seed):
 @pytest.mark.parametrize("order", ["update-major", "dst-sorted", "random"])
 @pytest.mark.parametrize("exact", [True, False])
 def test_tile_loop_emulation_matches_plain(name, order, exact):
-    blk, packed, bins = _packed_and_bins(name, exact=exact, seed=len(order))
+    png, packed, bins, ragged, offsets = _packed_and_bins(
+        name, exact=exact, seed=len(order))
+    psz = packed.part_size
     if order == "update-major":
-        s = tile_schedule(blk, tile_bytes=64, blocks=5, device="cpu")
+        s = tile_schedule(png, tile_bytes=64, blocks=5, device="cpu")
     else:
         # chunks cut by count, each given the tile of its first edge: the
         # other edges of a chunk fall outside it and go to the global adds
         s = hand_schedule(*_streams(packed, order, seed=3),
-                          part_size=blk.part_size,
+                          part_size=psz,
                           num_partitions=packed.num_partitions,
-                          tile=ops.tile_size(blk.part_size, 64),
+                          tile=ops.tile_size(psz, 64),
                           chunk_edges=7, blocks=4)
     ref = pcpm_gather_ref(bins, packed.edge_upd, packed.edge_dst,
-                          part_size=blk.part_size)
+                          part_size=psz)
     tol = dict(rtol=0, atol=0) if exact else dict(rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(emulate_tile_loop(bins, s), ref, **tol)
-    torch.testing.assert_close(tile_gather_ref(bins, s), ref, **tol)
+    torch.testing.assert_close(emulate_tile_loop(ragged, offsets, s), ref,
+                               **tol)
+    torch.testing.assert_close(tile_gather_ref(ragged, s, offsets), ref,
+                               **tol)
 
 
 def test_hand_schedule_puts_edges_outside_their_tile():
-    blk, packed, _ = _packed_and_bins("rmat10", exact=True)
-    tile = ops.tile_size(blk.part_size, 64)
+    _, packed, _, _, _ = _packed_and_bins("rmat10", exact=True)
+    tile = ops.tile_size(packed.part_size, 64)
     s = hand_schedule(*_streams(packed, "random", seed=3),
-                      part_size=blk.part_size,
+                      part_size=packed.part_size,
                       num_partitions=packed.num_partitions, tile=tile,
                       chunk_edges=7, blocks=4)
     outside = sum(int(((ed < t * tile) | (ed >= (t + 1) * tile)).sum())
@@ -309,8 +322,8 @@ def test_hand_schedule_puts_edges_outside_their_tile():
 
 
 def test_schedule_rejects_a_bad_table():
-    blk, _, _ = _packed_and_bins("rmat8", exact=True)
-    s = tile_schedule(blk, tile_bytes=64, blocks=3, device="cpu")
+    png = _packed_and_bins("rmat8", exact=True)[0]
+    s = tile_schedule(png, tile_bytes=64, blocks=3, device="cpu")
     fields = dict(part_size=s.part_size, num_partitions=s.num_partitions,
                   tile=s.tile, edge_upd=s.edge_upd, edge_dst=s.edge_dst,
                   chunks=s.chunks, block_chunks=s.block_chunks,
@@ -338,24 +351,23 @@ def test_schedule_rejects_a_bad_table():
 
 # ---------------------------------------------------------- the wrapper
 def test_wrapper_takes_the_tile_path_plain_version_on_the_cpu():
-    blk, packed, bins = _packed_and_bins("rmat10", exact=True)
-    s = tile_schedule(blk, tile_bytes=64, blocks=5, device="cpu")
+    png, packed, bins, ragged, offsets = _packed_and_bins("rmat10",
+                                                          exact=True)
+    s = tile_schedule(png, tile_bytes=64, blocks=5, device="cpu")
     before = dict(kernel.launch_counts), kernel.launch_count
-    out = pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
-                           part_size=blk.part_size, schedule=s)
+    out = tile_gather_cuda(ragged, offsets, s)
     torch.testing.assert_close(out, pcpm_gather_ref(
-        bins, packed.edge_upd, packed.edge_dst, part_size=blk.part_size),
+        bins, packed.edge_upd, packed.edge_dst, part_size=packed.part_size),
         rtol=0, atol=0)
     assert (dict(kernel.launch_counts), kernel.launch_count) == before
     # the schedule of a layout with one more partition
-    n_tiles = -(-blk.part_size // s.tile)
+    n_tiles = -(-packed.part_size // s.tile)
     other = TileSchedule(**{**s.__dict__,
                             "num_partitions": s.num_partitions + 1,
                             "hubs": torch.cat([s.hubs, torch.full(
                                 (n_tiles, ops.HUBS), -1, dtype=torch.int32)])})
     with pytest.raises(ValueError, match="schedule"):
-        pcpm_gather_cuda(bins, packed.edge_upd, packed.edge_dst,
-                         part_size=blk.part_size, schedule=other)
+        tile_gather_cuda(ragged, offsets, other)
 
 
 def _enum_names(source) -> list[str]:
@@ -369,34 +381,41 @@ def _enum_names(source) -> list[str]:
 def test_packed_arguments_are_the_c_sides_in_its_order():
     assert _enum_names(kernel.SOURCE) == [
         n.replace("_", "").lower() for n in kernel.ARGS.names]
-    blk, packed, bins = _packed_and_bins("rmat10", exact=True)
-    s = tile_schedule(blk, tile_bytes=64, blocks=5, device="cpu")
+    png, packed, bins, ragged, offsets = _packed_and_bins("rmat10",
+                                                          exact=True)
+    psz = packed.part_size
+    s = tile_schedule(png, tile_bytes=64, blocks=5, device="cpu")
     k, u, d = bins.shape
-    acc = torch.zeros((k, blk.part_size, 1))
+    acc = torch.zeros((k, psz, 1))
     _, n_eb, eb = packed.edge_upd.shape
     common = dict(bf16=0, rows=bins.data_ptr(), update_src=0, n=0,
                   edge_upd=packed.edge_upd.data_ptr(),
                   edge_dst=packed.edge_dst.data_ptr(), acc=acc.data_ptr(),
-                  out=0, k=k, U=u, n_eb=n_eb, Eb=eb, P=blk.part_size, d=d,
-                  vec=0, lanes=0, range=0)
+                  out=0, k=k, U=u, n_eb=n_eb, Eb=eb, P=psz, d=d,
+                  vec=0, lanes=0, range=0, update_offsets=0)
+    # "tile", as tile_gather_cuda launches it: ragged bins (U,) with
+    # their offsets and no blocked streams
     got = kernel.ARGS.unpack(kernel.launch_args(
-        "tile", bins, packed.edge_upd, packed.edge_dst, acc, None,
-        blk.part_size, num_updates=u, schedule=s))
-    assert got == dict(common, path=1, tile_upd=s.edge_upd.data_ptr(),
+        "tile", ragged, None, None, acc, None, psz,
+        num_updates=png.num_updates, schedule=s, update_offsets=offsets))
+    tile_tables = dict(tile_upd=s.edge_upd.data_ptr(),
                        tile_dst=s.edge_dst.data_ptr(),
                        chunks=s.chunks.data_ptr(),
                        block_chunks=s.block_chunks.data_ptr(),
                        hub_table=s.hubs.data_ptr(), tile=s.tile, blocks=5)
+    assert got == dict(common, path=1, rows=ragged.data_ptr(), edge_upd=0,
+                       edge_dst=0, U=png.num_updates, n_eb=0, Eb=0,
+                       update_offsets=offsets.data_ptr(), **tile_tables)
     # "warp" from bins, as pcpm_gather_cuda launches it: bins as the
     # (k·U, d) rows of x with the identity update_src; its geometry, no
     # tile tables
     geometry = kernel.WarpGeometry(vec=8, lanes=2, blocks=3, range=24)
-    out = torch.empty((k, blk.part_size, 1), dtype=torch.bfloat16)
+    out = torch.empty((k, psz, 1), dtype=torch.bfloat16)
     b16 = bins.bfloat16().view(k * u, d)
     identity = torch.arange(k * u, dtype=torch.int32).view(k, u)
     got = kernel.ARGS.unpack(kernel.launch_args(
         "warp", b16, packed.edge_upd, packed.edge_dst, acc, out,
-        blk.part_size, num_updates=u, update_src=identity,
+        psz, num_updates=u, update_src=identity,
         geometry=geometry))
     tables = ("tile_upd", "tile_dst", "chunks", "block_chunks", "hub_table",
               "tile")
@@ -408,7 +427,7 @@ def test_packed_arguments_are_the_c_sides_in_its_order():
     x = torch.zeros((packed.num_nodes, 16))
     got = kernel.ARGS.unpack(kernel.launch_args(
         "warp", x, packed.edge_upd, packed.edge_dst, acc, None,
-        blk.part_size, num_updates=u, update_src=packed.update_src,
+        psz, num_updates=u, update_src=packed.update_src,
         geometry=geometry))
     assert got == dict(common, path=0, rows=x.data_ptr(),
                        update_src=packed.update_src.data_ptr(),
@@ -439,9 +458,10 @@ def test_pagerank_through_the_tile_order_matches_reference(name, monkeypatch):
     x = np.random.default_rng(0).random(r.num_nodes).astype(np.float32)
     y_ref = ref_ops.pcpm_spmv_pallas(ref_packed, jnp.asarray(x),
                                      interpret=True)
-    blk = block_png(build_png(g, Partitioning(g.num_nodes, part_size)))
-    y = ops.pcpm_spmv_pallas(
-        pack_blocked(blk, g.num_nodes, device="cpu"), torch.from_numpy(x),
-        schedule=tile_schedule(blk, device="cpu"))
+    png = build_png(g, Partitioning(g.num_nodes, part_size))
+    y = ops.pcpm_spmv_tile(
+        torch.from_numpy(x), torch.from_numpy(png.update_src),
+        torch.from_numpy(png.update_offsets.astype(np.int32)),
+        tile_schedule(png, device="cpu"))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-5,
                                atol=1e-6)

@@ -424,9 +424,10 @@ def test_fused_plain_version_matches_reference_pallas(scale, deg, part_size,
 
 # -------------------------------------------------------- the wrapper
 def test_spmv_pallas_warp_route_makes_no_bins(monkeypatch):
-    """The "warp" route (d > 1, or d = 1 without a schedule) hands ``x``
-    itself to the fused form and never calls the bins form; the "tile"
-    route (d = 1 with a schedule) still gathers bins for it."""
+    """``pcpm_spmv_pallas`` (the "warp" route, any d) hands ``x`` itself
+    to the fused form and never calls the bins form; the "tile" route
+    (``pcpm_spmv_tile``, d = 1) gathers the PNG's ragged (U,) bins for
+    it."""
     g, packed = _layout()
     calls = []
     real = {"spmv": kernel.pcpm_spmv_cuda, "bins": kernel.pcpm_gather_cuda}
@@ -437,8 +438,9 @@ def test_spmv_pallas_warp_route_makes_no_bins(monkeypatch):
             return real[name](rows, *a, **kw)
         return call
 
+    real["ragged"] = kernel.tile_gather_cuda
     monkeypatch.setattr(ops, "pcpm_spmv_cuda", spy("spmv"))
-    monkeypatch.setattr(ops, "pcpm_gather_cuda", spy("bins"))
+    monkeypatch.setattr(ops, "tile_gather_cuda", spy("ragged"))
     for d in (1, 16):
         x = _x(g.num_nodes, d, seed=d)
         y = pcpm_spmv_pallas(packed, x if d > 1 else x[:, 0])
@@ -448,12 +450,13 @@ def test_spmv_pallas_warp_route_makes_no_bins(monkeypatch):
         torch.testing.assert_close(y.reshape(g.num_nodes, d),
                                    want.view(-1, d)[:g.num_nodes],
                                    rtol=0, atol=0)
-    blk = block_png(build_png(g, Partitioning(g.num_nodes, 100)))
-    k, u = packed.update_src.shape
-    pcpm_spmv_pallas(packed, _x(g.num_nodes, 1, seed=1)[:, 0],
-                     schedule=ops.tile_schedule(blk, device="cpu"))
+    png = build_png(g, Partitioning(g.num_nodes, 100))
+    ops.pcpm_spmv_tile(_x(g.num_nodes, 1, seed=1)[:, 0],
+                       torch.from_numpy(png.update_src),
+                       torch.from_numpy(png.update_offsets.astype(np.int32)),
+                       ops.tile_schedule(png, device="cpu"))
     name, _, shape = calls.pop()
-    assert (name, shape, calls) == ("bins", (k, u, 1), [])
+    assert (name, shape, calls) == ("ragged", (png.num_updates,), [])
 
 
 def test_spmv_cuda_checks_and_counts_nothing_on_the_cpu():

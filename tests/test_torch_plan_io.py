@@ -52,7 +52,10 @@ def assert_same_plan(a, b):
                                   b.config.gather_block, b.config.reorder)
     assert (a.graph_fp, a.parent_fp) == (b.graph_fp, b.parent_fp)
     for part, names in ARRAYS.items():
+        # a port plan holds no blocked form: ``blocked_of`` derives it
         pa, pb = ((a, b) if part is None
+                  else (plan_mod.blocked_of(a), plan_mod.blocked_of(b))
+                  if part == "blocked"
                   else (getattr(a, part), getattr(b, part)))
         assert (pa is None) == (pb is None), part
         if pa is None:
@@ -66,11 +69,10 @@ def assert_same_plan(a, b):
     if a.schedule is not None:
         assert (a.schedule.block, a.schedule.num_edges) == (
             b.schedule.block, b.schedule.num_edges)
-    if a.blocked is not None:
-        assert (a.blocked.part_size, a.blocked.update_pad_frac,
-                a.blocked.edge_pad_frac) == (
-            b.blocked.part_size, b.blocked.update_pad_frac,
-            b.blocked.edge_pad_frac)
+    ba, bb = plan_mod.blocked_of(a), plan_mod.blocked_of(b)
+    if ba is not None:
+        assert (ba.part_size, ba.update_pad_frac, ba.edge_pad_frac) == (
+            bb.part_size, bb.update_pad_frac, bb.edge_pad_frac)
 
 
 @pytest.mark.parametrize("reorder", ["none", "degree"])

@@ -162,7 +162,9 @@ def _assert_plans_equal(a, b, what):
                                        "piece_dst")),
                          ("blocked", ("update_src", "edge_update_local",
                                       "edge_dst_local"))):
-        x, y = getattr(a, part), getattr(b, part)
+        # a port plan holds no blocked form: ``blocked_of`` derives it
+        x, y = (plan_mod.blocked_of(p) if part == "blocked"
+                else getattr(p, part) for p in (a, b))
         assert (x is None) == (y is None), (what, part)
         for f in fields if x is not None else ():
             assert np.array_equal(getattr(x, f), getattr(y, f)), (
@@ -171,7 +173,7 @@ def _assert_plans_equal(a, b, what):
 
 
 def _assert_tile_schedules_equal(a, b):
-    s, t = (tile_schedule(p.blocked, device="cpu") for p in (a, b))
+    s, t = (tile_schedule(p.png, device="cpu") for p in (a, b))
     assert (s.tile, s.part_size, s.num_partitions) == (
         t.tile, t.part_size, t.num_partitions)
     for f in ("edge_upd", "edge_dst", "chunks", "block_chunks", "hubs"):
@@ -854,7 +856,8 @@ def _corruptions(method):
 
     def sub(part, field, idx, value):
         def edit(p):
-            obj = getattr(p, part)
+            obj = (plan_mod.blocked_of(p) if part == "blocked"
+                   else getattr(p, part))
             arr = getattr(obj, field).copy()
             arr[idx] = value(p)
             return dataclasses.replace(p, **{part: dataclasses.replace(
@@ -880,7 +883,7 @@ def _corruptions(method):
                                        lambda p: -1))]
     if method == "pcpm_pallas":
         out += [("edge_dst_local", sub("blocked", "edge_dst_local", (0, 0),
-                                       lambda p: p.blocked.part_size + 1)),
+                                       lambda p: p.part_size + 1)),
                 ("update_src", sub("blocked", "update_src", (1, 0),
                                    lambda p: -2))]
     return out
